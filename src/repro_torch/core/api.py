@@ -1,0 +1,232 @@
+"""Plan construction + the encode/product building blocks.
+
+``CodedMatmulPlan`` freezes everything static about one coded matmul; it is
+host data (numpy), so a plan built by the reference package carries across
+field by field (:func:`plan_from_arrays`).  ``encode_blocks`` /
+``worker_products`` / ``fused_worker_products`` are the stage primitives
+the runtime executors are built from; they run on the device of the tensors
+they are given.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import bounds as bounds_mod
+from repro_torch.core.decoding import DecodePanelCache
+from repro_torch.core.numerics import complex_dtype
+from repro_torch.core.points import extend_points, make_points
+from repro_torch.core.schemes import Scheme, make_scheme
+
+__all__ = ["CodedMatmulPlan", "make_plan", "plan_from_arrays", "extend_plan",
+           "shrink_plan", "encode_blocks", "worker_products",
+           "fused_worker_products", "uncoded_matmul"]
+
+
+@dataclasses.dataclass(frozen=True)
+class CodedMatmulPlan:
+    """Everything static about one coded matmul configuration."""
+
+    scheme: Scheme
+    K: int
+    s: float
+    z_points: np.ndarray          # (K,)
+    coeff_a: np.ndarray           # (K, p, m) encode coefficients for A blocks
+    coeff_b: np.ndarray           # (K, p, n)
+
+    @property
+    def tau(self) -> int:
+        return self.scheme.tau
+
+    @property
+    def is_complex(self) -> bool:
+        return np.iscomplexobj(self.z_points)
+
+    def make_panel_cache(self, ridge: float = 0.0) -> DecodePanelCache:
+        """Per-mask decode-panel cache (LU of the masked normal equations).
+
+        Build ONE cache per plan and reuse it across steps: panels are
+        factored on the host on first sight of an erasure pattern and
+        amortised to a dict lookup afterwards.
+        """
+        return DecodePanelCache(self.scheme, self.z_points, ridge)
+
+
+def make_plan(
+    kind: str,
+    p: int,
+    m: int,
+    n: int,
+    K: int,
+    L: int,
+    *,
+    p_prime: int = 1,
+    points: str = "equispaced",
+    s: Optional[float] = None,
+    z_points: Optional[np.ndarray] = None,
+) -> CodedMatmulPlan:
+    """Freeze one coded-matmul configuration into a plan.
+
+    kind:    scheme family - "bec" (Sec. III-B), "tradeoff" (Sec. IV, with
+             ``p_prime``), or "polycode" (the Yu et al. baseline).
+    p, m, n: block grid - A is split p x m, B is split p x n.
+    K:       number of workers (evaluation points); must be >= the scheme's
+             recovery threshold tau.
+    L:       entry-product bound (Sec. III-D): every C entry and every
+             interference product must have magnitude < L.
+    points:  evaluation-point family ("equispaced" / "chebyshev" /
+             "unit_circle").  Unit-circle points make a complex plan, which
+             runs on the plain complex PyTorch path, never the kernels.
+    s:       the digit base; default ``bounds.choose_s(L)`` - the smallest
+             power of two >= 2L.  An explicit ``s`` must be >= 2.
+    z_points: explicit (K,) evaluation points, overriding ``points``.
+    """
+    scheme = make_scheme(kind, p, m, n, p_prime=p_prime)
+    if K < scheme.tau:
+        raise ValueError(f"K={K} below recovery threshold tau={scheme.tau}")
+    if z_points is not None:
+        z = np.asarray(z_points)
+        if z.shape != (K,):
+            raise ValueError(f"z_points shape {z.shape} != ({K},)")
+    else:
+        z = make_points(points, K)
+    s_val = float(s) if s is not None else float(bounds_mod.choose_s(L))
+    if s_val < 2:
+        raise ValueError(f"digit base s={s_val} must be >= 2 (and >= 2L={2 * L} "
+                         "for exact digit extraction)")
+    ca, cb = scheme.encode_coeffs(z, s_val)
+    return CodedMatmulPlan(scheme=scheme, K=K, s=s_val, z_points=z,
+                           coeff_a=ca, coeff_b=cb)
+
+
+def plan_from_arrays(kind: str, p: int, m: int, n: int, p_prime: int, K: int,
+                     s: float, z_points, coeff_a, coeff_b) -> CodedMatmulPlan:
+    """A plan from another package's plan fields, given as plain values.
+
+    ``kind`` is a scheme family name as for :func:`make_plan`; the arrays
+    are copied as numpy arrays, unchanged, so a plan built elsewhere
+    decodes here with bit-identical tables.
+
+    Raises:
+        ValueError: if the array shapes disagree with (K, p, m, n).
+    """
+    scheme = make_scheme(kind, p, m, n, p_prime=p_prime)
+    z = np.array(z_points)
+    ca = np.array(coeff_a)
+    cb = np.array(coeff_b)
+    if z.shape != (K,) or ca.shape != (K, p, m) or cb.shape != (K, p, n):
+        raise ValueError(
+            f"plan arrays z {z.shape}, coeff_a {ca.shape}, coeff_b {cb.shape} "
+            f"do not match K={K}, p={p}, m={m}, n={n}")
+    if K < scheme.tau:
+        raise ValueError(f"K={K} below recovery threshold tau={scheme.tau}")
+    return CodedMatmulPlan(scheme=scheme, K=int(K), s=float(s), z_points=z,
+                           coeff_a=ca, coeff_b=cb)
+
+
+def extend_plan(plan: CodedMatmulPlan, g: int,
+                z_new: Optional[np.ndarray] = None) -> CodedMatmulPlan:
+    """Grow a plan by ``g`` workers via incremental point extension.
+
+    Evaluation points extend by greedy Leja selection
+    (``core.points.extend_points``) and ONLY the ``g`` new coefficient rows
+    are computed, so the first K rows of the result are bit-identical to
+    ``plan``'s.  ``z_new`` optionally supplies the already-extended
+    ``(K + g,)`` point set (it must extend ``plan``'s points bit-exactly).
+    """
+    if g < 0:
+        raise ValueError(f"g must be >= 0, got {g}")
+    if g == 0:
+        return plan
+    if z_new is not None:
+        z = np.asarray(z_new)
+        if z.shape != (plan.K + g,) or not np.array_equal(
+                z[:plan.K], np.asarray(plan.z_points)):
+            raise ValueError(
+                f"z_new must extend the plan's {plan.K} points by {g}")
+    else:
+        z = extend_points(plan.z_points, g)
+    ca_new, cb_new = plan.scheme.encode_coeffs(z[plan.K:], plan.s)
+    return CodedMatmulPlan(
+        scheme=plan.scheme, K=plan.K + g, s=plan.s, z_points=z,
+        coeff_a=np.concatenate([plan.coeff_a, ca_new], axis=0),
+        coeff_b=np.concatenate([plan.coeff_b, cb_new], axis=0))
+
+
+def shrink_plan(plan: CodedMatmulPlan, keep: Sequence[int]) -> CodedMatmulPlan:
+    """Shrink a plan to the ``keep`` workers (pool-local indices, in order).
+
+    Survivors keep their evaluation points and coefficient rows (sliced,
+    not re-encoded - bit-identical).
+
+    Raises:
+        ValueError: if ``keep`` has duplicates, indexes outside the pool,
+            or leaves fewer than ``tau`` workers (undecodable).
+    """
+    idx = np.asarray(keep, dtype=np.intp)
+    if idx.ndim != 1 or len(set(idx.tolist())) != idx.size:
+        raise ValueError(f"keep must be 1-D and duplicate-free, got {keep!r}")
+    if idx.size and (idx.min() < 0 or idx.max() >= plan.K):
+        raise ValueError(f"keep indexes outside the pool of {plan.K} workers")
+    if idx.size < plan.tau:
+        raise ValueError(
+            f"shrinking to {idx.size} workers breaks tau={plan.tau}")
+    return CodedMatmulPlan(
+        scheme=plan.scheme, K=int(idx.size), s=plan.s,
+        z_points=plan.z_points[idx],
+        coeff_a=plan.coeff_a[idx], coeff_b=plan.coeff_b[idx])
+
+
+def _coeff_dtype(x: torch.Tensor, plan: CodedMatmulPlan) -> torch.dtype:
+    if plan.is_complex:
+        return complex_dtype(x.dtype)
+    return x.dtype
+
+
+def _coeffs(table: np.ndarray, like: torch.Tensor, plan: CodedMatmulPlan):
+    return torch.as_tensor(table, dtype=_coeff_dtype(like, plan),
+                           device=like.device)
+
+
+def encode_blocks(plan: CodedMatmulPlan, a_blocks: torch.Tensor,
+                  b_blocks: torch.Tensor):
+    """a_blocks: (p, m, bv, br), b_blocks: (p, n, bv, bt)
+    -> (K, bv, br), (K, bv, bt) coded matrices per worker."""
+    ca = _coeffs(plan.coeff_a, a_blocks, plan)
+    cb = _coeffs(plan.coeff_b, b_blocks, plan)
+    a_tilde = torch.einsum("kpm,pmvr->kvr", ca, a_blocks.to(ca.dtype))
+    b_tilde = torch.einsum("kpn,pnvt->kvt", cb, b_blocks.to(cb.dtype))
+    return a_tilde, b_tilde
+
+
+def worker_products(a_tilde: torch.Tensor, b_tilde: torch.Tensor) -> torch.Tensor:
+    """Per-worker products Y_k = A~_k^T B~_k: (K, bv, br), (K, bv, bt) -> (K, br, bt)."""
+    return torch.einsum("kvr,kvt->krt", a_tilde, b_tilde)
+
+
+def fused_worker_products(plan: CodedMatmulPlan, a_blocks: torch.Tensor,
+                          b_blocks: torch.Tensor) -> torch.Tensor:
+    """All worker products via the fused encode+product kernel.
+
+    a_blocks: (p, m, bv, br), b_blocks: (p, n, bv, bt) -> (K, br, bt).
+    Equivalent to encode_blocks + worker_products, but on the card the
+    coded matrices A~, B~ are formed only tile-wise in shared memory.  The
+    block views go to the kernel as they are (offsets + row stride), with
+    no copy into a (p*m, bv, br) stack.
+    """
+    from repro_torch.kernels import ops as kops
+
+    p, m = a_blocks.shape[:2]
+    n = b_blocks.shape[1]
+    ca = _coeffs(plan.coeff_a.reshape(plan.K, p * m), a_blocks, plan)
+    cb = _coeffs(plan.coeff_b.reshape(plan.K, p * n), b_blocks, plan)
+    return kops.fused_worker(ca, cb, a_blocks, b_blocks)
+
+
+def uncoded_matmul(A: torch.Tensor, B: torch.Tensor,
+                   dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """Direct C = A^T B reference; leading batch dims broadcast on either side."""
+    return torch.einsum("...vr,...vt->...rt", A.to(dtype), B.to(dtype))

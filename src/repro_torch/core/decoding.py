@@ -1,0 +1,230 @@
+"""Decoding: interpolation + digit extraction (paper Sec. III-C).
+
+Given worker outputs Y_k = A~(s,z_k)^T B~(s,z_k) from any tau survivors:
+
+1. Vandermonde-interpolate the z-polynomial coefficients X_0..X_{tau-1}.
+2. Select the useful powers X_{phi(i,j)}.
+3. Digit extraction (bounded-entry schemes only):
+     R   = round(X)            # kills the negative s-digits (< 1/2 total)
+     C^  = R mod s             # in [0, s)
+     C   = C^            if C^ <= s/2
+           C^ - s        otherwise       # sign recentering
+   With s a power of two the mod is exact in binary floating point.
+
+For the baseline polynomial code the useful coefficient IS C_ij (round only).
+
+Decode panels (the per-mask weights W) are host scipy math, bit-identical
+to the reference package's; the functions here that take tensors are the
+plain PyTorch versions.  The runtime's kernel path decodes through
+``kernels.ops.decode`` and must agree with :func:`decode_with_weights`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.schemes import Scheme
+from repro_torch.core.vandermonde import interpolate_masked, interpolate_solve
+
+__all__ = [
+    "digit_extract", "decode", "decode_masked",
+    "DecodePanel", "DecodePanelCache", "make_decode_panel",
+    "decode_with_panel", "decode_with_weights",
+]
+
+
+def digit_extract(X: torch.Tensor, s: float, round_first: bool = True) -> torch.Tensor:
+    """Recover the s^0 digit of X = ... + *s^{-1} + C + *s + ... , |C| < s/2.
+
+    ``torch.round`` rounds halves to even, as ``jnp.round`` does.
+    """
+    R = torch.round(X) if round_first else X
+    C_hat = torch.remainder(R, s)  # convention: result in [0, s)
+    return torch.where(C_hat <= s / 2, C_hat, C_hat - s)
+
+
+def _finish_extract(scheme: Scheme, Xu: torch.Tensor, s: float,
+                    tail: tuple) -> torch.Tensor:
+    """Already-selected useful rows Xu (m*n, ...) -> (m, n, *tail) C blocks:
+    real part, digit extraction (or plain rounding), block reshape."""
+    g = scheme.grid
+    if Xu.is_complex():
+        Xu = Xu.real
+    if scheme.needs_digit_extraction:
+        C = digit_extract(Xu, s)
+    else:
+        C = torch.round(Xu)
+    return C.reshape(g.m, g.n, *tail)
+
+
+def _extract_useful(scheme: Scheme, X: torch.Tensor, s: float) -> torch.Tensor:
+    """X: (tau, br, bt) coefficients -> (m, n, br, bt) decoded C blocks."""
+    idx = torch.as_tensor(scheme.useful_z_exp().reshape(-1), device=X.device)
+    return _finish_extract(scheme, X[idx], s, tuple(X.shape[1:]))
+
+
+def decode(scheme: Scheme, z_survivors: torch.Tensor, Y_survivors: torch.Tensor,
+           s: float) -> torch.Tensor:
+    """Decode from exactly tau survivor outputs (static survivor set).
+
+    z_survivors: (tau,), Y_survivors: (tau, br, bt) -> C blocks (m, n, br, bt).
+    """
+    tau = scheme.tau
+    if z_survivors.shape[0] != tau:
+        raise ValueError(
+            f"need exactly tau={tau} survivors, got {z_survivors.shape[0]}; "
+            "slice the first tau or use decode_masked")
+    X = interpolate_solve(z_survivors, Y_survivors)
+    return _extract_useful(scheme, X, s)
+
+
+def decode_masked(scheme: Scheme, z_all: torch.Tensor, Y_all: torch.Tensor,
+                  mask: torch.Tensor, s: float, ridge: float = 0.0) -> torch.Tensor:
+    """Decode with a 0/1 survivor mask over all K workers (in-body solve).
+
+    Requires sum(mask) >= tau; erased rows of Y_all may hold garbage.
+    """
+    X = interpolate_masked(z_all, Y_all, mask, scheme.tau, ridge)
+    return _extract_useful(scheme, X, s)
+
+
+# ---------------------------------------------------------------------------
+# Decode panels: per-survivor-mask setup factored OUT of the decode hot path.
+#
+# The masked normal equations G X = V_w^H Y depend only on (z, mask), not on
+# the worker outputs Y.  A DecodePanel solves them ONCE on the host (LU
+# factorisation of G, then the useful rows of G^{-1} V_w^H) and is reused for
+# every later step with the same erasure pattern: decode becomes a single
+# (mn, K) @ (K, E) product + digit extraction.  Erased workers get zero
+# COLUMNS in W, so garbage rows of Y_all are annihilated.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePanel:
+    """Precomputed decode weights for one (z_points, survivor-mask) pair."""
+
+    mask: np.ndarray       # (K,) 0/1 as built
+    W: np.ndarray          # (mn, K) useful rows of G^{-1} V_w^H (host const)
+
+    @property
+    def K(self) -> int:
+        return self.W.shape[1]
+
+
+def make_decode_panel(scheme: Scheme, z_all: np.ndarray,
+                      mask: Optional[np.ndarray] = None,
+                      ridge: float = 0.0) -> DecodePanel:
+    """Factor the masked normal equations for a CONCRETE survivor mask.
+
+    Pure host math (scipy/numpy), the same operations in the same order as
+    the reference package, so the panel is bit-identical to its panel.
+    """
+    import scipy.linalg as sl
+
+    z = np.asarray(z_all)
+    K = z.shape[0]
+    # Binarise: panels model 0/1 survivorship (and the cache keys by
+    # support), so fractional weights would silently alias a cached panel.
+    m = np.ones(K) if mask is None else (np.asarray(mask) != 0).astype(np.float64)
+    if m.shape != (K,):
+        raise ValueError(f"mask shape {m.shape} != ({K},)")
+    if int(np.sum(m != 0)) < scheme.tau:
+        raise ValueError(
+            f"only {int(np.sum(m != 0))} survivors < tau={scheme.tau}")
+    tau = scheme.tau
+    V = z[:, None] ** np.arange(tau)[None, :]               # (K, tau)
+    Vw = V * m[:, None]
+    G = V.conj().T @ Vw                                      # (tau, tau)
+    if ridge:
+        G = G + ridge * np.eye(tau, dtype=G.dtype)
+    lu_piv = sl.lu_factor(G)
+    W_full = sl.lu_solve(lu_piv, Vw.conj().T)                # (tau, K)
+    useful = np.asarray(scheme.useful_z_exp()).reshape(-1)
+    return DecodePanel(mask=m, W=np.asarray(W_full[useful]))
+
+
+def decode_with_weights(scheme: Scheme, W: torch.Tensor, Y_all: torch.Tensor,
+                        s: float) -> torch.Tensor:
+    """Decode from a ready (mn, K) weight panel (plain PyTorch version).
+
+    Y_all: (K, br, bt) ALL worker outputs (garbage where erased) ->
+    (m, n, br, bt).  No linear solve inside; erased workers have zero
+    columns in W.
+    """
+    K = Y_all.shape[0]
+    Xu = W @ Y_all.reshape(K, -1).to(W.dtype)                # (mn, E)
+    return _finish_extract(scheme, Xu, s, tuple(Y_all.shape[1:]))
+
+
+def decode_with_panel(scheme: Scheme, panel: DecodePanel, Y_all: torch.Tensor,
+                      s: float) -> torch.Tensor:
+    """Y_all: (K, br, bt) ALL worker outputs (garbage where erased)
+    -> (m, n, br, bt) via the precomputed panel.  No linear solve inside."""
+    W = torch.as_tensor(panel.W, device=Y_all.device)
+    return decode_with_weights(scheme, W, Y_all, s)
+
+
+class DecodePanelCache:
+    """Memoises DecodePanels by erasure pattern.
+
+    For a stable mask (the common case - failures are rare events) this turns
+    decode set-up from an O(tau^3) factorisation per call into a dict lookup.
+    ``builds`` counts actual factorisations (tests assert cache hits).
+    """
+
+    def __init__(self, scheme: Scheme, z_all: np.ndarray, ridge: float = 0.0):
+        self.scheme = scheme
+        self.z_all = np.asarray(z_all)
+        self.ridge = ridge
+        self.builds = 0
+        self._panels: dict = {}
+
+    def get(self, mask: Optional[np.ndarray] = None) -> DecodePanel:
+        K = self.z_all.shape[0]
+        m = np.ones(K) if mask is None else np.asarray(mask)
+        key = tuple(int(x != 0) for x in m)
+        panel = self._panels.get(key)
+        if panel is None:
+            panel = make_decode_panel(self.scheme, self.z_all, m, self.ridge)
+            self._panels[key] = panel
+            self.builds += 1
+        return panel
+
+    def extended(self, z_new: np.ndarray) -> "DecodePanelCache":
+        """A cache over the Leja-extended point set, seeded from this one.
+
+        ``z_new`` must extend this cache's points (``z_new[:K] == z_all``
+        bit-exact).  Every cached panel transfers: a K-pool survivor
+        pattern is the (K+g)-pool pattern with all new workers erased, and
+        masking the new workers zeroes their Vandermonde rows, so the
+        normal-equations matrix G - hence the weights for the old workers -
+        is IDENTICAL, and the new workers contribute zero columns.  Seeding
+        therefore pads the cached ``W`` panels with zero columns instead of
+        refactoring (``builds`` starts at 0).
+
+        Raises:
+            ValueError: if ``z_new`` does not extend this cache's points.
+        """
+        z = np.asarray(z_new)
+        K = self.z_all.shape[0]
+        if z.ndim != 1 or z.shape[0] < K or not np.array_equal(z[:K],
+                                                               self.z_all):
+            raise ValueError("z_new must extend this cache's point set "
+                             "(bit-exact prefix)")
+        g = z.shape[0] - K
+        cache = DecodePanelCache(self.scheme, z, self.ridge)
+        if g == 0:
+            cache._panels = dict(self._panels)
+            return cache
+        pad_mask = np.zeros(g, dtype=np.float64)
+        for key, panel in self._panels.items():
+            W = np.concatenate(
+                [panel.W, np.zeros((panel.W.shape[0], g), panel.W.dtype)],
+                axis=1)
+            cache._panels[key + (0,) * g] = DecodePanel(
+                mask=np.concatenate([panel.mask, pad_mask]), W=W)
+        return cache

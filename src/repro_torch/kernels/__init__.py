@@ -1,0 +1,19 @@
+"""Hand-written CUDA kernels (sm_90a) for the coded-matmul hot spots.
+
+Two stages of the paper's pipeline, each with a plain PyTorch version in
+``ref`` and a wrapper in ``ops`` that runs the plain version for CPU
+tensors and launches the kernel for CUDA tensors:
+
+  coded_fused   - encode + all-K worker products in ONE kernel: coded tiles
+                  are formed in shared memory inside the product tiling, so
+                  A~/B~ never touch device memory (csrc/coded_fused.cu)
+  coded_decode  - decode panel @ worker outputs with FUSED digit extraction
+                  (round/mod-s/recentre); X never reaches device memory
+                  (csrc/coded_decode.cu)
+
+The CUDA sources are built with nvcc at first use (``_build``); importing
+this package builds nothing.
+"""
+from repro_torch.kernels import ops, ref
+
+__all__ = ["ops", "ref"]

@@ -1,0 +1,115 @@
+"""Fused ENCODE + WORKER-PRODUCT stage: the CUDA kernel and its plain version.
+
+Replaces ``src/repro/kernels/coded_fused.py::fused_worker_pallas`` (the
+TPU kernel).  For every worker k at once,
+
+    Y_k = (sum_P ca[k, P] * A_P)^T @ (sum_Q cb[k, Q] * B_Q)
+
+from the raw blocks A (P, v, r) and B (Q, v, t); the coded tiles are formed
+in shared memory and never reach device memory (``csrc/coded_fused.cu``).
+
+What bounds it on the card: FP64 operations, 2*K*r*t*v (1.28e12 at the
+paper's 8000^2 geometry) against about 2.3 GB of operands, so it is
+compute-bound.  The kernel is a simple register-blocked FMA product (a
+64x64 output tile per block, 4x4 per thread) with the encode fused into
+the shared-memory tile loads; tensor cores (DMMA) and TMA are later work.
+
+:func:`fused_worker_ref` (from ``ref``) is the plain version; the wrapper
+``ops.fused_worker`` runs it for CPU tensors and launches the kernel for
+CUDA tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+import itertools
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import fused_worker_ref
+
+__all__ = ["fused_worker_cuda", "fused_worker_ref", "MAX_BLOCKS"]
+
+MAX_BLOCKS = 64  # kMaxBlocks in csrc/coded_fused.cu
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SYMBOLS = {torch.float64: "repro_fused_worker_f64",
+            torch.float32: "repro_fused_worker_f32"}
+
+
+def _function(dtype: torch.dtype):
+    fn = getattr(_build.load("coded_fused"), _SYMBOLS[dtype])
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _P]
+    fn.restype = _I
+    return fn
+
+
+def _block_offsets(x: torch.Tensor):
+    """Element offsets of each (v, r) block of ``x`` (*grid, v, r), in
+    row-major grid order, plus the blocks' shared row stride."""
+    grid = x.shape[:-2]
+    strides = x.stride()[:-2]
+    offsets = [sum(i * s for i, s in zip(idx, strides))
+               for idx in itertools.product(*(range(g) for g in grid))]
+    return (_L * len(offsets))(*offsets), x.stride(-2)
+
+
+def _unit_column_stride(x: torch.Tensor) -> torch.Tensor:
+    return x if x.stride(-1) == 1 or x.shape[-1] == 1 else x.contiguous()
+
+
+def fused_worker_cuda(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
+                      a_blocks: torch.Tensor, b_blocks: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel: coeff_a (K, P), coeff_b (K, Q), a_blocks
+    (*grid_a, v, r), b_blocks (*grid_b, v, t), all CUDA tensors of one real
+    dtype (float64 or float32) -> (K, r, t).
+
+    The blocks may be strided views (e.g. from ``block_decompose``); only
+    the last dimension must be unit-stride, else it is made contiguous.
+
+    Raises:
+        ValueError: on mismatched shapes, devices or dtypes, or more than
+            ``MAX_BLOCKS`` blocks per operand.
+        NotImplementedError: for dtypes other than float64 / float32.
+        RuntimeError: if the launch fails.
+    """
+    tensors = (coeff_a, coeff_b, a_blocks, b_blocks)
+    dtype = coeff_a.dtype
+    if dtype not in _SYMBOLS:
+        raise NotImplementedError(
+            f"the fused CUDA kernel takes float64 or float32, not {dtype}")
+    if any(x.dtype != dtype or x.device != coeff_a.device for x in tensors):
+        raise ValueError("fused_worker_cuda needs one dtype and one device")
+    if coeff_a.device.type != "cuda":
+        raise ValueError("fused_worker_cuda needs CUDA tensors")
+    K, P = coeff_a.shape
+    K2, Q = coeff_b.shape
+    *grid_a, v, r = a_blocks.shape
+    *grid_b, v2, t = b_blocks.shape
+    if K != K2 or v != v2 or P != math.prod(grid_a) or Q != math.prod(grid_b):
+        raise ValueError(f"shape mismatch: coeff_a {tuple(coeff_a.shape)}, "
+                         f"coeff_b {tuple(coeff_b.shape)}, a_blocks "
+                         f"{tuple(a_blocks.shape)}, b_blocks {tuple(b_blocks.shape)}")
+    if P > MAX_BLOCKS or Q > MAX_BLOCKS:
+        raise ValueError(f"the fused kernel takes at most {MAX_BLOCKS} blocks "
+                         f"per operand, got P={P}, Q={Q}")
+    out = torch.empty((K, r, t), dtype=dtype, device=coeff_a.device)
+    if out.numel() == 0:
+        return out
+    ca = coeff_a.contiguous()
+    cb = coeff_b.contiguous()
+    a = _unit_column_stride(a_blocks)
+    b = _unit_column_stride(b_blocks)
+    a_off, a_sv = _block_offsets(a)
+    b_off, b_sv = _block_offsets(b)
+    stream = torch.cuda.current_stream(coeff_a.device).cuda_stream
+    err = _function(dtype)(
+        ca.data_ptr(), cb.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        ctypes.addressof(a_off), ctypes.addressof(b_off), K, P, Q, v, r, t,
+        a_sv, b_sv, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_worker kernel launch failed: cudaError {err}")
+    return out

@@ -1,0 +1,296 @@
+"""``CodedMatmul``: one executor-agnostic entry point for coded matmuls.
+
+The facade owns:
+
+* the ``DecodePanelCache`` (host-LU decode weights per erasure pattern);
+* erasure normalisation (``erased=`` / ``survivors=`` / 0/1 ``mask``) into
+  one ``ErasurePattern``;
+* batching: leading batch dimensions on A and/or B (a loop over the
+  flattened batch, one erasure pattern for the whole batch);
+* a pipeline memo keyed by (plan, backend, A.shape, B.shape, dtype,
+  erasure kind) with build/hit counters, so repeated serving calls -
+  including calls with NEW erasure patterns - reuse one pipeline.  PyTorch
+  runs eagerly, so a "build" makes the pipeline closure; nothing compiles
+  per pattern (the CUDA libraries are built once per process, at first use).
+
+Usage::
+
+    cm = CodedMatmul(plan)                      # fused kernels, on the card
+    C  = cm(A, B, erased=[3])                   # or survivors=/mask=
+    C2 = cm.with_backend("reference")(A, B)     # same caches, new backend
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.api import CodedMatmulPlan
+from repro_torch.core.numerics import complex_dtype, resolve_device, resolve_dtype
+from repro_torch.runtime.erasure import ErasurePattern
+from repro_torch.runtime.executors import Executor, resolve_executor
+
+__all__ = ["CodedMatmul", "CacheGroup", "plan_token"]
+
+_SPLIT_STAGE = ("split-stage serving (worker_stage / decode_stage) is not "
+                "ported to the PyTorch package yet")
+
+
+def plan_token(plan: CodedMatmulPlan):
+    """Hashable identity of a plan's static configuration.
+
+    Folds in everything a pipeline or decode panel depends on: the scheme
+    (frozen geometry dataclass), worker count, digit base, and evaluation
+    points.  Equal-valued plans share a token even when they are distinct
+    objects.
+    """
+    return (plan.scheme, plan.K, plan.s,
+            tuple(np.asarray(plan.z_points).ravel().tolist()))
+
+
+class CacheGroup:
+    """Cross-facade shared caches for a FAMILY of plans.
+
+    ``CodedMatmul.with_backend`` already shares caches between sibling
+    facades of ONE plan; a ``CacheGroup`` extends that to many plans.
+    Pipeline keys fold in each facade's plan token, so distinct plans never
+    alias a pipeline, while the build/hit counters span the whole group.
+    Decode-panel caches remain per-plan (panels depend on the scheme and
+    evaluation points) but live here so every facade of the same plan
+    shares one.
+    """
+
+    def __init__(self):
+        self.executables: dict = {}
+        self.stats = {"builds": 0, "hits": 0}
+        self._panel_caches: dict = {}
+
+    def panel_cache_for(self, plan: CodedMatmulPlan, ridge: float = 0.0):
+        """The group's shared ``DecodePanelCache`` for ``plan`` (built once
+        per distinct plan token + ridge)."""
+        key = (plan_token(plan), ridge)
+        pc = self._panel_caches.get(key)
+        if pc is None:
+            pc = plan.make_panel_cache(ridge)
+            self._panel_caches[key] = pc
+        return pc
+
+    def seed_extended_panels(self, old_plan: CodedMatmulPlan,
+                             new_plan: CodedMatmulPlan,
+                             ridge: float = 0.0) -> bool:
+        """Seed ``new_plan``'s panel cache from ``old_plan``'s by extension.
+
+        When ``new_plan``'s evaluation points extend ``old_plan``'s
+        (bit-exact prefix), every cached decode panel transfers with zero
+        columns for the new workers (``DecodePanelCache.extended``).
+        Returns True when seeding happened; False when there was nothing to
+        seed from, the new cache already exists, or the points do not extend.
+        """
+        old = self._panel_caches.get((plan_token(old_plan), ridge))
+        new_key = (plan_token(new_plan), ridge)
+        if old is None or new_key in self._panel_caches:
+            return False
+        try:
+            self._panel_caches[new_key] = old.extended(
+                np.asarray(new_plan.z_points))
+        except ValueError:
+            return False
+        return True
+
+    @property
+    def panel_builds(self) -> int:
+        """Total decode panels built across every member plan."""
+        return sum(pc.builds for pc in self._panel_caches.values())
+
+    def cache_info(self) -> dict:
+        """Group-wide pipeline and decode-panel cache counters."""
+        return {
+            "builds": self.stats["builds"],
+            "hits": self.stats["hits"],
+            "entries": len(self.executables),
+            "panel_builds": self.panel_builds,
+            "plans": len(self._panel_caches),
+        }
+
+
+class CodedMatmul:
+    """Coded C = A^T B with a pluggable execution backend.
+
+    A: (*batch, v, r), B: (*batch, v, t) -> C: (*batch, r, t).  Leading
+    batch dimensions must match on A and B, or be present on only one of
+    them.  The erasure pattern applies to the whole batch (one survivor set
+    per serving step).
+
+    Backends: "fused" (default; the CUDA kernels on the card, their plain
+    versions on the CPU) | "reference" (plain PyTorch).  ``device`` defaults
+    to the CUDA card; without one, construction raises unless the caller
+    passes ``device="cpu"``.  ``dtype`` is float64 (default) or float32.
+    Both backends are bit-identical for integer inputs within the plan's
+    bounds.
+    """
+
+    def __init__(self, plan: CodedMatmulPlan, backend="fused", *,
+                 dtype=torch.float64, device=None, panel_ridge: float = 0.0,
+                 cache_group: Optional[CacheGroup] = None,
+                 sub_tasks: int = 1, _shared=None):
+        if sub_tasks != 1:
+            raise NotImplementedError(
+                "partial stragglers (sub_tasks > 1) are not ported to the "
+                "PyTorch package yet")
+        self.plan = plan
+        self.dtype = resolve_dtype(dtype)
+        self.device = resolve_device(device)
+        self._plan_token = plan_token(plan)
+        self._executor: Executor = resolve_executor(backend)
+        if cache_group is not None and _shared is not None:
+            raise ValueError("pass cache_group or _shared, not both")
+        if cache_group is not None:
+            self.panel_cache = cache_group.panel_cache_for(plan, panel_ridge)
+            self._executables = cache_group.executables
+            self._stats = cache_group.stats
+        elif _shared is not None:
+            self.panel_cache, self._executables, self._stats = _shared
+        else:
+            self.panel_cache = plan.make_panel_cache(panel_ridge)
+            self._executables = {}
+            self._stats = {"builds": 0, "hits": 0}
+
+    # -- backend plumbing ---------------------------------------------------
+    @property
+    def backend(self) -> str:
+        """Name of the executor serving this facade's calls."""
+        return self._executor.name
+
+    def with_backend(self, backend) -> "CodedMatmul":
+        """A sibling facade on another backend, SHARING panel + pipeline caches."""
+        return CodedMatmul(
+            self.plan, backend, dtype=self.dtype, device=self.device,
+            _shared=(self.panel_cache, self._executables, self._stats))
+
+    def cache_info(self) -> dict:
+        """Pipeline-memo and panel-cache counters (tests assert on these)."""
+        return {
+            "builds": self._stats["builds"],
+            "hits": self._stats["hits"],
+            "entries": len(self._executables),
+            "panel_builds": self.panel_cache.builds,
+        }
+
+    # -- the call -----------------------------------------------------------
+    def __call__(self, A, B, erasure: Any = None, *,
+                 erased: Optional[Sequence[int]] = None,
+                 survivors: Optional[Sequence[int]] = None,
+                 mask: Any = None, progress: Any = None,
+                 sub_tasks: Optional[int] = None) -> torch.Tensor:
+        """Coded C = A^T B under at most one erasure spec (none = all alive).
+
+        Args:
+            A: (*batch, v, r) left operand (tensor or array; moved to the
+                facade's device).
+            B: (*batch, v, t) right operand.
+            erasure: positional spec - an ``ErasurePattern``, a (K,) 0/1
+                mask (a tensor mask is read to the host), or a list of
+                erased worker ids.
+            erased / survivors / mask: keyword alternatives.
+            progress / sub_tasks: partial-straggler specs; not ported yet.
+
+        Returns:
+            (*batch, r, t) decoded product on the facade's device.
+
+        Raises:
+            ValueError: on conflicting erasure specs, rank-<2 operands,
+                contraction mismatch, or fewer than tau survivors.
+            NotImplementedError: for partial-straggler specs.
+        """
+        if progress is not None or (sub_tasks is not None and sub_tasks != 1):
+            raise NotImplementedError(
+                "partial stragglers (progress= / sub_tasks > 1) are not "
+                "ported to the PyTorch package yet")
+        pattern = ErasurePattern.normalize(
+            self.plan.K, erasure, erased=erased, survivors=survivors,
+            mask=mask)
+        A = torch.as_tensor(A, device=self.device)
+        B = torch.as_tensor(B, device=self.device)
+        self._check_operands(A, B)
+        if pattern.n_survivors < self.plan.tau:
+            raise ValueError(
+                f"only {pattern.n_survivors} survivors < "
+                f"tau={self.plan.tau}: undecodable")
+        fn = self._get_executable(A, B, pattern.kind)
+        panel = self.panel_cache.get(pattern.mask)
+        W = torch.as_tensor(panel.W, dtype=self._decode_dtype(),
+                            device=self.device)
+        mask_arr = pattern.mask_array(self.dtype, self.device)
+        return fn(A, B, mask_arr, W)
+
+    # -- split-stage serving (not ported) -----------------------------------
+    def worker_stage(self, A, B):
+        """Split-stage serving; not ported yet.
+
+        Raises:
+            NotImplementedError: always.
+        """
+        raise NotImplementedError(_SPLIT_STAGE)
+
+    def decode_stage(self, Y, rt, *args, **kwargs):
+        """Split-stage serving; not ported yet.
+
+        Raises:
+            NotImplementedError: always.
+        """
+        raise NotImplementedError(_SPLIT_STAGE)
+
+    def _check_operands(self, A, B) -> None:
+        if A.ndim < 2 or B.ndim < 2:
+            raise ValueError(f"need >= 2-D operands, got {tuple(A.shape)} / "
+                             f"{tuple(B.shape)}")
+        if A.shape[-2] != B.shape[-2]:
+            raise ValueError(f"contraction mismatch {tuple(A.shape)} vs "
+                             f"{tuple(B.shape)}")
+        a_batch, b_batch = A.ndim - 2, B.ndim - 2
+        if a_batch and b_batch and A.shape[:-2] != B.shape[:-2]:
+            raise ValueError(
+                f"batch mismatch: A has leading dims {tuple(A.shape[:-2])}, "
+                f"B has {tuple(B.shape[:-2])}; batch one operand or both "
+                f"equally")
+
+    # -- pipeline construction ---------------------------------------------
+    def _get_executable(self, A, B, kind):
+        # the token folds in the executor and the PLAN identity, so
+        # CacheGroup members on different plans never alias a pipeline.
+        key = (self._plan_token, self._executor.cache_token(), tuple(A.shape),
+               tuple(B.shape), str(self.dtype), str(self.device), kind)
+        fn = self._executables.get(key)
+        if fn is not None:
+            self._stats["hits"] += 1
+            return fn
+        fn = self._build(A.ndim - 2, B.ndim - 2, kind)
+        self._executables[key] = fn
+        self._stats["builds"] += 1
+        return fn
+
+    def _build(self, a_batch: int, b_batch: int, kind):
+        base = self._executor.make_pipeline(self.plan, kind, self.dtype)
+        if not (a_batch or b_batch):
+            return base
+
+        def batched(A, B, mask, W):
+            batch = A.shape[:-2] if a_batch else B.shape[:-2]
+            n = math.prod(batch)
+            As = A.reshape(n, *A.shape[-2:]) if a_batch else A.expand(n, *A.shape)
+            Bs = B.reshape(n, *B.shape[-2:]) if b_batch else B.expand(n, *B.shape)
+            out = torch.empty((n, A.shape[-1], B.shape[-1]), dtype=self.dtype,
+                              device=A.device)
+            for i in range(n):
+                out[i] = base(As[i], Bs[i], mask, W)
+            return out.reshape(*batch, *out.shape[1:])
+
+        return batched
+
+    # -- dtype policy -------------------------------------------------------
+    def _decode_dtype(self) -> torch.dtype:
+        if self.plan.is_complex:
+            return complex_dtype(self.dtype)
+        return self.dtype

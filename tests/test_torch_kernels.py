@@ -1,0 +1,229 @@
+"""The port's kernel wrappers (plain versions, on the CPU) against the JAX
+package's kernels (Pallas in interpret mode, as its own tests run them).
+
+The CUDA kernels themselves run only on the card: tests/test_torch_gpu.py.
+What surrounds them - block offsets, strides, dtype promotion, complex
+routing, launch counting - is Python and is tested here.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+jax.config.update("jax_enable_x64", True)
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import api as japi  # noqa: E402
+from repro.core import partition as jpart  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.core import api, partition  # noqa: E402
+from repro_torch.kernels import _build, coded_decode, coded_fused, ops, ref  # noqa: E402
+
+TOL = {np.float32: 1e-4, np.float64: 1e-10}  # sums taken in another order
+
+
+def _np(x):
+    return x.detach().cpu().numpy()
+
+
+@pytest.fixture(autouse=True)
+def _launch_counts():
+    ops.reset_launch_counts()
+    yield
+    ops.reset_launch_counts()
+
+
+@pytest.mark.parametrize("K,P,Q,v,r,t", [
+    (4, 4, 4, 256, 128, 128),
+    (6, 8, 2, 300, 200, 150),     # ragged, non-tile-multiple
+    (3, 1, 1, 64, 40, 24),
+    (1, 5, 3, 129, 257, 65),      # off-by-one everywhere
+])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_fused_worker_matches_jax(rng, K, P, Q, v, r, t, dtype):
+    x = dict(ca=rng.normal(size=(K, P)), cb=rng.normal(size=(K, Q)),
+             a=rng.normal(size=(P, v, r)), b=rng.normal(size=(Q, v, t)))
+    x = {k: a.astype(dtype) for k, a in x.items()}
+    got = _np(ops.fused_worker(*(torch.as_tensor(x[k]) for k in ("ca", "cb", "a", "b"))))
+    exp = np.asarray(jops.fused_worker(*(jnp.asarray(x[k]) for k in ("ca", "cb", "a", "b"))))
+    assert got.dtype == exp.dtype == dtype and got.shape == (K, r, t)
+    assert np.max(np.abs(got - exp)) / (np.max(np.abs(exp)) + 1e-9) < TOL[dtype]
+    assert ops.launch_counts() == {"fused_worker": 0, "decode": 0}
+
+
+def test_fused_worker_empty_contraction_is_zero(rng):
+    ca, cb = torch.ones(2, 3), torch.ones(2, 1)
+    out = ops.fused_worker(ca, cb, torch.ones(3, 0, 5), torch.ones(1, 0, 4))
+    assert out.shape == (2, 5, 4) and not out.any()
+
+
+def test_fused_worker_promotes_dtypes(rng):
+    ca = torch.as_tensor(rng.normal(size=(2, 3)), dtype=torch.float32)
+    cb = torch.as_tensor(rng.normal(size=(2, 2)))
+    a = torch.as_tensor(rng.normal(size=(3, 8, 5)), dtype=torch.float32)
+    b = torch.as_tensor(rng.normal(size=(2, 8, 4)), dtype=torch.float32)
+    out = ops.fused_worker(ca, cb, a, b)
+    assert out.dtype == torch.float64
+    assert ops.fused_worker(ca, cb.float(), a, b, out_dtype=torch.float64).dtype \
+        == torch.float64
+
+
+def test_fused_worker_complex_routes_to_plain(rng):
+    ca = rng.normal(size=(3, 2)) + 1j * rng.normal(size=(3, 2))
+    cb = rng.normal(size=(3, 2)) + 1j * rng.normal(size=(3, 2))
+    A = rng.normal(size=(2, 32, 16))
+    B = rng.normal(size=(2, 32, 8))
+    got = _np(ops.fused_worker(*map(torch.as_tensor, (ca, cb, A, B))))
+    exp = np.asarray(jops.fused_worker(*map(jnp.asarray, (ca, cb, A, B))))
+    np.testing.assert_allclose(got, exp, rtol=1e-10)
+
+
+@pytest.mark.parametrize("v,r,rows,cols", [(16, 12, 2, 2), (9, 7, 2, 2), (12, 8, 4, 2)])
+def test_block_offsets_address_every_block(rng, v, r, rows, cols):
+    """The kernel's addressing - base pointer + per-block offset + row stride
+    + unit column stride - reaches exactly the elements of each block of a
+    (possibly strided) block view."""
+    x = torch.as_tensor(rng.normal(size=(v, r)))
+    blocks = partition.block_decompose(x, rows, cols)
+    offsets, row_stride = coded_fused._block_offsets(blocks)
+    assert len(offsets) == rows * cols
+    base = blocks.storage_offset()
+    flat = blocks.untyped_storage()
+    flat = torch.tensor([], dtype=blocks.dtype).set_(flat)
+    bv, br = blocks.shape[-2:]
+    vv, rr = np.meshgrid(np.arange(bv), np.arange(br), indexing="ij")
+    for i, block in enumerate(blocks.reshape(-1, bv, br)):
+        got = flat[base + offsets[i] + row_stride * vv + rr]
+        np.testing.assert_array_equal(_np(got), _np(block))
+
+
+def test_fused_worker_on_block_views_matches_stacked(rng):
+    """Leading block dims flatten row-major, as the reference's reshape."""
+    A = torch.as_tensor(rng.normal(size=(16, 12)))
+    ca = torch.as_tensor(rng.normal(size=(3, 4)))
+    view = partition.block_decompose(A, 2, 2)
+    stacked = view.reshape(4, 8, 6).contiguous()
+    np.testing.assert_array_equal(_np(ops.fused_worker(ca, ca, view, view)),
+                                  _np(ops.fused_worker(ca, ca, stacked, stacked)))
+
+
+def _integer_products(rng, kind, p, m, n, pp, erased):
+    """(W, Y) from a real plan's panel and worker products of integer
+    matrices, so X = W @ Y lies inside the plan's bounds."""
+    v, r, t = 8 * p, 12, 10
+    plan = japi.make_plan(kind, p, m, n, K=9, L=v * 9 + 1, p_prime=pp,
+                          points="chebyshev")
+    A = jnp.asarray(rng.integers(-3, 4, size=(v, r)), jnp.float64)
+    B = jnp.asarray(rng.integers(-3, 4, size=(v, t)), jnp.float64)
+    Y = japi.fused_worker_products(plan, jpart.block_decompose(A, p, m),
+                                   jpart.block_decompose(B, p, n))
+    mask = np.ones(plan.K)
+    mask[erased] = 0
+    W = plan.make_panel_cache().get(mask).W
+    Y = np.asarray(Y).reshape(plan.K, -1) * mask[:, None]
+    return plan, W, Y
+
+
+@pytest.mark.parametrize("kind,p,m,n,pp,extract", [
+    ("bec", 2, 2, 2, 1, True),
+    ("bec", 2, 2, 2, 1, False),
+    ("tradeoff", 4, 2, 1, 2, True),
+    ("polycode", 2, 2, 1, 1, False),
+])
+def test_decode_matches_jax(rng, kind, p, m, n, pp, extract):
+    plan, W, Y = _integer_products(rng, kind, p, m, n, pp, erased=[0, 4])
+    got = _np(ops.decode(torch.as_tensor(W), torch.as_tensor(Y), plan.s,
+                         extract=extract))
+    exp = np.asarray(jops.decode(jnp.asarray(W), jnp.asarray(Y), plan.s,
+                                 extract=extract))
+    np.testing.assert_array_equal(got, exp)
+    assert ops.launch_counts()["decode"] == 0
+
+
+def test_decode_ref_handles_halves_and_signs():
+    """Round half to even, then mod s and recentre, like jnp."""
+    s = 16.0
+    X = np.array([[0.5, 1.5, 2.5, -0.5, -1.5, 8.0, 8.5, -8.0, -8.5, 23.5, -23.5]])
+    W = np.ones((1, 1))
+    for extract in (True, False):
+        got = _np(ref.decode_ref(torch.as_tensor(W), torch.as_tensor(X), s, extract))
+        exp = np.asarray(jops.decode(jnp.asarray(W), jnp.asarray(X), s,
+                                     extract=extract))
+        np.testing.assert_array_equal(got, exp)
+
+
+def test_decode_complex_routes_to_plain(rng):
+    W = rng.normal(size=(2, 3)) + 1j * rng.normal(size=(2, 3))
+    Y = rng.normal(size=(3, 7)) + 1j * rng.normal(size=(3, 7))
+    got = _np(ops.decode(torch.as_tensor(W), torch.as_tensor(Y), 64.0))
+    exp = np.asarray(jref.decode_ref(jnp.asarray(W), jnp.asarray(Y), 64.0))
+    np.testing.assert_array_equal(got, exp)
+    got = _np(ops.decode(torch.as_tensor(W), torch.as_tensor(Y), 64.0, extract=False))
+    np.testing.assert_array_equal(got, np.round((W @ Y).real))
+
+
+def test_plain_versions_match_jax_ref(rng):
+    coeff = rng.normal(size=(4, 3))
+    blocks = rng.normal(size=(3, 50))
+    np.testing.assert_allclose(
+        _np(ref.encode_ref(torch.as_tensor(coeff), torch.as_tensor(blocks))),
+        np.asarray(jref.encode_ref(jnp.asarray(coeff), jnp.asarray(blocks))),
+        rtol=1e-12)
+    A = rng.normal(size=(20, 6))
+    B = rng.normal(size=(20, 5))
+    np.testing.assert_allclose(
+        _np(ref.matmul_t_ref(torch.as_tensor(A), torch.as_tensor(B))),
+        np.asarray(jref.matmul_t_ref(jnp.asarray(A), jnp.asarray(B))), rtol=1e-12)
+    half = ref.matmul_t_ref(torch.as_tensor(A, dtype=torch.bfloat16),
+                            torch.as_tensor(B, dtype=torch.bfloat16))
+    assert half.dtype == torch.bfloat16
+
+
+def test_fused_worker_products_match_jax(rng):
+    p, m, n = 2, 2, 2
+    jplan = japi.make_plan("bec", p, m, n, K=6, L=100, points="equispaced")
+    plan = api.make_plan("bec", p, m, n, K=6, L=100, points="equispaced")
+    A = rng.normal(size=(10, 9))
+    B = rng.normal(size=(10, 7))
+    got = _np(api.fused_worker_products(
+        plan, partition.block_decompose(torch.as_tensor(A), p, m),
+        partition.block_decompose(torch.as_tensor(B), p, n)))
+    exp = np.asarray(japi.fused_worker_products(
+        jplan, jpart.block_decompose(jnp.asarray(A), p, m),
+        jpart.block_decompose(jnp.asarray(B), p, n)))
+    np.testing.assert_allclose(got, exp, rtol=1e-10, atol=1e-10 * np.abs(exp).max())
+
+
+def test_wrappers_reject_mixed_devices():
+    x = torch.ones(2, 2)
+    meta = torch.ones(2, 2, device="meta")
+    with pytest.raises(ValueError, match="all lie on the CPU"):
+        ops.decode(x, meta, 4.0)
+
+
+def test_kernel_launchers_validate_before_building():
+    """The CUDA launchers check their operands before touching nvcc, so a
+    CPU tensor or an unsupported dtype is refused here too."""
+    x = torch.ones(2, 3, 4)
+    c = torch.ones(1, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        coded_fused.fused_worker_cuda(c, c, x[:2], x[:2])
+    with pytest.raises(NotImplementedError, match="float64 or float32"):
+        coded_fused.fused_worker_cuda(c.bfloat16(), c.bfloat16(),
+                                      x[:2].bfloat16(), x[:2].bfloat16())
+    with pytest.raises(ValueError, match="CUDA"):
+        coded_decode.decode_cuda(torch.ones(4, 3), torch.ones(3, 5), 8.0)
+
+
+def test_build_is_lazy_and_keyed_by_source():
+    """Nothing is loaded on the CPU path; each library's name hashes its
+    source and flags, inside the repository's build directory."""
+    assert not _build._LIBS
+    paths = [_build._library_path(name) for name in _build.SOURCES]
+    assert len(set(paths)) == len(paths)
+    assert all(p.parent == _build.BUILD_DIR for p in paths)
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+    assert paths == [_build._library_path(name) for name in _build.SOURCES]
