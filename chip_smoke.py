@@ -16,12 +16,20 @@ Phases, each raising on failure:
              requests at the paper's geometry (bec p=m=n=2, K=10,
              equispaced points, v=r=t=8000, float64, entries in {0..15})
              under rotating erasure patterns; every C must equal A^T B
-             element for element, every request must launch each kernel
-             exactly once, and the pipeline memo must not rebuild;
+             element for element, every request must launch each of its
+             path's kernels as often as the path says, and the pipeline
+             memo must not rebuild;
+   4b staged  - the same requests on the "staged" backend (encode kernel
+             twice, block-matmul kernel once per worker, decode kernel);
+   4c partial - ``CodedMatmul(plan, sub_tasks=4)`` under fractional
+             progress vectors (fused kernel, per-chunk decode kernel), one
+             Q=1 binary request (the binary decode kernel), and one
+             worker_stage + decode_stage pair;
 5. times   - each kernel, its plain version and one PyTorch call computing
              the same function, timed with CUDA events at the main path's
              shapes, beside the least time the card could take.
 
+Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -42,7 +50,7 @@ import torch  # noqa: E402
 from repro_torch.core import bounds, make_plan  # noqa: E402
 from repro_torch.core.partition import block_decompose  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.runtime import CodedMatmul  # noqa: E402
+from repro_torch.runtime import CodedMatmul, PartialPattern, chunk_bounds  # noqa: E402
 
 # Published H100 SXM peaks at 700 W (NVIDIA data sheet).
 PEAK_FP64_TENSOR = 67e12     # FLOP/s, FP64 on the tensor cores (DMMA)
@@ -57,7 +65,14 @@ ENTRY_MAX = 15
 # (erasing workers 0-5 multiplies it by 243 and is inexact even here); these
 # patterns amplify it by at most 15.2.
 ERASURES = ([0, 2, 4, 6, 8, 9], [1, 3, 5, 7, 9], [], [2, 3, 4, 5, 6, 7])
+# Partial stragglers at Q=4 sub-tasks: completed chunks per worker, each
+# vector spanning (>= tau=4 workers per chunk) with every chunk's panel gain
+# (max row sum of |W|) at most 10.0, picked with the panel cache on the CPU.
+Q_SUB = 4
+PROGRESS = ([4, 1, 4, 0, 0, 1, 3, 4, 1, 4], [3, 3, 2, 2, 1, 2, 3, 0, 2, 3],
+            [4, 0, 2, 1, 2, 0, 2, 4, 2, 0], [3, 3, 3, 3, 3, 3, 0, 3, 3, 3])
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+KERNELS = ("fused_worker", "decode", "encode", "matmul_t", "decode_partial")
 
 
 def phase(name: str) -> None:
@@ -129,81 +144,190 @@ def fused_inputs(plan, A, B, dtype):
             block_decompose(B.to(dtype), g.p, g.n))
 
 
+def check_close(name: str, out: torch.Tensor, exp: torch.Tensor, dtype) -> float:
+    err, rel = rel_err(out, exp)
+    print(f"{name} {dtype} {tuple(out.shape)}: max abs err {err:.3e}, rel {rel:.3e}")
+    check(out.shape == exp.shape and rel < TOL[dtype], f"{name} {dtype} rel err {rel}")
+    return err
+
+
+def check_exact(name: str, out: torch.Tensor, exp: torch.Tensor) -> float:
+    err = float((out - exp).abs().max()) if out.numel() else 0.0
+    print(f"{name} {tuple(out.shape)}: max abs err {err}")
+    check(torch.equal(out, exp), f"{name} differs by {err}")
+    return err
+
+
 def kernels_phase(plan, A, B, gen) -> dict:
     """Each kernel against its plain version; returns the main-shape errors."""
     phase("3 kernels against their plain versions")
     errs = {}
+    K = plan.K
     for dtype in (torch.float64, torch.float32):
-        # ragged small shape: every dimension off the 64-wide tiles
-        shapes = dict(ca=(3, 5), cb=(3, 3), a=(5, 129, 257), b=(3, 129, 65))
-        x = {k: torch.randn(s, generator=gen, device="cuda", dtype=dtype)
-             for k, s in shapes.items()}
-        out = ops.fused_worker(x["ca"], x["cb"], x["a"], x["b"])
-        err, rel = rel_err(out, ref.fused_worker_ref(x["ca"], x["cb"], x["a"], x["b"]))
-        print(f"fused_worker {dtype} ragged {tuple(out.shape)}: max abs err {err:.3e}, "
-              f"rel {rel:.3e}")
-        check(rel < TOL[dtype], f"fused_worker {dtype} ragged rel err {rel}")
-        # main-path shape: the plan's coefficients on strided 4000^2 block views
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+        def ints(*shape):
+            return torch.randint(-9, 10, shape, generator=gen, device="cuda").to(dtype)
+
+        # ragged small shapes: every dimension off the 64-wide tiles and the
+        # 256-wide thread blocks; random inputs at a relative tolerance (the
+        # sums run in another order), integer inputs exactly
+        x = dict(ca=rand(3, 5), cb=rand(3, 3), a=rand(5, 129, 257), b=rand(3, 129, 65))
+        check_close("fused_worker ragged", ops.fused_worker(x["ca"], x["cb"], x["a"], x["b"]),
+                    ref.fused_worker_ref(x["ca"], x["cb"], x["a"], x["b"]), dtype)
+        c, blocks = rand(7, 5), rand(5, 37, 1031)
+        check_close("encode ragged", ops.encode(c, blocks),
+                    ref.encode_ref(c, blocks.reshape(5, -1)).reshape(7, 37, 1031), dtype)
+        c, blocks = ints(7, 5), ints(5, 37, 1031)
+        check_exact(f"encode {dtype} ragged integer", ops.encode(c, blocks),
+                    ref.encode_ref(c, blocks.reshape(5, -1)).reshape(7, 37, 1031))
+        a, b = rand(300, 257), rand(300, 65)
+        check_close("matmul_t ragged", ops.matmul_t(a, b), ref.matmul_t_ref(a, b), dtype)
+        a, b = ints(300, 257), ints(300, 65)
+        check_exact(f"matmul_t {dtype} ragged integer", ops.matmul_t(a, b),
+                    ref.matmul_t_ref(a, b))
+        # main-path shapes: the plan's coefficients on strided 4000^2 block
+        # views (fused, encode), one worker's coded blocks (matmul_t)
         args = fused_inputs(plan, A, B, dtype)
+        ca, cb, a4, b4 = args
         out = ops.fused_worker(*args)
-        err, rel = rel_err(out, ref.fused_worker_ref(*args))
-        print(f"fused_worker {dtype} main {tuple(out.shape)}: max abs err {err:.3e}, "
-              f"rel {rel:.3e}")
-        check(rel < TOL[dtype], f"fused_worker {dtype} main rel err {rel}")
+        err = check_close("fused_worker main", out, ref.fused_worker_ref(*args), dtype)
         if dtype == torch.float64:
             errs["fused_worker"] = err
             Y = out
-        del out, args
+        del out
+        at = ops.encode(ca, a4)
+        err = check_close("encode main", at,
+                          ref.encode_ref(ca, a4.reshape(ca.shape[1], -1)).reshape(at.shape),
+                          dtype)
+        errs.setdefault("encode", err)
+        bt = ops.encode(cb, b4)
+        err = check_close("matmul_t main", ops.matmul_t(at[K - 1], bt[K - 1]),
+                          ref.matmul_t_ref(at[K - 1], bt[K - 1]), dtype)
+        errs.setdefault("matmul_t", err)
+        del args, ca, cb, a4, b4, at, bt
     # decode: Y from the integer main-path products, six workers erased
     mask = cm_mask(plan, ERASURES[0])
     W = torch.as_tensor(plan.make_panel_cache().get(mask).W, device="cuda")
-    Yf = (Y * torch.as_tensor(mask, device="cuda")[:, None, None]).reshape(plan.K, -1)
-    del Y
+    Yf = (Y * torch.as_tensor(mask, device="cuda")[:, None, None]).reshape(K, -1)
     for extract in (True, False):
-        out = ops.decode(W, Yf, plan.s, extract=extract)
-        exp = ref.decode_ref(W, Yf, plan.s, extract)
-        err = float((out - exp).abs().max())
-        print(f"decode float64 extract={extract} {tuple(W.shape)} x {tuple(Yf.shape)}: "
-              f"max abs err {err}")
-        check(torch.equal(out, exp), f"decode extract={extract} differs by {err}")
+        err = check_exact(f"decode float64 extract={extract} {tuple(W.shape)} x",
+                          ops.decode(W, Yf, plan.s, extract=extract),
+                          ref.decode_ref(W, Yf, plan.s, extract))
         errs["decode"] = max(err, errs.get("decode", 0.0))
+    del Yf
+    # decode_partial: the same products erased chunk by chunk under a real
+    # progress pattern, as the runtime holds them (Y (K, E), chunks of rows)
+    pat = PartialPattern.from_progress(K, Q_SUB, np.asarray(PROGRESS[1]) / Q_SUB)
+    cmask = torch.as_tensor(pat.chunk_masks, device="cuda")
+    rows = chunk_bounds(Y.shape[1], Q_SUB)
+    for q in range(Q_SUB):
+        Y[:, rows[q]:rows[q + 1], :].mul_(cmask[q][:, None, None])
+    cols = [b * Y.shape[2] for b in rows]
+    W_stack = torch.as_tensor(plan.make_panel_cache().get_partial(pat.chunk_masks),
+                              device="cuda")
+    Yf = Y.reshape(K, -1)
+    for extract in (True, False):
+        err = check_exact(f"decode_partial float64 extract={extract} Q={Q_SUB} "
+                          f"{tuple(W_stack.shape)} x",
+                          ops.decode_partial(W_stack, Yf, plan.s, extract=extract,
+                                             bounds=cols),
+                          ref.decode_partial_ref(W_stack, Yf, plan.s, extract, cols))
+        errs["decode_partial"] = max(err, errs.get("decode_partial", 0.0))
     return errs
 
 
-def main_phase(plan, A, B) -> dict:
+def drive(label: str, requests, C_ref, cm, per_request: dict) -> dict:
+    """Serve ``requests`` [(name, call)] through one path, each C exact and
+    each request launching exactly ``per_request`` kernels; the counts are
+    set to 0 just before the path and read just after it."""
+    walls = []
+    builds = None
+    ops.reset_launch_counts()
+    for i, (name, call) in enumerate(requests):
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C = call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        after = ops.launch_counts()
+        check(C.shape == (R, T) and bool(torch.isfinite(C).all()),
+              f"{label} request {i}: C {tuple(C.shape)} not finite (r, t)")
+        check(torch.equal(C, C_ref), f"{label} request {i} {name}: max |C - A^T B| "
+              f"= {float((C - C_ref).abs().max())}")
+        steps = {k: after[k] - before[k] for k in after}
+        want = dict.fromkeys(after, 0) | per_request
+        check(steps == want, f"{label} request {i} launched {steps}, not {want}")
+        info = cm.cache_info()
+        builds = info["builds"] if builds is None else builds
+        check(info["builds"] == builds, f"{label}: pipeline memo rebuilt: {info}")
+        print(f"{label} request {i} {name}: exact, {walls[-1]:.2f} ms wall, "
+              f"launches {({k: v for k, v in steps.items() if v})}, cache {info}")
+    counts = ops.launch_counts()
+    check(all(counts[k] > 0 for k in per_request), f"{label}: a kernel never launched: "
+          f"{counts}")
+    print(f"{label} path launches {counts}")
+    return {"counts": counts, "walls": walls}
+
+
+def main_phase(plan, A, B, C_ref) -> dict:
     phase("4 main path")
     L = V * ENTRY_MAX * ENTRY_MAX + 1
     safe = bounds.is_safe(L, plan.s, plan.scheme.digit_depth, "float64", tau=plan.tau)
     print(f"plan bec p=m=n=2 K={plan.K} tau={plan.tau} s=2^{int(np.log2(plan.s))} "
           f"L={L} is_safe(slack 4 bits)={safe}")
-    C_ref = A.T @ B  # exact: every partial sum is an integer below 2^53
     cm = CodedMatmul(plan)
-    walls = []
-    ops.reset_launch_counts()
-    for i, erased in enumerate(ERASURES):
-        before = ops.launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        C = cm(A, B, erased=erased)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        after = ops.launch_counts()
-        check(C.shape == (R, T) and bool(torch.isfinite(C).all()),
-              f"request {i}: C {tuple(C.shape)} not finite (r, t)")
-        check(torch.equal(C, C_ref), f"request {i} erased={erased}: max |C - A^T B| "
-              f"= {float((C - C_ref).abs().max())}")
-        steps = {k: after[k] - before[k] for k in after}
-        check(all(d == 1 for d in steps.values()),
-              f"request {i} launched {steps}, not one of each kernel")
-        info = cm.cache_info()
-        check(info["builds"] == 1, f"pipeline memo rebuilt: {info}")
+    for erased in ERASURES:
         gain = float(np.abs(cm.panel_cache.get(cm_mask(plan, erased)).W).sum(1).max())
-        print(f"request {i} erased={erased}: exact, {walls[-1]:.2f} ms wall, "
-              f"launches {steps}, cache {info}, panel gain {gain:.1f}")
+        print(f"erased={erased}: panel gain {gain:.1f}")
+    return drive("fused", [(f"erased={e}", lambda e=e: cm(A, B, erased=e)) for e in ERASURES],
+                 C_ref, cm, {"fused_worker": 1, "decode": 1})
+
+
+def staged_phase(plan, A, B, C_ref) -> dict:
+    phase("4b staged path")
+    cm = CodedMatmul(plan, "staged")
+    return drive("staged", [(f"erased={e}", lambda e=e: cm(A, B, erased=e)) for e in ERASURES],
+                 C_ref, cm, {"encode": 2, "matmul_t": plan.K, "decode": 1})
+
+
+def partial_phase(plan, A, B, C_ref) -> dict:
+    phase("4c partial path")
+    cm = CodedMatmul(plan, sub_tasks=Q_SUB)
+    for counts in PROGRESS:
+        pat = PartialPattern.from_progress(plan.K, Q_SUB, np.asarray(counts) / Q_SUB)
+        gains = [float(np.abs(W).sum(1).max())
+                 for W in cm.panel_cache.get_partial(pat.chunk_masks)]
+        print(f"chunks done {counts}: coverage {pat.coverage.tolist()}, per-chunk "
+              f"panel gain {[round(g, 2) for g in gains]}")
+    out = drive("partial", [(f"progress={c}/{Q_SUB}",
+                             lambda c=c: cm(A, B, progress=np.asarray(c) / Q_SUB))
+                            for c in PROGRESS],
+                C_ref, cm, {"fused_worker": 1, "decode_partial": 1})
+    binary = drive("partial Q=1", [(f"erased={ERASURES[1]}",
+                                    lambda: cm(A, B, erased=ERASURES[1], sub_tasks=1))],
+                   C_ref, cm, {"fused_worker": 1, "decode": 1})
+    # one split-stage pair: the worker stage, then the decode of its products
+    ops.reset_launch_counts()
+    Y = cm.worker_stage(A, B)
+    torch.cuda.synchronize()
+    stage_counts = ops.launch_counts()
+    C = cm.decode_stage(Y, (R, T), erased=ERASURES[0])
+    torch.cuda.synchronize()
     counts = ops.launch_counts()
-    check(all(n > 0 for n in counts.values()), f"a kernel never launched: {counts}")
-    print(f"main path launches {counts}")
-    return {"counts": counts, "walls": walls}
+    check(torch.equal(C, C_ref) and torch.equal(C, cm(A, B, erased=ERASURES[0], sub_tasks=1)),
+          "worker_stage + decode_stage differs from the one-shot call")
+    want = dict.fromkeys(counts, 0) | {"fused_worker": 1, "decode": 1}
+    check(counts == want and stage_counts["fused_worker"] == 1,
+          f"split stages launched {counts}, not {want}")
+    print(f"split stages erased={ERASURES[0]}: worker_stage {tuple(Y.shape)} + "
+          f"decode_stage exact, equal to the one-shot call; launches "
+          f"{({k: v for k, v in counts.items() if v})}, cache {cm.cache_info()}")
+    for k, v in binary["counts"].items():
+        out["counts"][k] += v + counts[k]
+    return out
 
 
 def times_phase(plan, A, B) -> dict:
@@ -211,6 +335,10 @@ def times_phase(plan, A, B) -> dict:
     ca, cb, a4, b4 = fused_inputs(plan, A, B, torch.float64)
     K, P, Q = plan.K, ca.shape[1], cb.shape[1]
     v, r, t = a4.shape[-2], a4.shape[-1], b4.shape[-1]
+
+    def bound(flops: float, nbytes: float, by: str) -> dict:
+        return {"bound_ms": max(flops / PEAK_FP64_TENSOR, nbytes / PEAK_HBM) * 1e3,
+                "bound_by": by}
 
     g = plan.scheme.grid
     ca3, cb3 = ca.reshape(K, g.p, g.m), cb.reshape(K, g.p, g.n)
@@ -226,36 +354,84 @@ def times_phase(plan, A, B) -> dict:
         library_ms=time_ms(library_fused, 5))
     flops = 2 * K * r * t * v + 2 * K * (P * v * r + Q * v * t)
     nbytes = 8 * (P * v * r + Q * v * t + K * r * t + K * (P + Q))
-    fused["bound_ms"] = max(flops / PEAK_FP64_TENSOR, nbytes / PEAK_HBM) * 1e3
-    fused["bound_by"] = "operations"
+    fused |= bound(flops, nbytes, "operations")
     print(f"fused_worker: {flops:.4g} FLOP, {nbytes:.4g} B; bound "
           f"{fused['bound_ms']:.3f} ms at FP64 tensor peak "
           f"({flops / PEAK_FP64_VECTOR * 1e3:.3f} ms at FP64 vector peak); "
           f"kernel {fused['ms']:.3f} ms, plain {fused['plain_ms']:.3f} ms, "
           f"einsum+bmm {fused['library_ms']:.3f} ms")
 
+    # encode: the kernel reads the strided block view; the plain version and
+    # torch.matmul get the (P, E) stack made beforehand (their reshape would
+    # copy 512 MB inside the timing)
+    stack = a4.reshape(P, -1)
+    enc = dict(
+        ms=time_ms(lambda: ops.encode(ca, a4), 20),
+        plain_ms=time_ms(lambda: ref.encode_ref(ca, stack), 20),
+        library_ms=time_ms(lambda: torch.matmul(ca, stack), 20))
+    E = v * r
+    flops, nbytes = 2 * K * P * E, 8 * (P * E + K * E + K * P)
+    enc |= bound(flops, nbytes, "bytes")
+    print(f"encode: {flops:.4g} FLOP, {nbytes:.4g} B; bound {enc['bound_ms']:.3f} ms at "
+          f"HBM peak; kernel {enc['ms']:.3f} ms ({nbytes / enc['ms'] / 1e6:.1f} GB/s), "
+          f"plain {enc['plain_ms']:.3f} ms, torch.matmul {enc['library_ms']:.3f} ms")
+    del stack
+
+    at, bt = ops.encode(ca, a4), ops.encode(cb, b4)
+    a1, b1 = at[0], bt[0]
+    mm = dict(
+        ms=time_ms(lambda: ops.matmul_t(a1, b1), 5),
+        plain_ms=time_ms(lambda: ref.matmul_t_ref(a1, b1), 5),
+        library_ms=time_ms(lambda: a1.T @ b1, 5))
+    flops, nbytes = 2 * v * r * t, 8 * (v * r + v * t + r * t)
+    mm |= bound(flops, nbytes, "operations")
+    print(f"matmul_t: {flops:.4g} FLOP, {nbytes:.4g} B; bound {mm['bound_ms']:.3f} ms at "
+          f"FP64 tensor peak ({flops / PEAK_FP64_VECTOR * 1e3:.3f} ms at FP64 vector "
+          f"peak); kernel {mm['ms']:.3f} ms, plain {mm['plain_ms']:.3f} ms (A.T @ B: the "
+          f"plain version is the library call), A.T @ B {mm['library_ms']:.3f} ms")
+    del at, bt, a1, b1
+
     Y = ops.fused_worker(ca, cb, a4, b4).reshape(K, -1)
     del ca, cb, a4, b4
     W = torch.as_tensor(plan.make_panel_cache().get(np.ones(K)).W, device="cuda")
     mn, E, s = W.shape[0], Y.shape[1], plan.s
 
-    def library_decode():
-        C_hat = torch.remainder(torch.round(torch.matmul(W, Y)), s)
+    def extract(X):
+        C_hat = torch.remainder(torch.round(X), s)
         return torch.where(C_hat <= s / 2, C_hat, C_hat - s)
 
     dec = dict(
         ms=time_ms(lambda: ops.decode(W, Y, s), 20),
         plain_ms=time_ms(lambda: ref.decode_ref(W, Y, s), 20),
-        library_ms=time_ms(library_decode, 20))
-    flops = 2 * mn * K * E
-    nbytes = 8 * (K * E + mn * K + mn * E)
-    dec["bound_ms"] = max(flops / PEAK_FP64_TENSOR, nbytes / PEAK_HBM) * 1e3
-    dec["bound_by"] = "bytes"
+        library_ms=time_ms(lambda: extract(torch.matmul(W, Y)), 20))
+    flops, nbytes = 2 * mn * K * E, 8 * (K * E + mn * K + mn * E)
+    dec |= bound(flops, nbytes, "bytes")
     print(f"decode: {flops:.4g} FLOP, {nbytes:.4g} B; bound {dec['bound_ms']:.3f} ms "
           f"at HBM peak; kernel {dec['ms']:.3f} ms ({nbytes / dec['ms'] / 1e6:.1f} "
           f"GB/s), plain {dec['plain_ms']:.3f} ms, matmul+extract "
           f"{dec['library_ms']:.3f} ms")
-    return {"fused_worker": fused, "decode": dec}
+
+    pat = PartialPattern.from_progress(K, Q_SUB, np.asarray(PROGRESS[0]) / Q_SUB)
+    W_stack = torch.as_tensor(plan.make_panel_cache().get_partial(pat.chunk_masks),
+                              device="cuda")
+    cols = [b * t for b in chunk_bounds(r, Q_SUB)]
+
+    def library_partial():
+        return torch.cat([extract(torch.matmul(W_stack[q], Y[:, cols[q]:cols[q + 1]]))
+                          for q in range(Q_SUB)], dim=1)
+
+    part = dict(
+        ms=time_ms(lambda: ops.decode_partial(W_stack, Y, s, bounds=cols), 20),
+        plain_ms=time_ms(lambda: ref.decode_partial_ref(W_stack, Y, s, True, cols), 20),
+        library_ms=time_ms(library_partial, 20))
+    flops, nbytes = 2 * mn * K * E, 8 * (K * E + Q_SUB * mn * K + mn * E)
+    part |= bound(flops, nbytes, "bytes")
+    print(f"decode_partial (Q={Q_SUB}): {flops:.4g} FLOP, {nbytes:.4g} B; bound "
+          f"{part['bound_ms']:.3f} ms at HBM peak; kernel {part['ms']:.3f} ms "
+          f"({nbytes / part['ms'] / 1e6:.1f} GB/s), plain {part['plain_ms']:.3f} ms, "
+          f"per-chunk matmul+extract {part['library_ms']:.3f} ms")
+    return {"fused_worker": fused, "decode": dec, "encode": enc, "matmul_t": mm,
+            "decode_partial": part}
 
 
 def main() -> None:
@@ -273,20 +449,28 @@ def main() -> None:
     plan = make_plan("bec", 2, 2, 2, K=10, L=V * ENTRY_MAX * ENTRY_MAX + 1,
                      points="equispaced")
     errs = kernels_phase(plan, A, B, gen)
-    main = main_phase(plan, A, B)
+    C_ref = A.T @ B  # exact: every partial sum is an integer below 2^53
+    paths = {"fused": main_phase(plan, A, B, C_ref),
+             "staged": staged_phase(plan, A, B, C_ref),
+             "partial": partial_phase(plan, A, B, C_ref)}
     times = times_phase(plan, A, B)
-    wall = main["walls"]
-    print(f"request wall time (fused, 8000^2, float64): first {wall[0]:.2f} ms, "
-          f"median of the rest {float(np.median(wall[1:])):.2f} ms on {dev['smi']}")
+    for name, path in paths.items():
+        wall = path["walls"]
+        print(f"request wall time ({name}, 8000^2, float64): first {wall[0]:.2f} ms, "
+              f"median of the rest {float(np.median(wall[1:])):.2f} ms on {dev['smi']}")
 
-    source = {"fused_worker": ("src/repro_torch/kernels/csrc/coded_fused.cu",
-                               "src/repro/kernels/coded_fused.py:105"),
-              "decode": ("src/repro_torch/kernels/csrc/coded_decode.cu",
-                         "src/repro/kernels/coded_decode.py:57")}
+    csrc = "src/repro_torch/kernels/csrc"
+    source = {"fused_worker": (f"{csrc}/coded_fused.cu", "src/repro/kernels/coded_fused.py:105"),
+              "decode": (f"{csrc}/coded_decode.cu", "src/repro/kernels/coded_decode.py:57"),
+              "decode_partial": (f"{csrc}/coded_decode.cu",
+                                 "src/repro/kernels/coded_decode.py:106"),
+              "encode": (f"{csrc}/coded_encode.cu", "src/repro/kernels/coded_encode.py:48"),
+              "matmul_t": (f"{csrc}/block_matmul.cu", "src/repro/kernels/block_matmul.py:62")}
+    launches = {k: sum(path["counts"][k] for path in paths.values()) for k in KERNELS}
     kernels = [dict(name=name, route="cuda", source=source[name][0],
-                    replaces=source[name][1], launches=main["counts"][name],
+                    replaces=source[name][1], launches=launches[name],
                     max_abs_err=errs[name], **times[name])
-               for name in ("fused_worker", "decode")]
+               for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["name"],

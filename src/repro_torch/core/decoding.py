@@ -16,7 +16,8 @@ For the baseline polynomial code the useful coefficient IS C_ij (round only).
 Decode panels (the per-mask weights W) are host scipy math, bit-identical
 to the reference package's; the functions here that take tensors are the
 plain PyTorch versions.  The runtime's kernel path decodes through
-``kernels.ops.decode`` and must agree with :func:`decode_with_weights`.
+``kernels.ops.decode`` (and, per chunk, ``kernels.ops.decode_partial``) and
+must agree with :func:`decode_with_weights`.
 """
 from __future__ import annotations
 
@@ -182,6 +183,7 @@ class DecodePanelCache:
         self.ridge = ridge
         self.builds = 0
         self._panels: dict = {}
+        self._partial_stacks: dict = {}
 
     def get(self, mask: Optional[np.ndarray] = None) -> DecodePanel:
         K = self.z_all.shape[0]
@@ -204,7 +206,8 @@ class DecodePanelCache:
         normal-equations matrix G - hence the weights for the old workers -
         is IDENTICAL, and the new workers contribute zero columns.  Seeding
         therefore pads the cached ``W`` panels with zero columns instead of
-        refactoring (``builds`` starts at 0).
+        refactoring (``builds`` starts at 0; partial stacks transfer the
+        same way).
 
         Raises:
             ValueError: if ``z_new`` does not extend this cache's points.
@@ -219,6 +222,7 @@ class DecodePanelCache:
         cache = DecodePanelCache(self.scheme, z, self.ridge)
         if g == 0:
             cache._panels = dict(self._panels)
+            cache._partial_stacks = dict(self._partial_stacks)
             return cache
         pad_mask = np.zeros(g, dtype=np.float64)
         for key, panel in self._panels.items():
@@ -227,4 +231,34 @@ class DecodePanelCache:
                 axis=1)
             cache._panels[key + (0,) * g] = DecodePanel(
                 mask=np.concatenate([panel.mask, pad_mask]), W=W)
+        for key, stack in self._partial_stacks.items():
+            new_key = ("partial",) + tuple(row + (0,) * g for row in key[1:])
+            cache._partial_stacks[new_key] = np.concatenate(
+                [stack, np.zeros(stack.shape[:2] + (g,), stack.dtype)],
+                axis=2)
         return cache
+
+    def get_partial(self, chunk_masks: np.ndarray) -> np.ndarray:
+        """Stacked (Q, mn, K) decode weights for per-chunk survivor masks.
+
+        ``chunk_masks`` is the (Q, K) 0/1 availability matrix of a
+        ``PartialPattern``: row c masks the workers whose completed prefix
+        covers output-row chunk c.  Per-chunk panels come from :meth:`get`,
+        so chunks sharing a survivor set - and binary patterns, where all Q
+        rows are identical - share ONE factorisation; the stack itself is
+        memoised by the pattern's quantized signature.
+
+        Raises:
+            ValueError: if ``chunk_masks`` is not (Q, K).
+        """
+        cm = np.asarray(chunk_masks)
+        if cm.ndim != 2 or cm.shape[1] != self.z_all.shape[0]:
+            raise ValueError(
+                f"chunk_masks shape {cm.shape} != (Q, {self.z_all.shape[0]})")
+        key = ("partial",) + tuple(
+            tuple(int(x != 0) for x in row) for row in cm)
+        stack = self._partial_stacks.get(key)
+        if stack is None:
+            stack = np.stack([self.get(row).W for row in cm])
+            self._partial_stacks[key] = stack
+        return stack

@@ -1,14 +1,22 @@
 """Hand-written CUDA kernels (sm_90a) for the coded-matmul hot spots.
 
-Two stages of the paper's pipeline, each with a plain PyTorch version in
-``ref`` and a wrapper in ``ops`` that runs the plain version for CPU
-tensors and launches the kernel for CUDA tensors:
+Each stage of the paper's pipeline has a plain PyTorch version in ``ref``
+and a wrapper in ``ops`` that runs the plain version for CPU tensors and
+launches the kernel for CUDA tensors:
 
   coded_fused   - encode + all-K worker products in ONE kernel: coded tiles
                   are formed in shared memory inside the product tiling, so
-                  A~/B~ never touch device memory (csrc/coded_fused.cu)
+                  A~/B~ never touch device memory (csrc/coded_fused.cu; the
+                  "fused" backend)
+  coded_encode  - the staged backend's encode, (K, P) @ (P, E) with the
+                  panel in shared memory, read from strided block views
+                  (csrc/coded_encode.cu)
+  block_matmul  - the staged backend's per-worker product A~^T B~
+                  (csrc/block_matmul.cu; its product tile, tile_gemm.cuh,
+                  is shared with coded_fused)
   coded_decode  - decode panel @ worker outputs with FUSED digit extraction
-                  (round/mod-s/recentre); X never reaches device memory
+                  (round/mod-s/recentre), whole-product and per-chunk
+                  (partial stragglers); X never reaches device memory
                   (csrc/coded_decode.cu)
 
 The CUDA sources are built with nvcc at first use (``_build``); importing

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/repro_torch/lib<name>-<digest>.so`` at the repository root, where
-``<digest>`` hashes the source and the flags, so an edited source is never
-served from a stale library.  Nothing is built at import time: a library is
+``<digest>`` hashes the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source is never served from a stale library.  Nothing is built at import time: a library is
 built at its first use, or all of them at once (one nvcc per source, all
 started together) by :func:`build`.
 """
@@ -18,7 +18,7 @@ from pathlib import Path
 
 __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build", "load"]
 
-SOURCES = ("coded_fused", "coded_decode")
+SOURCES = ("coded_fused", "coded_decode", "coded_encode", "block_matmul")
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,6 +41,7 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     src = (_CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,0 +1,83 @@
+"""WORKER-PRODUCT stage of the staged backend: the CUDA kernel and its plain
+version.
+
+Replaces ``src/repro/kernels/block_matmul.py::matmul_t_pallas`` (the TPU
+kernel): one worker's coded block product ``A^T B`` for A (v, r), B (v, t)
+(``csrc/block_matmul.cu``).
+
+What bounds it on the card: FP64 operations, 2*v*r*t of them (1.28e11 per
+worker at the paper's 8000^2 geometry) against 0.38 GB of operands.  The
+kernel is the register-blocked FMA product of the fused kernel (a 64x64
+output tile per block, 4x4 per thread, shared with it through
+``csrc/tile_gemm.cuh``) without the encode; every edge is masked.
+
+:func:`matmul_t_ref` (from ``ref``) is the plain version; the wrapper
+``ops.matmul_t`` runs it for CPU tensors and launches the kernel for CUDA
+tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.coded_fused import _unit_column_stride
+from repro_torch.kernels.ref import matmul_t_ref
+
+__all__ = ["matmul_t_cuda", "matmul_t_ref"]
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SYMBOLS = {torch.float64: "repro_matmul_t_f64",
+            torch.float32: "repro_matmul_t_f32"}
+
+
+def _function(dtype: torch.dtype):
+    fn = getattr(_build.load("block_matmul"), _SYMBOLS[dtype])
+    fn.argtypes = [_P, _P, _P, _L, _L, _L, _L, _L, _P]
+    fn.restype = _I
+    return fn
+
+
+def matmul_t_cuda(A: torch.Tensor, B: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the kernel: A (v, r), B (v, t), CUDA tensors of one real dtype
+    (float64 or float32) -> A^T B (r, t).
+
+    A and B may have any row stride; a last dimension that is not
+    unit-stride is made contiguous.  ``out``, if given, is a contiguous
+    (r, t) tensor of the same dtype and device that the kernel writes.
+
+    Raises:
+        ValueError: on mismatched shapes, devices or dtypes, or an unusable
+            ``out``.
+        NotImplementedError: for dtypes other than float64 / float32.
+        RuntimeError: if the launch fails.
+    """
+    dtype = A.dtype
+    if dtype not in _SYMBOLS:
+        raise NotImplementedError(
+            f"the matmul_t CUDA kernel takes float64 or float32, not {dtype}")
+    if B.dtype != dtype or B.device != A.device or A.device.type != "cuda":
+        raise ValueError("matmul_t_cuda needs CUDA tensors of one dtype")
+    if A.ndim != 2 or B.ndim != 2 or A.shape[0] != B.shape[0]:
+        raise ValueError(f"shape mismatch: A {tuple(A.shape)}, B {tuple(B.shape)}")
+    v, r = A.shape
+    t = B.shape[1]
+    if out is None:
+        out = torch.empty((r, t), dtype=dtype, device=A.device)
+    elif (out.shape != (r, t) or out.dtype != dtype or out.device != A.device
+          or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous ({r}, {t}) {dtype} tensor "
+                         f"on {A.device}")
+    if out.numel() == 0:
+        return out
+    a = _unit_column_stride(A)
+    b = _unit_column_stride(B)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    err = _function(dtype)(a.data_ptr(), b.data_ptr(), out.data_ptr(), v, r, t,
+                           a.stride(0), b.stride(0), stream)
+    if err != 0:
+        raise RuntimeError(f"matmul_t kernel launch failed: cudaError {err}")
+    return out

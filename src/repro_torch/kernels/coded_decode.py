@@ -1,21 +1,26 @@
-"""Coded-matmul DECODE stage with fused digit extraction: the CUDA kernel and
-its plain version.
+"""Coded-matmul DECODE stage with fused digit extraction: the CUDA kernels and
+their plain versions.
 
-Replaces ``src/repro/kernels/coded_decode.py::decode_pallas`` (the TPU
-kernel).  ``X = W @ Y`` followed in registers by the paper's Sec. III-C
-extraction (round half-to-even -> mod s -> recentre into (-s/2, s/2]);
-``extract=False`` only rounds (``csrc/coded_decode.cu``).
+:func:`decode_cuda` replaces ``src/repro/kernels/coded_decode.py::
+decode_pallas`` (the TPU kernel).  ``X = W @ Y`` followed in registers by the
+paper's Sec. III-C extraction (round half-to-even -> mod s -> recentre into
+(-s/2, s/2]); ``extract=False`` only rounds (``csrc/coded_decode.cu``).
+:func:`decode_partial_cuda` replaces ``decode_partial_pallas``: the same
+decode per output-row chunk with chunk q's panel, in one launch for all
+chunks, on Y as the runtime holds it (chunks of unequal width) or on the
+reference package's equal-width (Q, K, Ec) stack.
 
 What bounds it on the card: device-memory bytes.  At the paper's geometry
 it reads Y (K=10, E=16e6 float64, 1.28 GB) once and writes C (mn=4, 0.51 GB)
-once for only 2*mn*K operations per column.  The kernel streams Y with
-coalesced loads, keeps the panel W in shared memory and the mn sums in
-registers, so X never reaches device memory.  W, s and the extract flag
-are runtime arguments: a new erasure pattern never rebuilds anything.
+once for only 2*mn*K operations per column.  The kernels stream Y with
+coalesced loads, keep the panel in shared memory and the mn sums in
+registers, so X never reaches device memory.  Panels, s and the extract
+flag are runtime arguments: a new erasure or progress pattern never
+rebuilds anything.
 
-:func:`decode_ref` (from ``ref``) is the plain version; the wrapper
-``ops.decode`` runs it for CPU tensors and launches the kernel for CUDA
-tensors.
+:func:`decode_ref` and :func:`decode_partial_ref` (from ``ref``) are the
+plain versions; the wrappers ``ops.decode`` and ``ops.decode_partial`` run
+them for CPU tensors and launch the kernels for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -24,21 +29,40 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import decode_ref
+from repro_torch.kernels.ref import decode_partial_ref, decode_ref
 
-__all__ = ["decode_cuda", "decode_ref", "MAX_PANEL_BYTES"]
+__all__ = ["decode_cuda", "decode_ref", "decode_partial_cuda",
+           "decode_partial_ref", "MAX_PANEL_BYTES", "MAX_CHUNKS"]
 
 MAX_PANEL_BYTES = 48 * 1024  # the panel lives in (static-limit) shared memory
+MAX_CHUNKS = 128             # kMaxChunks in csrc/coded_decode.cu
 
+_P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 _SYMBOLS = {torch.float64: "repro_decode_f64", torch.float32: "repro_decode_f32"}
+_PARTIAL_SYMBOLS = {torch.float64: "repro_decode_partial_f64",
+                    torch.float32: "repro_decode_partial_f32"}
 
 
 def _function(dtype: torch.dtype):
     fn = getattr(_build.load("coded_decode"), _SYMBOLS[dtype])
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, I, I, ctypes.c_longlong, ctypes.c_double, I, P]
-    fn.restype = I
+    fn.argtypes = [_P, _P, _P, _I, _I, _L, _D, _I, _P]
+    fn.restype = _I
     return fn
+
+
+def _partial_function(dtype: torch.dtype):
+    fn = getattr(_build.load("coded_decode"), _PARTIAL_SYMBOLS[dtype])
+    fn.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _L, _L, _D, _I, _P]
+    fn.restype = _I
+    return fn
+
+
+def _check_operands(W: torch.Tensor, Y: torch.Tensor, what: str) -> None:
+    if W.dtype not in _SYMBOLS:
+        raise NotImplementedError(
+            f"the {what} CUDA kernel takes float64 or float32, not {W.dtype}")
+    if Y.dtype != W.dtype or Y.device != W.device or W.device.type != "cuda":
+        raise ValueError(f"{what}_cuda needs CUDA tensors of one dtype")
 
 
 def decode_cuda(W: torch.Tensor, Y: torch.Tensor, s: float,
@@ -52,12 +76,8 @@ def decode_cuda(W: torch.Tensor, Y: torch.Tensor, s: float,
         NotImplementedError: for dtypes other than float64 / float32.
         RuntimeError: if the launch fails.
     """
+    _check_operands(W, Y, "decode")
     dtype = W.dtype
-    if dtype not in _SYMBOLS:
-        raise NotImplementedError(
-            f"the decode CUDA kernel takes float64 or float32, not {dtype}")
-    if Y.dtype != dtype or Y.device != W.device or W.device.type != "cuda":
-        raise ValueError("decode_cuda needs CUDA tensors of one dtype")
     mn, K = W.shape
     K2, E = Y.shape
     if K != K2:
@@ -75,4 +95,69 @@ def decode_cuda(W: torch.Tensor, Y: torch.Tensor, s: float,
                            E, float(s), int(bool(extract)), stream)
     if err != 0:
         raise RuntimeError(f"decode kernel launch failed: cudaError {err}")
+    return out
+
+
+def decode_partial_cuda(W_stack: torch.Tensor, Y: torch.Tensor, s: float,
+                        extract: bool = True, bounds=None) -> torch.Tensor:
+    """Launch the per-chunk kernel once for all Q chunks: W_stack (Q, mn, K)
+    and Y, CUDA tensors of one real dtype (float64 or float32).
+
+    With ``bounds=None``, Y is the (Q, K, Ec) stack and the result
+    (Q, mn, Ec).  With ``bounds`` (Q + 1 nondecreasing column offsets from 0
+    to E), Y is (K, E), chunk q is columns ``bounds[q]:bounds[q + 1]``, and
+    the kernel writes the (mn, E) result with every chunk in place.
+
+    Raises:
+        ValueError: on mismatched shapes, devices or dtypes, bad bounds,
+            more than ``MAX_CHUNKS`` chunks, or a panel larger than
+            ``MAX_PANEL_BYTES``.
+        NotImplementedError: for dtypes other than float64 / float32.
+        RuntimeError: if the launch fails.
+    """
+    _check_operands(W_stack, Y, "decode_partial")
+    dtype = W_stack.dtype
+    Q, mn, K = W_stack.shape
+    if bounds is None:
+        if Y.ndim != 3 or Y.shape[:2] != (Q, K):
+            raise ValueError(f"shape mismatch: W_stack {tuple(W_stack.shape)}, "
+                             f"Y {tuple(Y.shape)}")
+        Ec = Y.shape[2]
+        out = torch.empty((Q, mn, Ec), dtype=dtype, device=Y.device)
+        y_off = [q * K * Ec for q in range(Q)]
+        out_off = [q * mn * Ec for q in range(Q)]
+        width = [Ec] * Q
+        ys = os_ = Ec
+    else:
+        bounds = [int(b) for b in bounds]
+        if Y.ndim != 2 or Y.shape[0] != K:
+            raise ValueError(f"shape mismatch: W_stack {tuple(W_stack.shape)}, "
+                             f"Y {tuple(Y.shape)}")
+        E = Y.shape[1]
+        if (len(bounds) != Q + 1 or bounds[0] != 0 or bounds[-1] != E
+                or any(b1 < b0 for b0, b1 in zip(bounds, bounds[1:]))):
+            raise ValueError(f"bounds {bounds} do not split {E} columns into "
+                             f"{Q} chunks")
+        out = torch.empty((mn, E), dtype=dtype, device=Y.device)
+        y_off = out_off = bounds[:-1]
+        width = [b1 - b0 for b0, b1 in zip(bounds, bounds[1:])]
+        ys = os_ = E
+    if Q > MAX_CHUNKS:
+        raise ValueError(f"the partial decode kernel takes at most {MAX_CHUNKS} "
+                         f"chunks, got Q={Q}")
+    if mn * K * W_stack.element_size() > MAX_PANEL_BYTES:
+        raise ValueError(f"decode panel ({mn}, {K}) exceeds {MAX_PANEL_BYTES} "
+                         f"bytes of shared memory")
+    if out.numel() == 0 or K == 0:
+        return out.zero_()
+    Wc = W_stack.contiguous()
+    Yc = Y.contiguous()
+    offsets = [(_L * Q)(*x) for x in (y_off, out_off, width)]
+    stream = torch.cuda.current_stream(Y.device).cuda_stream
+    err = _partial_function(dtype)(
+        Wc.data_ptr(), Yc.data_ptr(), out.data_ptr(), Q, mn, K,
+        *(ctypes.addressof(x) for x in offsets), ys, os_, float(s),
+        int(bool(extract)), stream)
+    if err != 0:
+        raise RuntimeError(f"decode_partial kernel launch failed: cudaError {err}")
     return out

@@ -14,7 +14,8 @@
 // few GB of operands.  The design is a plain register-blocked FMA product:
 // 256 threads per block, each accumulating a 4x4 micro-tile of the 64x64
 // output tile in registers, with fragments read from shared memory (100
-// registers, so two blocks share an SM).  The encode adds P/BN + Q/BM
+// registers, so two blocks share an SM; the tile is tile_gemm.cuh, shared
+// with block_matmul.cu).  The encode adds P/BN + Q/BM
 // (12.5% at P=Q=4) operations, and each block re-reads its P + Q raw tiles
 // from L2 for every v-step; the tensor-core (DMMA / wgmma) and TMA
 // versions are later work.
@@ -28,21 +29,13 @@
 
 #include <cuda_runtime.h>
 
+#include "tile_gemm.cuh"
+
 namespace {
 
-constexpr int kBM = 64;   // output rows (r) per block
-constexpr int kBN = 64;   // output cols (t) per block
-constexpr int kBK = 16;   // contraction (v) rows per step
-constexpr int kTM = 4;    // rows per thread
-constexpr int kTN = 4;    // cols per thread
-constexpr int kRowThreads = kBM / kTM;             // 16
-constexpr int kColThreads = kBN / kTN;             // 16
-constexpr int kThreads = kRowThreads * kColThreads;  // 256
+using namespace tile_gemm;
+
 constexpr int kMaxBlocks = 64;  // largest P or Q the kernel takes
-constexpr int kStep = kThreads / kBM;  // tile rows encoded per pass (4)
-constexpr int kIters = kBK / kStep;    // passes per step (4)
-static_assert(kBM == kBN && kThreads % kBM == 0 && kBK % kStep == 0,
-              "the encode mapping assumes square tiles");
 
 struct BlockOffsets {
   long long v[kMaxBlocks];
@@ -79,10 +72,7 @@ fused_worker_kernel(const T* __restrict__ ca, const T* __restrict__ cb,
   const int ty = tid / kColThreads;
   const int tx = tid % kColThreads;
   T acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = T(0);
+  zero(acc);
 
   // Encode-phase coordinates: column ec of the tile, rows er + kStep * it.
   const int ec = tid % kBM;
@@ -129,33 +119,11 @@ fused_worker_kernel(const T* __restrict__ ca, const T* __restrict__ cb,
     __syncthreads();
 
     // WORKER PRODUCT: acc += a~^T b~ over this step's kBK rows.
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      T af[kTM];
-      T bf[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) af[i] = a_s[kk][ty + i * kRowThreads];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) bf[j] = b_s[kk][tx + j * kColThreads];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] += af[i] * bf[j];
-    }
+    multiply(a_s, b_s, acc, ty, tx);
     __syncthreads();
   }
 
-  T* out_k = out + k * r * t;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const long long rr = r0 + ty + i * kRowThreads;
-    if (rr >= r) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const long long tt = t0 + tx + j * kColThreads;
-      if (tt < t) out_k[rr * t + tt] = acc[i][j];
-    }
-  }
+  store(out + k * r * t, acc, r0, t0, r, t, ty, tx);
 }
 
 template <typename T>

@@ -13,13 +13,25 @@ went through the kernels.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.coded_decode import decode_cuda
+from repro_torch.kernels.block_matmul import matmul_t_cuda
+from repro_torch.kernels.coded_decode import decode_cuda, decode_partial_cuda
+from repro_torch.kernels.coded_encode import encode_cuda
 from repro_torch.kernels.coded_fused import fused_worker_cuda
 
-__all__ = ["fused_worker", "decode", "launch_counts", "reset_launch_counts"]
+__all__ = ["fused_worker", "decode", "decode_partial", "encode", "matmul_t",
+           "launch_counts", "reset_launch_counts"]
+
+
+def _common_dtype(*tensors: torch.Tensor) -> torch.dtype:
+    dt = tensors[0].dtype
+    for x in tensors[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return dt
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
@@ -48,9 +60,7 @@ def fused_worker(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
     if any(x.is_complex() for x in tensors):
         return ref.fused_worker_ref(coeff_a, coeff_b, a_blocks, b_blocks,
                                     out_dtype)
-    dt = coeff_a.dtype
-    for x in tensors[1:]:
-        dt = torch.promote_types(dt, x.dtype)
+    dt = _common_dtype(*tensors)
     ca, cb, a, b = (x.to(dt) for x in tensors)
     if not _on_card(*tensors):
         return ref.fused_worker_ref(ca, cb, a, b, out_dtype)
@@ -74,9 +84,87 @@ def decode(W: torch.Tensor, Y: torch.Tensor, s: float, *,
     return out
 
 
+def decode_partial(W_stack: torch.Tensor, Y: torch.Tensor, s: float, *,
+                   extract: bool = True, bounds=None) -> torch.Tensor:
+    """Per-chunk decode with fused digit extraction, one launch for all
+    chunks: chunk q's worker outputs through chunk q's panel W_stack[q]
+    (Q, mn, K).
+
+    With ``bounds=None``, Y is the (Q, K, Ec) stack of the reference
+    package's signature and the result (Q, mn, Ec).  With ``bounds`` (Q + 1
+    column offsets from 0 to E), Y is (K, E) as the runtime holds it, chunk
+    q is columns ``bounds[q]:bounds[q + 1]`` (widths may differ), and the
+    result is the (mn, E) decode.  Y is promoted to W_stack's dtype; complex
+    panels take the plain path.
+    """
+    if W_stack.is_complex() or Y.is_complex():
+        return ref.decode_partial_ref(W_stack, Y, s, extract, bounds)
+    Y = Y.to(W_stack.dtype)
+    if not _on_card(W_stack, Y):
+        return ref.decode_partial_ref(W_stack, Y, s, extract, bounds)
+    out = decode_partial_cuda(W_stack, Y, s, extract, bounds)
+    decode_partial.launches += 1
+    return out
+
+
+def encode(coeff: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
+    """Encode: coeff (K, P), blocks (P, E) -> (K, E) coded blocks, as in the
+    reference package; or blocks (*grid, rows, cols) with prod(grid) = P,
+    possibly a strided view from ``block_decompose``, -> the contiguous
+    (K, rows, cols) coded stack.
+
+    Promotes to one dtype; complex operands take the plain path.
+    """
+    flat = blocks.ndim == 2
+    stack = blocks.unsqueeze(1) if flat else blocks
+    K, P = coeff.shape
+    if coeff.is_complex() or blocks.is_complex():
+        out = ref.encode_ref(coeff, stack.reshape(P, -1))
+    else:
+        dt = _common_dtype(coeff, blocks)
+        c, x = coeff.to(dt), stack.to(dt)
+        if _on_card(c, x):
+            out = encode_cuda(c, x)
+            encode.launches += 1
+        else:
+            out = ref.encode_ref(c, x.reshape(P, -1))
+    return out.reshape(K, -1) if flat else out.reshape(K, *stack.shape[-2:])
+
+
+def matmul_t(A: torch.Tensor, B: torch.Tensor, *, out_dtype=None,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One worker's product: A (v, r), B (v, t) -> A^T B (r, t).
+
+    Promotes to one dtype; complex operands take the plain path.  ``out``,
+    if given, is a contiguous (r, t) tensor of the result's dtype that
+    receives the product (the kernel writes it directly).
+    """
+    if A.is_complex() or B.is_complex():
+        res = ref.matmul_t_ref(A, B, out_dtype)
+    else:
+        dt = _common_dtype(A, B)
+        a, b = A.to(dt), B.to(dt)
+        if _on_card(a, b):
+            direct = out if out_dtype is None else None
+            res = matmul_t_cuda(a, b, direct)
+            matmul_t.launches += 1
+            if out_dtype is not None:
+                res = res.to(out_dtype)
+        else:
+            res = ref.matmul_t_ref(a, b, out_dtype)
+    if out is None or res is out:
+        return res
+    return out.copy_(res)
+
+
 fused_worker.launches = 0
 decode.launches = 0
-_WRAPPERS = {"fused_worker": fused_worker, "decode": decode}
+decode_partial.launches = 0
+encode.launches = 0
+matmul_t.launches = 0
+_WRAPPERS = {"fused_worker": fused_worker, "decode": decode,
+             "decode_partial": decode_partial, "encode": encode,
+             "matmul_t": matmul_t}
 
 
 def launch_counts() -> dict:

@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["encode_ref", "decode_ref", "matmul_t_ref", "fused_worker_ref"]
+__all__ = ["encode_ref", "decode_ref", "decode_partial_ref", "matmul_t_ref",
+           "fused_worker_ref"]
 
 
 def encode_ref(coeff: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
@@ -37,6 +38,24 @@ def decode_ref(W: torch.Tensor, Y: torch.Tensor, s: float,
         return R
     C_hat = torch.remainder(R, s)
     return torch.where(C_hat <= s / 2, C_hat, C_hat - s)
+
+
+def decode_partial_ref(W_stack: torch.Tensor, Y: torch.Tensor, s: float,
+                       extract: bool = True, bounds=None) -> torch.Tensor:
+    """Per-chunk decode: chunk q's outputs through chunk q's panel.
+
+    W_stack: (Q, mn, K).  With ``bounds=None``, Y is (Q, K, Ec) and the
+    result (Q, mn, Ec), one :func:`decode_ref` per chunk, stacked.  With
+    ``bounds`` (Q + 1 column offsets), Y is (K, E) as the runtime holds it,
+    chunk q is columns ``bounds[q]:bounds[q + 1]``, and the result is the
+    (mn, E) decode with every chunk in place.
+    """
+    Q = W_stack.shape[0]
+    if bounds is None:
+        return torch.stack([decode_ref(W_stack[q], Y[q], s, extract)
+                            for q in range(Q)])
+    return torch.cat([decode_ref(W_stack[q], Y[:, bounds[q]:bounds[q + 1]],
+                                 s, extract) for q in range(Q)], dim=1)
 
 
 def fused_worker_ref(coeff_a: torch.Tensor, coeff_b: torch.Tensor,

@@ -1,17 +1,25 @@
 """Runtime: the unified coded-matmul executor API.
 
 ``CodedMatmul`` is the single entry point for every ported backend
-("fused": the CUDA kernels; "reference": plain PyTorch);
-``ErasurePattern`` normalises every erasure convention; executors are
-pluggable via ``with_backend``.
+("fused" and "staged": the CUDA kernels; "reference": plain PyTorch);
+``ErasurePattern`` normalises every erasure convention and
+``PartialPattern`` its fractional generalisation (per-worker sub-task
+progress); executors are pluggable via ``with_backend``.
 """
 from repro_torch.runtime.erasure import ErasurePattern
+from repro_torch.runtime.partial import (
+    PartialPattern,
+    chunk_bounds,
+    chunk_coverage,
+    chunk_masks_for,
+)
 from repro_torch.runtime.executors import (
     BACKENDS,
     Executor,
     FusedKernelExecutor,
     LocalExecutor,
     ReferenceExecutor,
+    StagedKernelExecutor,
     resolve_executor,
 )
 from repro_torch.runtime.facade import CacheGroup, CodedMatmul, plan_token
@@ -21,9 +29,14 @@ __all__ = [
     "CacheGroup",
     "plan_token",
     "ErasurePattern",
+    "PartialPattern",
+    "chunk_bounds",
+    "chunk_coverage",
+    "chunk_masks_for",
     "Executor",
     "LocalExecutor",
     "ReferenceExecutor",
+    "StagedKernelExecutor",
     "FusedKernelExecutor",
     "resolve_executor",
     "BACKENDS",

@@ -5,19 +5,27 @@ The facade owns:
 * the ``DecodePanelCache`` (host-LU decode weights per erasure pattern);
 * erasure normalisation (``erased=`` / ``survivors=`` / 0/1 ``mask``) into
   one ``ErasurePattern``;
+* partial stragglers: ``sub_tasks=Q`` / ``progress=`` / ``PartialPattern``
+  decode each of Q row chunks from the workers whose completed prefix
+  covers it (``runtime/partial.py``); ``Q = 1`` with a binary spec is the
+  binary path, bit for bit;
+* split stages: ``worker_stage`` (encode + worker products) and
+  ``decode_stage`` (erase + decode), whose composition equals the one-shot
+  call;
 * batching: leading batch dimensions on A and/or B (a loop over the
   flattened batch, one erasure pattern for the whole batch);
-* a pipeline memo keyed by (plan, backend, A.shape, B.shape, dtype,
-  erasure kind) with build/hit counters, so repeated serving calls -
-  including calls with NEW erasure patterns - reuse one pipeline.  PyTorch
-  runs eagerly, so a "build" makes the pipeline closure; nothing compiles
-  per pattern (the CUDA libraries are built once per process, at first use).
+* a pipeline memo keyed by (plan, backend, shapes, dtype, device, kind)
+  with build/hit counters, so repeated serving calls - including calls with
+  NEW erasure or progress patterns - reuse one pipeline.  PyTorch runs
+  eagerly, so a "build" makes the pipeline closure; nothing compiles per
+  pattern (the CUDA libraries are built once per process, at first use).
 
 Usage::
 
     cm = CodedMatmul(plan)                      # fused kernels, on the card
     C  = cm(A, B, erased=[3])                   # or survivors=/mask=
-    C2 = cm.with_backend("reference")(A, B)     # same caches, new backend
+    C1 = cm(A, B, progress=prog, sub_tasks=4)   # partial stragglers
+    C2 = cm.with_backend("staged")(A, B)        # same caches, new backend
 """
 from __future__ import annotations
 
@@ -30,12 +38,14 @@ import torch
 from repro_torch.core.api import CodedMatmulPlan
 from repro_torch.core.numerics import complex_dtype, resolve_device, resolve_dtype
 from repro_torch.runtime.erasure import ErasurePattern
-from repro_torch.runtime.executors import Executor, resolve_executor
+from repro_torch.runtime.executors import (
+    Executor,
+    local_backend_names,
+    resolve_executor,
+)
+from repro_torch.runtime.partial import PartialPattern
 
 __all__ = ["CodedMatmul", "CacheGroup", "plan_token"]
-
-_SPLIT_STAGE = ("split-stage serving (worker_stage / decode_stage) is not "
-                "ported to the PyTorch package yet")
 
 
 def plan_token(plan: CodedMatmulPlan):
@@ -123,22 +133,22 @@ class CodedMatmul:
     them.  The erasure pattern applies to the whole batch (one survivor set
     per serving step).
 
-    Backends: "fused" (default; the CUDA kernels on the card, their plain
-    versions on the CPU) | "reference" (plain PyTorch).  ``device`` defaults
-    to the CUDA card; without one, construction raises unless the caller
-    passes ``device="cpu"``.  ``dtype`` is float64 (default) or float32.
-    Both backends are bit-identical for integer inputs within the plan's
-    bounds.
+    Backends: "fused" (default) | "staged" (the CUDA kernels on the card,
+    their plain versions on the CPU) | "reference" (plain PyTorch).
+    ``device`` defaults to the CUDA card; without one, construction raises
+    unless the caller passes ``device="cpu"``.  ``dtype`` is float64
+    (default) or float32.  ``sub_tasks`` (Q) splits every worker's output
+    rows into Q partial-straggler chunks.  All backends are bit-identical
+    for integer inputs within the plan's bounds.
     """
 
     def __init__(self, plan: CodedMatmulPlan, backend="fused", *,
                  dtype=torch.float64, device=None, panel_ridge: float = 0.0,
                  cache_group: Optional[CacheGroup] = None,
                  sub_tasks: int = 1, _shared=None):
-        if sub_tasks != 1:
-            raise NotImplementedError(
-                "partial stragglers (sub_tasks > 1) are not ported to the "
-                "PyTorch package yet")
+        if sub_tasks < 1:
+            raise ValueError(f"need sub_tasks >= 1, got {sub_tasks}")
+        self.sub_tasks = int(sub_tasks)
         self.plan = plan
         self.dtype = resolve_dtype(dtype)
         self.device = resolve_device(device)
@@ -167,6 +177,7 @@ class CodedMatmul:
         """A sibling facade on another backend, SHARING panel + pipeline caches."""
         return CodedMatmul(
             self.plan, backend, dtype=self.dtype, device=self.device,
+            sub_tasks=self.sub_tasks,
             _shared=(self.panel_cache, self._executables, self._stats))
 
     def cache_info(self) -> dict:
@@ -190,59 +201,103 @@ class CodedMatmul:
             A: (*batch, v, r) left operand (tensor or array; moved to the
                 facade's device).
             B: (*batch, v, t) right operand.
-            erasure: positional spec - an ``ErasurePattern``, a (K,) 0/1
-                mask (a tensor mask is read to the host), or a list of
-                erased worker ids.
+            erasure: positional spec - an ``ErasurePattern``, a
+                ``PartialPattern``, a (K,) 0/1 mask (a tensor mask is read
+                to the host), or a list of erased worker ids.
             erased / survivors / mask: keyword alternatives.
-            progress / sub_tasks: partial-straggler specs; not ported yet.
+            progress: (K,) fractional progress in [0, 1] (a tensor is read
+                to the host) - routes through the partial-straggler decode.
+            sub_tasks: per-call override of the facade's sub-task count Q.
+                ``Q > 1`` (or an explicit ``progress``/``PartialPattern``)
+                selects the partial path; ``Q = 1`` with binary specs is
+                the binary path, bit for bit.
 
         Returns:
             (*batch, r, t) decoded product on the facade's device.
 
         Raises:
             ValueError: on conflicting erasure specs, rank-<2 operands,
-                contraction mismatch, or fewer than tau survivors.
-            NotImplementedError: for partial-straggler specs.
+                contraction mismatch, fewer than tau survivors, or a partial
+                progress vector that does not span the decoding system.
         """
-        if progress is not None or (sub_tasks is not None and sub_tasks != 1):
-            raise NotImplementedError(
-                "partial stragglers (progress= / sub_tasks > 1) are not "
-                "ported to the PyTorch package yet")
+        Q = self.sub_tasks if sub_tasks is None else int(sub_tasks)
+        if Q < 1:
+            raise ValueError(f"need sub_tasks >= 1, got {Q}")
+        if Q > 1 or progress is not None or isinstance(erasure, PartialPattern):
+            pattern = PartialPattern.normalize(
+                self.plan.K, Q, erasure, progress=progress, erased=erased,
+                survivors=survivors, mask=mask)
+            return self._call_partial(A, B, pattern)
         pattern = ErasurePattern.normalize(
             self.plan.K, erasure, erased=erased, survivors=survivors,
             mask=mask)
+        A, B = self._operands(A, B)
+        data = self._binary_data(pattern)
+        return self._get_executable(A, B, pattern.kind)(A, B, *data)
+
+    # -- split-stage serving -------------------------------------------------
+    def worker_stage(self, A, B) -> torch.Tensor:
+        """Stages 1+2 only: encode + ALL-K worker products (no erase/decode).
+
+        The returned (*batch, K, br, bt) padded block products are what the
+        workers hand back before any erasure is applied; feed them to
+        :meth:`decode_stage` (with the erasure pattern observed meanwhile)
+        to finish the step.  The composition equals the one-shot call.
+        """
+        A, B = self._operands(A, B)
+        return self._get_executable(A, B, "products")(A, B)
+
+    def decode_stage(self, Y, rt, erasure: Any = None, *,
+                     erased: Optional[Sequence[int]] = None,
+                     survivors: Optional[Sequence[int]] = None,
+                     mask: Any = None, progress: Any = None,
+                     sub_tasks: Optional[int] = None) -> torch.Tensor:
+        """Stages 3+4: erase + decode a :meth:`worker_stage` result.
+
+        Args:
+            Y: (*batch, K, br, bt) worker products from THIS facade's
+                :meth:`worker_stage` (same plan, same operand shapes); it is
+                not modified.
+            rt: the original trailing dims ``(r, t)`` =
+                ``(A.shape[-1], B.shape[-1])``, which the padded products no
+                longer carry.
+            erasure / erased / survivors / mask: binary erasure spec, as
+                for ``__call__``.
+            progress / sub_tasks: rejected - partial-straggler specs have
+                no split-stage path.
+
+        Returns:
+            (*batch, r, t) decoded product, equal to the one-shot call under
+            the same pattern.
+
+        Raises:
+            ValueError: on conflicting specs or fewer than tau survivors.
+            NotImplementedError: for partial/progress specs: split-stage
+                decode has no per-chunk panel path - serve partial patterns
+                one-shot via ``cm(A, B, progress=..., sub_tasks=Q)``.
+        """
+        if (progress is not None
+                or (sub_tasks is not None and int(sub_tasks) != 1)
+                or isinstance(erasure, PartialPattern)):
+            raise NotImplementedError(
+                "split-stage decode has no per-chunk panel path: "
+                "decode_stage accepts only binary erasure specs "
+                "(erasure= / erased= / survivors= / mask=). Serve partial "
+                "patterns one-shot via cm(A, B, progress=..., sub_tasks=Q) "
+                f"- supported on every ported backend: "
+                f"{local_backend_names()}.")
+        Y = torch.as_tensor(Y, device=self.device)
+        r, t = int(rt[0]), int(rt[1])
+        pattern = ErasurePattern.normalize(
+            self.plan.K, erasure, erased=erased, survivors=survivors,
+            mask=mask)
+        data = self._binary_data(pattern)
+        return self._get_decode_executable(Y, ("decode", r, t))(Y, *data)
+
+    # -- helpers -------------------------------------------------------------
+    def _operands(self, A, B) -> tuple:
         A = torch.as_tensor(A, device=self.device)
         B = torch.as_tensor(B, device=self.device)
-        self._check_operands(A, B)
-        if pattern.n_survivors < self.plan.tau:
-            raise ValueError(
-                f"only {pattern.n_survivors} survivors < "
-                f"tau={self.plan.tau}: undecodable")
-        fn = self._get_executable(A, B, pattern.kind)
-        panel = self.panel_cache.get(pattern.mask)
-        W = torch.as_tensor(panel.W, dtype=self._decode_dtype(),
-                            device=self.device)
-        mask_arr = pattern.mask_array(self.dtype, self.device)
-        return fn(A, B, mask_arr, W)
-
-    # -- split-stage serving (not ported) -----------------------------------
-    def worker_stage(self, A, B):
-        """Split-stage serving; not ported yet.
-
-        Raises:
-            NotImplementedError: always.
-        """
-        raise NotImplementedError(_SPLIT_STAGE)
-
-    def decode_stage(self, Y, rt, *args, **kwargs):
-        """Split-stage serving; not ported yet.
-
-        Raises:
-            NotImplementedError: always.
-        """
-        raise NotImplementedError(_SPLIT_STAGE)
-
-    def _check_operands(self, A, B) -> None:
         if A.ndim < 2 or B.ndim < 2:
             raise ValueError(f"need >= 2-D operands, got {tuple(A.shape)} / "
                              f"{tuple(B.shape)}")
@@ -255,37 +310,82 @@ class CodedMatmul:
                 f"batch mismatch: A has leading dims {tuple(A.shape[:-2])}, "
                 f"B has {tuple(B.shape[:-2])}; batch one operand or both "
                 f"equally")
+        return A, B
+
+    def _binary_data(self, pattern: ErasurePattern) -> tuple:
+        """(mask, W) for a binary pattern, after the survivor-count check."""
+        if pattern.n_survivors < self.plan.tau:
+            raise ValueError(
+                f"only {pattern.n_survivors} survivors < "
+                f"tau={self.plan.tau}: undecodable")
+        panel = self.panel_cache.get(pattern.mask)
+        W = torch.as_tensor(panel.W, dtype=self._decode_dtype(),
+                            device=self.device)
+        return pattern.mask_array(self.dtype, self.device), W
+
+    def _call_partial(self, A, B, pattern: PartialPattern) -> torch.Tensor:
+        """Partial-straggler decode path: per-chunk masks + panel stack."""
+        A, B = self._operands(A, B)
+        pattern.require_decodable(self.plan.tau)
+        fn = self._get_executable(A, B, ("partial", pattern.Q))
+        cm = pattern.chunk_masks
+        W_stack = self.panel_cache.get_partial(cm)
+        return fn(A, B, torch.as_tensor(cm, dtype=self.dtype, device=self.device),
+                  torch.as_tensor(W_stack, dtype=self._decode_dtype(),
+                                  device=self.device))
 
     # -- pipeline construction ---------------------------------------------
+    def _memo(self, key, build):
+        fn = self._executables.get(key)
+        if fn is not None:
+            self._stats["hits"] += 1
+            return fn
+        fn = build()
+        self._executables[key] = fn
+        self._stats["builds"] += 1
+        return fn
+
     def _get_executable(self, A, B, kind):
         # the token folds in the executor and the PLAN identity, so
         # CacheGroup members on different plans never alias a pipeline.
         key = (self._plan_token, self._executor.cache_token(), tuple(A.shape),
                tuple(B.shape), str(self.dtype), str(self.device), kind)
-        fn = self._executables.get(key)
-        if fn is not None:
-            self._stats["hits"] += 1
-            return fn
-        fn = self._build(A.ndim - 2, B.ndim - 2, kind)
-        self._executables[key] = fn
-        self._stats["builds"] += 1
-        return fn
+        return self._memo(key, lambda: self._build(A.ndim - 2, B.ndim - 2, kind))
+
+    def _get_decode_executable(self, Y, kind):
+        # keyed on the PRODUCTS shape plus the static (r, t) in the kind;
+        # leading dims beyond (K, br, bt) are batch dims of Y only.
+        key = (self._plan_token, self._executor.cache_token(), tuple(Y.shape),
+               str(self.dtype), str(self.device), kind)
+
+        def build():
+            base = self._executor.make_pipeline(self.plan, kind, self.dtype)
+            if Y.ndim == 3:
+                return base
+
+            def batched(Y, *data):
+                n = math.prod(Y.shape[:-3])
+                Ys = Y.reshape(n, *Y.shape[-3:])
+                return _stack_loop(n, lambda i: base(Ys[i], *data),
+                                   Y.shape[:-3])
+
+            return batched
+
+        return self._memo(key, build)
 
     def _build(self, a_batch: int, b_batch: int, kind):
         base = self._executor.make_pipeline(self.plan, kind, self.dtype)
         if not (a_batch or b_batch):
             return base
 
-        def batched(A, B, mask, W):
+        # data operands after (A, B): (mask, W) / (chunk_masks, W_stack),
+        # or none for the split worker stage; the pattern is one per batch.
+        def batched(A, B, *data):
             batch = A.shape[:-2] if a_batch else B.shape[:-2]
             n = math.prod(batch)
             As = A.reshape(n, *A.shape[-2:]) if a_batch else A.expand(n, *A.shape)
             Bs = B.reshape(n, *B.shape[-2:]) if b_batch else B.expand(n, *B.shape)
-            out = torch.empty((n, A.shape[-1], B.shape[-1]), dtype=self.dtype,
-                              device=A.device)
-            for i in range(n):
-                out[i] = base(As[i], Bs[i], mask, W)
-            return out.reshape(*batch, *out.shape[1:])
+            return _stack_loop(n, lambda i: base(As[i], Bs[i], *data), batch)
 
         return batched
 
@@ -294,3 +394,13 @@ class CodedMatmul:
         if self.plan.is_complex:
             return complex_dtype(self.dtype)
         return self.dtype
+
+
+def _stack_loop(n: int, one, batch) -> torch.Tensor:
+    """``one(i)`` for i < n, written into one (*batch, ...) result."""
+    first = one(0)
+    out = first.new_empty((n, *first.shape))
+    out[0] = first
+    for i in range(1, n):
+        out[i] = one(i)
+    return out.reshape(*batch, *first.shape)

@@ -139,7 +139,155 @@ def test_coded_matmul_on_the_card_is_exact(cuda, kind, p, m, n, pp):
         C = cm(A, B, erased=erased)
         assert C.device.type == "cuda"
         torch.testing.assert_close(C.cpu(), A.T @ B, rtol=0, atol=0)
-        assert ops.launch_counts() == {"fused_worker": i + 1, "decode": i + 1}
+        assert ops.launch_counts() == dict(_NONE, fused_worker=i + 1, decode=i + 1)
     C_ref = cm.with_backend("reference")(A, B, erased=[3, 8])
     torch.testing.assert_close(C_ref.cpu(), A.T @ B, rtol=0, atol=0)
-    assert ops.launch_counts() == {"fused_worker": 3, "decode": 3}
+    assert ops.launch_counts() == dict(_NONE, fused_worker=3, decode=3)
+
+
+_NONE = {name: 0 for name in ("fused_worker", "decode", "decode_partial",
+                              "encode", "matmul_t")}
+
+
+@pytest.mark.parametrize("P,grid,rows,cols,K", [
+    (4, (4,), 64, 256, 10),
+    (3, (3,), 37, 129, 5),        # ragged, off the 256-wide thread block
+    (1, (1,), 1, 1, 1),
+    (20, (4, 5), 9, 33, 17),      # K past the 16 register rows, P past 8 loads
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_encode_kernel_matches_plain(cuda, P, grid, rows, cols, K, dtype):
+    gen = torch.Generator().manual_seed(5)
+    coeff = _rand(gen, (K, P), dtype)
+    blocks = _rand(gen, (*grid, rows, cols), dtype)
+    out = ops.encode(coeff, blocks)
+    exp = ref.encode_ref(coeff, blocks.reshape(P, -1)).reshape(K, rows, cols)
+    torch.cuda.synchronize()
+    assert out.shape == (K, rows, cols) and out.dtype == dtype
+    scale = float(exp.abs().max()) + 1e-9
+    assert float((out - exp).abs().max()) / scale < TOL[dtype]
+    flat = ops.encode(coeff, blocks.reshape(P, -1))        # the (P, E) form
+    assert flat.shape == (K, rows * cols)
+    torch.testing.assert_close(flat, out.reshape(K, -1), rtol=0, atol=0)
+    assert ops.launch_counts() == dict(_NONE, encode=2)
+
+
+def test_encode_kernel_on_strided_block_views_is_exact(cuda):
+    """Integer blocks: the strided view and its contiguous stack encode to
+    the plain version's values exactly."""
+    gen = torch.Generator().manual_seed(6)
+    A = torch.randint(-9, 10, (130, 250), generator=gen).to(cuda, torch.float64)
+    coeff = torch.randint(-3, 4, (7, 4), generator=gen).to(cuda, torch.float64)
+    view = block_decompose(A, 2, 2)
+    assert not view.is_contiguous()
+    out = ops.encode(coeff, view)
+    stacked = view.reshape(4, 65, 125).contiguous()
+    torch.testing.assert_close(out, ops.encode(coeff, stacked), rtol=0, atol=0)
+    torch.testing.assert_close(
+        out, ref.encode_ref(coeff, stacked.reshape(4, -1)).reshape(7, 65, 125),
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("v,r,t", [(256, 128, 128), (300, 200, 150),
+                                   (129, 257, 65), (1, 1, 1), (0, 9, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_matmul_t_kernel_matches_plain(cuda, v, r, t, dtype):
+    gen = torch.Generator().manual_seed(7)
+    A, B = _rand(gen, (v, r), dtype), _rand(gen, (v, t), dtype)
+    out = ops.matmul_t(A, B)
+    exp = ref.matmul_t_ref(A, B)
+    torch.cuda.synchronize()
+    assert out.shape == (r, t) and out.dtype == dtype
+    scale = float(exp.abs().max()) + 1e-9
+    assert float((out - exp).abs().max()) / scale < TOL[dtype]
+    Y = torch.full((2, r, t), float("nan"), device=cuda, dtype=dtype)
+    ops.matmul_t(A, B, out=Y[1])
+    torch.testing.assert_close(Y[1], out, rtol=0, atol=0)
+    assert bool(Y[0].isnan().all())
+    assert ops.launch_counts() == dict(_NONE, matmul_t=2)
+
+
+def test_matmul_t_kernel_on_row_strided_operands(cuda):
+    """Rows of A and B may be strided (a column slice of a wider matrix)."""
+    gen = torch.Generator().manual_seed(8)
+    wide = torch.randint(-9, 10, (70, 300), generator=gen).to(cuda, torch.float64)
+    A, B = wide[:, 10:110], wide[:, 150:217]
+    assert not A.is_contiguous()
+    torch.testing.assert_close(ops.matmul_t(A, B), A.T @ B, rtol=0, atol=0)
+
+
+def test_new_kernels_refuse_half_precision(cuda):
+    x = torch.ones(2, 8, 8, device=cuda, dtype=torch.bfloat16)
+    c = torch.ones(1, 2, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="float64 or float32"):
+        ops.encode(c, x)
+    with pytest.raises(NotImplementedError, match="float64 or float32"):
+        ops.matmul_t(x[0], x[1])
+    with pytest.raises(NotImplementedError, match="float64 or float32"):
+        ops.decode_partial(x[:, :4, :2], x.transpose(1, 2)[:, :2, :], 4.0)
+
+
+@pytest.mark.parametrize("extract", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_decode_partial_kernel_equals_per_chunk_decode(cuda, extract, dtype):
+    """Random (non-integer) data: the per-chunk kernel must agree with the
+    decode kernel on each chunk BIT FOR BIT, as one launch for all chunks;
+    mn = 20 takes it past its 16 register rows."""
+    gen = torch.Generator().manual_seed(9)
+    Q, mn, K, Ec = 5, 20, 11, 1031
+    W = _rand(gen, (Q, mn, K), dtype)
+    Y = _rand(gen, (Q, K, Ec), dtype) * 1000
+    out = ops.decode_partial(W, Y, 64.0, extract=extract)
+    assert out.shape == (Q, mn, Ec) and ops.launch_counts()["decode_partial"] == 1
+    per_chunk = torch.stack([ops.decode(W[q], Y[q], 64.0, extract=extract)
+                             for q in range(Q)])
+    torch.testing.assert_close(out, per_chunk, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("extract", [True, False])
+def test_decode_partial_kernel_unequal_chunks(cuda, extract):
+    """Y (K, E) as the runtime holds it, chunks that differ in width: equal
+    to the plain version (integer data, exact) and to the decode kernel
+    on each column slice, bit for bit."""
+    gen = torch.Generator().manual_seed(10)
+    Q, mn, K, E = 4, 6, 9, 4099
+    bounds = [0, 1025, 2050, 3075, E]
+    W = torch.randint(-2, 3, (Q, mn, K), generator=gen).to(cuda, torch.float64)
+    Y = torch.randint(-40, 41, (K, E), generator=gen).to(cuda, torch.float64)
+    out = ops.decode_partial(W, Y, 64.0, extract=extract, bounds=bounds)
+    assert out.shape == (mn, E)
+    torch.testing.assert_close(
+        out, ref.decode_partial_ref(W, Y, 64.0, extract, bounds), rtol=0, atol=0)
+    for q in range(Q):
+        cols = slice(bounds[q], bounds[q + 1])
+        torch.testing.assert_close(out[:, cols],
+                                   ops.decode(W[q], Y[:, cols], 64.0, extract=extract),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("backend", ["staged", "fused"])
+@pytest.mark.parametrize("kind,p,m,n,pp", [("bec", 2, 2, 2, 1),
+                                           ("tradeoff", 4, 2, 1, 2),
+                                           ("polycode", 2, 2, 1, 1)])
+def test_staged_and_partial_on_the_card_are_exact(cuda, backend, kind, p, m, n, pp):
+    gen = torch.Generator().manual_seed(11)
+    v, r, t = 8 * p + 3, 45, 33
+    A = torch.randint(-3, 4, (v, r), generator=gen).to(torch.float64)
+    B = torch.randint(-3, 4, (v, t), generator=gen).to(torch.float64)
+    plan = make_plan(kind, p, m, n, K=9, L=v * 9 + 1, p_prime=pp,
+                     points="chebyshev")
+    cm = CodedMatmul(plan, backend)
+    C0 = A.T @ B
+    per_request = (dict(encode=2, matmul_t=plan.K) if backend == "staged"
+                   else dict(fused_worker=1))
+    torch.testing.assert_close(cm(A, B, erased=[0, 4]).cpu(), C0, rtol=0, atol=0)
+    assert ops.launch_counts() == dict(_NONE, decode=1, **per_request)
+    ops.reset_launch_counts()
+    prog = np.ones(plan.K)
+    prog[[0, 1]] = 0.75
+    C = cm(A, B, progress=prog, sub_tasks=4)
+    torch.testing.assert_close(C.cpu(), C0, rtol=0, atol=0)
+    assert ops.launch_counts() == dict(_NONE, decode_partial=1, **per_request)
+    Y = cm.worker_stage(A, B)
+    torch.testing.assert_close(cm.decode_stage(Y, (r, t), erased=[3]).cpu(), C0,
+                               rtol=0, atol=0)

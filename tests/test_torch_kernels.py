@@ -20,9 +20,18 @@ from repro.core import partition as jpart  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import api, partition  # noqa: E402
-from repro_torch.kernels import _build, coded_decode, coded_fused, ops, ref  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    _build,
+    block_matmul,
+    coded_decode,
+    coded_encode,
+    coded_fused,
+    ops,
+    ref,
+)
 
 TOL = {np.float32: 1e-4, np.float64: 1e-10}  # sums taken in another order
+RTOL = {np.float32: 1e-5, np.float64: 1e-12}  # one short sum in another order
 
 
 def _np(x):
@@ -51,7 +60,7 @@ def test_fused_worker_matches_jax(rng, K, P, Q, v, r, t, dtype):
     exp = np.asarray(jops.fused_worker(*(jnp.asarray(x[k]) for k in ("ca", "cb", "a", "b"))))
     assert got.dtype == exp.dtype == dtype and got.shape == (K, r, t)
     assert np.max(np.abs(got - exp)) / (np.max(np.abs(exp)) + 1e-9) < TOL[dtype]
-    assert ops.launch_counts() == {"fused_worker": 0, "decode": 0}
+    assert not any(ops.launch_counts().values())
 
 
 def test_fused_worker_empty_contraction_is_zero(rng):
@@ -202,6 +211,151 @@ def test_wrappers_reject_mixed_devices():
     meta = torch.ones(2, 2, device="meta")
     with pytest.raises(ValueError, match="all lie on the CPU"):
         ops.decode(x, meta, 4.0)
+
+
+@pytest.mark.parametrize("K,P,E", [(10, 4, 4096), (3, 5, 1000), (1, 1, 7), (17, 20, 33)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_encode_matches_jax(rng, K, P, E, dtype):
+    coeff = rng.normal(size=(K, P)).astype(dtype)
+    blocks = rng.normal(size=(P, E)).astype(dtype)
+    got = _np(ops.encode(torch.as_tensor(coeff), torch.as_tensor(blocks)))
+    exp = np.asarray(jops.encode(jnp.asarray(coeff), jnp.asarray(blocks)))
+    assert got.dtype == exp.dtype == dtype and got.shape == (K, E)
+    np.testing.assert_allclose(got, exp, rtol=RTOL[dtype], atol=RTOL[dtype] * np.abs(exp).max())
+    ints = [rng.integers(-9, 10, size=x.shape).astype(dtype) for x in (coeff, blocks)]
+    np.testing.assert_array_equal(
+        _np(ops.encode(*map(torch.as_tensor, ints))),
+        np.asarray(jops.encode(*map(jnp.asarray, ints))))
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("v,r,rows,cols", [(16, 12, 2, 2), (9, 7, 2, 2), (12, 8, 4, 2)])
+def test_encode_on_block_views_matches_stacked(rng, v, r, rows, cols):
+    """A (*grid, rows, cols) block view encodes to the (K, rows, cols) stack
+    the reference package's (P, E) form gives."""
+    x = torch.as_tensor(rng.normal(size=(v, r)))
+    coeff = torch.as_tensor(rng.normal(size=(5, rows * cols)))
+    view = partition.block_decompose(x, rows, cols)
+    got = ops.encode(coeff, view)
+    bv, br = view.shape[-2:]
+    assert got.shape == (5, bv, br)
+    stacked = view.reshape(rows * cols, -1)
+    np.testing.assert_array_equal(_np(got).reshape(5, -1),
+                                  _np(ops.encode(coeff, stacked)))
+    exp = np.asarray(jops.encode(jnp.asarray(coeff.numpy()), jnp.asarray(stacked.numpy())))
+    np.testing.assert_allclose(_np(got).reshape(5, -1), exp, rtol=1e-12, atol=1e-12)
+
+
+def test_encode_complex_routes_to_plain(rng):
+    coeff = rng.normal(size=(3, 2)) + 1j * rng.normal(size=(3, 2))
+    blocks = rng.normal(size=(2, 2, 3, 5))
+    got = _np(ops.encode(torch.as_tensor(coeff.repeat(2, axis=1)), torch.as_tensor(blocks)))
+    exp = np.asarray(jops.encode(jnp.asarray(coeff.repeat(2, axis=1)),
+                                 jnp.asarray(blocks.reshape(4, 15))))
+    assert got.shape == (3, 3, 5)
+    np.testing.assert_allclose(got.reshape(3, 15), exp, rtol=1e-12)
+
+
+@pytest.mark.parametrize("v,r,t", [(256, 128, 128), (300, 200, 150), (129, 257, 65),
+                                   (1, 1, 1)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_matmul_t_matches_jax(rng, v, r, t, dtype):
+    A = rng.normal(size=(v, r)).astype(dtype)
+    B = rng.normal(size=(v, t)).astype(dtype)
+    got = _np(ops.matmul_t(torch.as_tensor(A), torch.as_tensor(B)))
+    exp = np.asarray(jops.matmul_t(jnp.asarray(A), jnp.asarray(B)))
+    assert got.dtype == exp.dtype == dtype and got.shape == (r, t)
+    np.testing.assert_allclose(got, exp, rtol=RTOL[dtype] * 10,
+                               atol=RTOL[dtype] * 10 * np.abs(exp).max())
+    ints = [rng.integers(-9, 10, size=x.shape).astype(dtype) for x in (A, B)]
+    np.testing.assert_array_equal(
+        _np(ops.matmul_t(*map(torch.as_tensor, ints))),
+        np.asarray(jops.matmul_t(*map(jnp.asarray, ints))))
+    assert not any(ops.launch_counts().values())
+
+
+def test_matmul_t_writes_out_and_routes_complex(rng):
+    A = torch.as_tensor(rng.normal(size=(20, 6)))
+    B = torch.as_tensor(rng.normal(size=(20, 5)))
+    Y = torch.zeros(3, 6, 5, dtype=torch.float64)
+    slot = Y[2]
+    assert ops.matmul_t(A, B, out=slot) is slot
+    np.testing.assert_array_equal(_np(Y[2]), _np(ops.matmul_t(A, B)))
+    assert not Y[:2].any()
+    Ac = rng.normal(size=(8, 3)) + 1j * rng.normal(size=(8, 3))
+    Bc = rng.normal(size=(8, 4))
+    np.testing.assert_allclose(
+        _np(ops.matmul_t(torch.as_tensor(Ac), torch.as_tensor(Bc))),
+        np.asarray(jops.matmul_t(jnp.asarray(Ac), jnp.asarray(Bc))), rtol=1e-12)
+
+
+@pytest.mark.parametrize("kind,p,m,n,pp,extract", [
+    ("bec", 2, 2, 2, 1, True),
+    ("bec", 2, 2, 2, 1, False),
+    ("tradeoff", 4, 2, 1, 2, True),
+    ("polycode", 2, 2, 1, 1, False),
+])
+def test_decode_partial_matches_jax(rng, kind, p, m, n, pp, extract):
+    """The reference package's (Q, K, Ec) form: chunk q of real worker
+    products (integer operands) through chunk q's panel, exactly."""
+    plan, W, Y = _integer_products(rng, kind, p, m, n, pp, erased=[])
+    Q = 3
+    counts = np.array([Q, Q - 1, Q - 1, 0] + [Q] * (plan.K - 4))
+    from repro.runtime.partial import chunk_masks_for
+    cmasks = chunk_masks_for(counts, Q)
+    W_stack = plan.make_panel_cache().get_partial(cmasks)
+    Ec = Y.shape[1] // Q
+    Ys = np.stack([Y[:, q * Ec:(q + 1) * Ec] * cmasks[q][:, None] for q in range(Q)])
+    got = _np(ops.decode_partial(torch.as_tensor(W_stack), torch.as_tensor(Ys), plan.s,
+                                 extract=extract))
+    exp = np.asarray(jops.decode_partial(jnp.asarray(W_stack), jnp.asarray(Ys), plan.s,
+                                         extract=extract))
+    np.testing.assert_array_equal(got, exp)
+    per_chunk = np.stack([_np(ops.decode(torch.as_tensor(W_stack[q]), torch.as_tensor(Ys[q]),
+                                         plan.s, extract=extract)) for q in range(Q)])
+    np.testing.assert_array_equal(got, per_chunk)
+    assert not any(ops.launch_counts().values())
+
+
+def test_decode_partial_bounds_form_matches_per_chunk(rng):
+    """Y (K, E) with chunks of unequal width: each chunk's columns decode
+    with its own panel, in place in the (mn, E) result."""
+    Q, mn, K, E = 3, 4, 6, 29
+    bounds = [0, 10, 20, 29]
+    W = torch.as_tensor(rng.integers(-3, 4, size=(Q, mn, K)), dtype=torch.float64)
+    Y = torch.as_tensor(rng.integers(-5, 6, size=(K, E)), dtype=torch.float64)
+    got = ops.decode_partial(W, Y, 7.0, bounds=bounds)
+    assert got.shape == (mn, E)
+    for q in range(Q):
+        cols = slice(bounds[q], bounds[q + 1])
+        np.testing.assert_array_equal(_np(got[:, cols]),
+                                      _np(ops.decode(W[q], Y[:, cols], 7.0)))
+
+
+def test_decode_partial_complex_routes_to_plain(rng):
+    Q, mn, K, E = 2, 4, 3, 6
+    W = rng.integers(-2, 3, size=(Q, mn, K)) + 1j * rng.integers(-2, 3, size=(Q, mn, K))
+    Y = rng.integers(-3, 4, size=(Q, K, E)).astype(np.float64)
+    got = _np(ops.decode_partial(torch.as_tensor(W), torch.as_tensor(Y), 5.0))
+    exp = np.asarray(jops.decode_partial(jnp.asarray(W), jnp.asarray(Y), 5.0))
+    np.testing.assert_array_equal(got, exp)
+
+
+def test_new_kernel_launchers_validate_before_building():
+    """The encode, block-matmul and per-chunk decode launchers refuse CPU
+    tensors and unsupported dtypes before touching nvcc."""
+    x = torch.ones(2, 3, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        coded_encode.encode_cuda(torch.ones(3, 2), x)
+    with pytest.raises(NotImplementedError, match="float64 or float32"):
+        coded_encode.encode_cuda(torch.ones(3, 2).half(), x.half())
+    with pytest.raises(ValueError, match="CUDA"):
+        block_matmul.matmul_t_cuda(x[0], x[1])
+    with pytest.raises(NotImplementedError, match="float64 or float32"):
+        block_matmul.matmul_t_cuda(x[0].bfloat16(), x[1].bfloat16())
+    with pytest.raises(ValueError, match="CUDA"):
+        coded_decode.decode_partial_cuda(torch.ones(2, 4, 3), x.transpose(1, 2)[:, :3], 8.0)
+    assert not _build._LIBS
 
 
 def test_kernel_launchers_validate_before_building():

@@ -176,24 +176,24 @@ def test_default_device_is_the_card(rng):
             CodedMatmul(plan)
 
 
-@pytest.mark.parametrize("call", ["staged", "mesh", "sub_tasks", "progress",
-                                  "call_sub_tasks", "worker_stage", "decode_stage"])
+@pytest.mark.parametrize("call", ["mesh", "decode_stage_partial", "unknown_kind"])
 def test_unported_paths_raise(rng, call):
+    """What the port still refuses: the mesh backend, split-stage decode of
+    partial specs (as the reference package refuses it), and pipeline kinds
+    it does not know."""
     A, B, _, plan = _problem(rng, "bec", 2, 2, 2, 1)
     cm = CodedMatmul(plan, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        if call in ("staged", "mesh"):
+    if call == "mesh":
+        with pytest.raises(NotImplementedError, match="not ported"):
             CodedMatmul(plan, call, device="cpu")
-        elif call == "sub_tasks":
-            CodedMatmul(plan, device="cpu", sub_tasks=2)
-        elif call == "progress":
-            cm(A, B, progress=np.ones(plan.K))
-        elif call == "call_sub_tasks":
-            cm(A, B, sub_tasks=4)
-        elif call == "worker_stage":
-            cm.worker_stage(A, B)
-        else:
-            cm.decode_stage(None, (1, 1))
+    elif call == "decode_stage_partial":
+        with pytest.raises(NotImplementedError, match="per-chunk panel"):
+            cm.decode_stage(cm.worker_stage(A, B), (A.shape[1], B.shape[1]),
+                            progress=np.ones(plan.K))
+    else:
+        for kind in (("partial",), ("chunked", 2), ("decode", 1), "traced"):
+            with pytest.raises(ValueError, match="unknown pipeline kind"):
+                cm._executor.make_pipeline(plan, kind, torch.float64)
 
 
 @pytest.mark.parametrize("spec,kw", [
@@ -231,8 +231,14 @@ def test_erasure_normalisation_errors():
 def test_cpu_path_launches_no_kernel(rng):
     A, B, _, plan = _problem(rng, "bec", 2, 2, 2, 1)
     ops.reset_launch_counts()
-    CodedMatmul(plan, device="cpu")(A, B, erased=[1])
-    assert ops.launch_counts() == {"fused_worker": 0, "decode": 0}
+    for backend in ("fused", "staged"):
+        cm = CodedMatmul(plan, backend, device="cpu")
+        cm(A, B, erased=[1])
+        cm(A, B, progress=np.r_[0.5, np.ones(plan.K - 1)], sub_tasks=2)
+    counts = ops.launch_counts()
+    assert set(counts) == {"fused_worker", "decode", "decode_partial", "encode",
+                           "matmul_t"}
+    assert all(n == 0 for n in counts.values()), counts
 
 
 def test_port_imports_neither_jax_nor_repro():
