@@ -27,9 +27,23 @@ Phases, each raising on failure:
              worker_stage + decode_stage pair;
 5. times   - each kernel, its plain version and one PyTorch call computing
              the same function, timed with CUDA events at the main path's
-             shapes, beside the least time the card could take.
+             shapes, beside the least time the card could take;
+6. rwkv    - LM serving: RWKV-6 3B whole (``configs/rwkv6_3b.py``, bf16,
+             random weights from the seed) with the WKV kernel, 4 prompts of
+             1024 tokens then 16 greedy tokens; prefill logits against the
+             plain chunked WKV on the same weights (in float32, and in bf16
+             to the run's bf16 rounding scale), prefill(1024) + one decode
+             step against prefill(1025), 32 WKV launches per prefill and
+             none per decode step;
+   6b jamba - the same for Jamba-1.5-Large at full width, cut to one
+             pattern group (8 layers: 1 attention + 7 Mamba) with every FFN
+             the dense MLP (the MoE layers cut), through the selective-scan
+             kernel (7 launches per prefill).
 
-Each path's launch counts are set to 0 just before it and read just after.
+Phase 3 also holds the WKV and selective-scan kernels against their plain
+versions at the LM prefill's shapes and at a ragged shape, and phase 5
+times them.  Each path's launch counts are set to 0 just before it and read
+just after.
 The line before the last is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -47,14 +61,21 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import dataclasses  # noqa: E402
+import gc  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import bounds, make_plan  # noqa: E402
 from repro_torch.core.partition import block_decompose  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.runtime import CodedMatmul, PartialPattern, chunk_bounds  # noqa: E402
 
 # Published H100 SXM peaks at 700 W (NVIDIA data sheet).
 PEAK_FP64_TENSOR = 67e12     # FLOP/s, FP64 on the tensor cores (DMMA)
 PEAK_FP64_VECTOR = 34e12     # FLOP/s, FP64 outside the tensor cores
+PEAK_FP32 = 67e12            # FLOP/s, FP32 outside the tensor cores
 PEAK_HBM = 3.35e12           # bytes/s
 
 # The paper's geometry (configs/paper_matmul.py) at entry bound 15, which is
@@ -72,7 +93,25 @@ Q_SUB = 4
 PROGRESS = ([4, 1, 4, 0, 0, 1, 3, 4, 1, 4], [3, 3, 2, 2, 1, 2, 3, 0, 2, 3],
             [4, 0, 2, 1, 2, 0, 2, 4, 2, 0], [3, 3, 3, 3, 3, 3, 0, 3, 3, 3])
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
-KERNELS = ("fused_worker", "decode", "encode", "matmul_t", "decode_partial")
+KERNELS = ("fused_worker", "decode", "encode", "matmul_t", "decode_partial",
+           "mamba_scan", "wkv_scan")
+
+# LM serving traffic (phases 6, 6b): 4 prompts of 1024 tokens, 16 greedy
+# tokens each; the scan kernels are held at the prefill's shapes.
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 1024, 16
+WKV_SHAPE = dict(B=LM_BATCH, S=LM_PROMPT, H=48, dk=64)       # rwkv6_3b, tp_pad 16
+MAMBA_SHAPE = dict(B=LM_BATCH, S=LM_PROMPT, d=16384, s=16)   # jamba d_inner, d_state
+LM_TOL = 5e-2       # the reference's decode-vs-full-forward bound (bf16)
+# Kernel against plain prefill logits on the same weights.  In bf16 two
+# correct float32 scans round the model's bf16 activations differently and
+# random layers amplify that: computing the plain path's scans in float64
+# moves RWKV-6 3B's bf16 logits by 6.7e-2 (``python -m
+# repro_torch.launch.lm_precision``), above the 5e-2 a bf16 bound would
+# allow.  So the kernel is held in float32 (the weights upcast exactly),
+# where rounding starts at 1e-7, and in bf16 to the bf16 rounding scale
+# measured in the same run (plain bf16 vs plain float32).
+LM_F32_TOL = 1e-3
+SCAN_TOL = 1e-4     # max |kernel - plain| / max |plain|, float32
 
 
 def phase(name: str) -> None:
@@ -236,6 +275,219 @@ def kernels_phase(plan, A, B, gen) -> dict:
                           ref.decode_partial_ref(W_stack, Yf, plan.s, extract, cols))
         errs["decode_partial"] = max(err, errs.get("decode_partial", 0.0))
     return errs
+
+
+def wkv_inputs(gen, B, S, H, dk, dv=None):
+    """Random f32 WKV inputs made as tests/test_kernels.py makes them:
+    w = exp(-exp(N(0, 1))) in (0, 1), k, v, r, u standard normal."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    return (torch.exp(-torch.exp(rand(B, S, H, dk))), rand(B, S, H, dk),
+            rand(B, S, H, dv or dk), rand(B, S, H, dk), rand(H, dk))
+
+
+def mamba_inputs(gen, B, S, d, s):
+    """Random f32 selective-scan inputs made as tests/test_kernels.py makes
+    them: dt = softplus(N(0, 1)), A_log uniform in [0.1, 1)."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    return (torch.nn.functional.softplus(rand(B, S, d)), rand(B, S, d),
+            rand(B, S, s), rand(B, S, s),
+            torch.rand((d, s), generator=gen, device="cuda") * 0.9 + 0.1, rand(d))
+
+
+def check_scan(name: str, out, exp) -> float:
+    """All three outputs within SCAN_TOL of the plain version; returns the
+    largest abs error."""
+    worst = 0.0
+    for label, o, e in zip(("y", "state_fin", "state_bounds"), out, exp):
+        err, rel = rel_err(o, e)
+        print(f"{name} {label} {tuple(o.shape)}: max abs err {err:.3e}, rel {rel:.3e}")
+        check(o.shape == e.shape and rel <= SCAN_TOL, f"{name} {label} rel err {rel}")
+        worst = max(worst, err)
+    return worst
+
+
+def scan_kernels_phase(gen) -> dict:
+    """Kernels 6 and 7 against their plain versions at the LM prefill's
+    shapes and at a ragged shape (chunk halved, d off the thread block)."""
+    phase("3b scan kernels against their plain versions")
+    errs = {}
+    x = wkv_inputs(gen, B=2, S=1000, H=5, dk=64)           # chunk 64 -> 8
+    check_scan("wkv_scan ragged S=1000", ops.wkv_scan(*x), ref.wkv_scan_ref(*x))
+    x = wkv_inputs(gen, **WKV_SHAPE)
+    errs["wkv_scan"] = check_scan("wkv_scan main", ops.wkv_scan(*x), ref.wkv_scan_ref(*x))
+    x = mamba_inputs(gen, B=2, S=1000, d=1000, s=16)       # chunk 128 -> 8
+    check_scan("mamba_scan ragged S=1000 d=1000", ops.mamba_scan(*x),
+               ref.mamba_scan_ref(*x))
+    x = mamba_inputs(gen, **MAMBA_SHAPE)
+    errs["mamba_scan"] = check_scan("mamba_scan main", ops.mamba_scan(*x),
+                                    ref.mamba_scan_ref(*x))
+    return errs
+
+
+def scan_times_phase(gen) -> dict:
+    phase("5b scan kernel times")
+    out = {}
+    B, S, H, dk = (WKV_SHAPE[k] for k in ("B", "S", "H", "dk"))
+    x = wkv_inputs(gen, **WKV_SHAPE)
+    nc = S // ref.scan_chunk(S, 64)
+    nbytes = 4 * (4 * B * S * H * dk + H * dk + B * S * H * dk
+                  + (1 + nc) * B * H * dk * dk)
+    flops = 7 * B * S * H * dk * dk        # per state entry and step: mul, 3 FMA
+    out["wkv_scan"] = dict(ms=time_ms(lambda: ops.wkv_scan(*x), 20),
+                           plain_ms=time_ms(lambda: ref.wkv_scan_ref(*x), 3),
+                           library_ms=None)
+    out["wkv_scan"] |= scan_bound(flops, nbytes)
+    print(f"wkv_scan (B={B}, S={S}, H={H}, dk=dv={dk}): {flops:.4g} FLOP, {nbytes:.4g} B; "
+          f"bound {out['wkv_scan']['bound_ms']:.4f} ms ({out['wkv_scan']['bound_by']}); "
+          f"kernel {out['wkv_scan']['ms']:.4f} ms, plain {out['wkv_scan']['plain_ms']:.3f} ms; "
+          f"no single PyTorch call computes the scan")
+    del x
+    B, S, d, s = (MAMBA_SHAPE[k] for k in ("B", "S", "d", "s"))
+    x = mamba_inputs(gen, **MAMBA_SHAPE)
+    nc = S // ref.scan_chunk(S, 128)
+    nbytes = 4 * (2 * B * S * d + 2 * B * S * s + d * s + d + B * S * d
+                  + (1 + nc) * B * d * s)
+    flops = 7 * B * S * d * s + 3 * B * S * d   # dt*A, FMA x2, mul; dt*x, D*x FMA
+    out["mamba_scan"] = dict(ms=time_ms(lambda: ops.mamba_scan(*x), 20),
+                             plain_ms=time_ms(lambda: ref.mamba_scan_ref(*x), 3),
+                             library_ms=None)
+    out["mamba_scan"] |= scan_bound(flops, nbytes)
+    print(f"mamba_scan (B={B}, S={S}, d={d}, s={s}): {flops:.4g} FLOP + "
+          f"{B * S * d * s:.4g} exp, {nbytes:.4g} B; bound "
+          f"{out['mamba_scan']['bound_ms']:.4f} ms ({out['mamba_scan']['bound_by']}); "
+          f"kernel {out['mamba_scan']['ms']:.4f} ms, plain "
+          f"{out['mamba_scan']['plain_ms']:.3f} ms; no single PyTorch call computes the scan")
+    return out
+
+
+def scan_bound(flops: float, nbytes: float) -> dict:
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_HBM
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def lm_rel(out: torch.Tensor, exp: torch.Tensor) -> float:
+    return float((out - exp).abs().max()) / (float(exp.abs().max()) + 1e-30)
+
+
+def lm_phase(label: str, cfg, kernel: str, n_scan: int, seed: int) -> dict:
+    """Serve ``cfg`` on the card: random weights from the seed, 4 prompts of
+    1024 tokens, 16 greedy tokens; then the kernel-vs-plain and
+    decode-vs-prefill checks.  ``kernel`` names the scan wrapper the
+    prefill must launch ``n_scan`` times."""
+    plain_cfg = dataclasses.replace(cfg, rwkv_kernel=False, mamba_kernel=False)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"{label}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
+          f"parameters ({n_bytes / 1e9:.2f} GB), random from seed {seed} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT + 1), generator=gen,
+                         device="cuda")
+    prompts = toks[:, :LM_PROMPT]
+
+    def counted(fn):
+        before = ops.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    # the serving run: prefill, then 15 decode steps; counts 0 just before
+    ops.reset_launch_counts()
+    generate(cfg, params, prompts, 2)                       # warm-up
+    ops.reset_launch_counts()
+    tokens, stats = generate(cfg, params, prompts, LM_GEN)
+    counts = ops.launch_counts()
+    want = dict.fromkeys(counts, 0) | {kernel: n_scan}
+    check(counts == want, f"{label} serving launched {counts}, not {want}")
+    check(tokens.shape == (LM_BATCH, LM_GEN) and bool(((tokens >= 0)
+                                                       & (tokens < cfg.vocab)).all()),
+          f"{label}: generated tokens {tuple(tokens.shape)} out of range")
+    dec_ms = stats["decode_s"] * 1e3 / stats["decode_steps"]
+    tok_s = LM_BATCH * stats["decode_steps"] / stats["decode_s"]
+    print(f"{label} serve: prefill {stats['prefill_s'] * 1e3:.2f} ms "
+          f"({LM_BATCH}x{LM_PROMPT} tokens), decode {dec_ms:.2f} ms per step "
+          f"({tok_s:.1f} tokens/s at batch {LM_BATCH}); launches {counts}; "
+          f"first tokens {tokens[0, :8].tolist()}")
+
+    # prefill(1024) + one decode step against prefill(1025), in bf16
+    (logits_k, cache_k), steps = counted(
+        lambda: prefill(params, cfg, {"tokens": prompts}, S_max=LM_PROMPT + 1))
+    check(steps == {kernel: n_scan}, f"{label} prefill launched {steps}")
+    (dec, _), steps = counted(lambda: decode_step(params, cfg, cache_k,
+                                                  {"tokens": toks[:, LM_PROMPT:]}, LM_PROMPT))
+    check(not steps, f"{label} decode step launched {steps}")
+    (full, _), steps = counted(lambda: prefill(params, cfg, {"tokens": toks}))
+    check(steps == {kernel: n_scan}, f"{label} prefill({LM_PROMPT + 1}) launched {steps}")
+    rel_df = lm_rel(dec, full)
+    del cache_k, full
+    # the kernel against the plain chunked path on the same weights: in bf16,
+    # and in float32 with the weights upcast in place (exactly)
+    (logits_p, _), steps = counted(lambda: prefill(params, plain_cfg, {"tokens": prompts}))
+    check(not steps, f"{label} plain prefill launched {steps}")
+    rel_kp = lm_rel(logits_k, logits_p)
+    params.float()      # every bf16 value is exact in float32
+    (logits32_k, _), steps = counted(
+        lambda: prefill(params, dataclasses.replace(cfg, dtype="float32"), {"tokens": prompts}))
+    check(steps == {kernel: n_scan}, f"{label} float32 prefill launched {steps}")
+    logits32_p, _ = prefill(params, dataclasses.replace(plain_cfg, dtype="float32"),
+                            {"tokens": prompts})
+    rel32_kp = lm_rel(logits32_k, logits32_p)
+    bf16_scale = lm_rel(logits_p, logits32_p)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (logits_k, logits_p, dec, logits32_k, logits32_p))
+    agree = float((logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean())
+    print(f"{label} checks: prefill({LM_PROMPT}) + decode vs prefill({LM_PROMPT + 1}) rel "
+          f"{rel_df:.3e} (bound {LM_TOL}); prefill logits kernel vs plain: float32 rel "
+          f"{rel32_kp:.3e} (bound {LM_F32_TOL}), bf16 rel {rel_kp:.3e} (bound: the bf16 "
+          f"rounding scale, plain bf16 vs plain float32 rel {bf16_scale:.3e}); argmax "
+          f"agreement kernel vs plain (bf16) {agree:.2f}; logits finite {finite}")
+    check(finite, f"{label}: logits not finite")
+    check(rel_df <= LM_TOL, f"{label}: decode vs prefill({LM_PROMPT + 1}) rel {rel_df}")
+    check(rel32_kp <= LM_F32_TOL, f"{label}: float32 kernel vs plain logits rel {rel32_kp}")
+    check(rel_kp <= bf16_scale, f"{label}: bf16 kernel vs plain logits rel {rel_kp} "
+          f"exceeds the bf16 rounding scale {bf16_scale}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": counts, "prefill_ms": stats["prefill_s"] * 1e3,
+            "decode_ms": dec_ms, "tok_s": tok_s}
+
+
+def rwkv_phase(seed: int) -> dict:
+    phase("6 RWKV-6 3B serve (whole)")
+    cfg = dataclasses.replace(get_config("rwkv6_3b"), rwkv_kernel=True)
+    heads = cfg.d_model // cfg.rwkv_head_dim
+    print(f"config rwkv6_3b: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, {heads} wkv heads of {cfg.rwkv_head_dim} padded to "
+          f"{-(-heads // cfg.tp_pad) * cfg.tp_pad} (tp_pad {cfg.tp_pad}); nothing cut; "
+          f"rwkv_kernel=True")
+    return lm_phase("rwkv6_3b", cfg, "wkv_scan", cfg.n_layers, seed)
+
+
+def jamba_phase(seed: int) -> dict:
+    phase("6b Jamba-1.5-Large, one pattern group at full width")
+    full = get_config("jamba_1_5_large_398b")
+    cfg = dataclasses.replace(full, n_layers=len(full.pattern), moe=None,
+                              pattern=tuple((m, "mlp") for m, _ in full.pattern),
+                              mamba_kernel=True)
+    print(f"config jamba_1_5_large_398b: d_model {cfg.d_model}, d_inner "
+          f"{cfg.mamba_expand * cfg.d_model}, d_state {cfg.mamba_d_state}, "
+          f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads of {cfg.d_head}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; mamba_kernel=True")
+    print(f"cut: n_layers {full.n_layers} -> {cfg.n_layers} (one pattern group: "
+          f"1 attention + 7 Mamba layers)")
+    moe_pos = [i for i, (_, f) in enumerate(full.pattern) if f == "moe"]
+    print(f"cut: FFN 'moe' at pattern positions {moe_pos} -> the dense 'mlp' "
+          f"(swiglu, d_ff {cfg.d_ff}); moe {full.moe} -> None")
+    n_mamba = sum(m == "mamba" for m, _ in cfg.pattern) * cfg.n_groups
+    return lm_phase("jamba group", cfg, "mamba_scan", n_mamba, seed)
 
 
 def drive(label: str, requests, C_ref, cm, per_request: dict) -> dict:
@@ -449,15 +701,24 @@ def main() -> None:
     plan = make_plan("bec", 2, 2, 2, K=10, L=V * ENTRY_MAX * ENTRY_MAX + 1,
                      points="equispaced")
     errs = kernels_phase(plan, A, B, gen)
+    errs |= scan_kernels_phase(gen)
     C_ref = A.T @ B  # exact: every partial sum is an integer below 2^53
     paths = {"fused": main_phase(plan, A, B, C_ref),
              "staged": staged_phase(plan, A, B, C_ref),
              "partial": partial_phase(plan, A, B, C_ref)}
     times = times_phase(plan, A, B)
+    times |= scan_times_phase(gen)
     for name, path in paths.items():
         wall = path["walls"]
         print(f"request wall time ({name}, 8000^2, float64): first {wall[0]:.2f} ms, "
               f"median of the rest {float(np.median(wall[1:])):.2f} ms on {dev['smi']}")
+    del A, B, C_ref
+    torch.cuda.empty_cache()
+    lms = {"rwkv6_3b": rwkv_phase(args.seed), "jamba group": jamba_phase(args.seed)}
+    for name, lm in lms.items():
+        print(f"LM serving ({name}, {LM_BATCH}x{LM_PROMPT} prompt, {LM_GEN} tokens, bf16): "
+              f"prefill {lm['prefill_ms']:.2f} ms, decode {lm['decode_ms']:.2f} ms per step, "
+              f"{lm['tok_s']:.1f} tokens/s on {dev['smi']}")
 
     csrc = "src/repro_torch/kernels/csrc"
     source = {"fused_worker": (f"{csrc}/coded_fused.cu", "src/repro/kernels/coded_fused.py:105"),
@@ -465,8 +726,11 @@ def main() -> None:
               "decode_partial": (f"{csrc}/coded_decode.cu",
                                  "src/repro/kernels/coded_decode.py:106"),
               "encode": (f"{csrc}/coded_encode.cu", "src/repro/kernels/coded_encode.py:48"),
-              "matmul_t": (f"{csrc}/block_matmul.cu", "src/repro/kernels/block_matmul.py:62")}
-    launches = {k: sum(path["counts"][k] for path in paths.values()) for k in KERNELS}
+              "matmul_t": (f"{csrc}/block_matmul.cu", "src/repro/kernels/block_matmul.py:62"),
+              "mamba_scan": (f"{csrc}/mamba_scan.cu", "src/repro/kernels/mamba_scan.py:91"),
+              "wkv_scan": (f"{csrc}/wkv_scan.cu", "src/repro/kernels/wkv_scan.py:82")}
+    launches = {k: sum(run["counts"][k] for run in (*paths.values(), *lms.values()))
+                for k in KERNELS}
     kernels = [dict(name=name, route="cuda", source=source[name][0],
                     replaces=source[name][1], launches=launches[name],
                     max_abs_err=errs[name], **times[name])

@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels (sm_90a) for the coded-matmul hot spots.
+"""Hand-written CUDA kernels (sm_90a) for the coded-matmul and LM hot spots.
 
 Each stage of the paper's pipeline has a plain PyTorch version in ``ref``
 and a wrapper in ``ops`` that runs the plain version for CPU tensors and
@@ -18,6 +18,12 @@ launches the kernel for CUDA tensors:
                   (round/mod-s/recentre), whole-product and per-chunk
                   (partial stragglers); X never reaches device memory
                   (csrc/coded_decode.cu)
+  wkv_scan      - the RWKV-6 WKV recurrence from a zero state (prefill),
+                  one block per (batch, head), the state in registers
+                  (csrc/wkv_scan.cu)
+  mamba_scan    - the Mamba selective scan from a zero state (prefill),
+                  one thread per channel, the state in registers
+                  (csrc/mamba_scan.cu)
 
 The CUDA sources are built with nvcc at first use (``_build``); importing
 this package builds nothing.

@@ -18,7 +18,8 @@ from pathlib import Path
 
 __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build", "load"]
 
-SOURCES = ("coded_fused", "coded_decode", "coded_encode", "block_matmul")
+SOURCES = ("coded_fused", "coded_decode", "coded_encode", "block_matmul",
+           "wkv_scan", "mamba_scan")
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

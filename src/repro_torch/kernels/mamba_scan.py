@@ -1,0 +1,93 @@
+"""Mamba selective scan: the CUDA kernel and its plain version.
+
+Replaces ``src/repro/kernels/mamba_scan.py::mamba_scan_pallas`` (the TPU
+kernel).  Per batch row and channel, from a zero s-wide state,
+
+    h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t,   y_t = h_t . C_t + D x_t
+
+with A = -exp(A_log), returning y, the final state and the state at every
+chunk entry (``csrc/mamba_scan.cu``).
+
+What bounds it on the card: at the Jamba prefill (B=4, S=1024, d=16384,
+s=16) the 0.84 GB it moves need about 0.25 ms and its 1.07e9 exponentials
+about as long.  The kernel gives each channel one thread, its states and its
+row of A in registers, stages B_t and C_t in shared memory a tile of steps at
+a time and loads the tile's dt and x (coalesced across channels) into
+registers before stepping through it.
+
+The reference picks a channel block (``d_blk``, 256 halved until it divides
+d) for its VMEM tiles; the outputs do not depend on it, and the CUDA kernel
+blocks channels by 128 threads and masks a ragged last block instead.
+
+:func:`mamba_scan_ref` (from ``ref``) is the plain version; the wrapper
+``ops.mamba_scan`` runs it for CPU tensors and launches the kernel for CUDA
+tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import mamba_scan_ref, scan_chunk
+
+__all__ = ["mamba_scan_cuda", "mamba_scan_ref", "S_SUPPORTED"]
+
+S_SUPPORTED = (4, 8, 16, 32)   # template instances in csrc/mamba_scan.cu
+MAX_BATCH = 65535              # the grid's y dimension
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _function():
+    fn = _build.load("mamba_scan").repro_mamba_scan_f32
+    fn.argtypes = [_P] * 9 + [_I] * 5 + [_P]
+    fn.restype = _I
+    return fn
+
+
+def mamba_scan_cuda(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor,
+                    Cm: torch.Tensor, A_log: torch.Tensor, D: torch.Tensor,
+                    chunk: int = 128) -> tuple:
+    """Launch the kernel: dt, x (B, S, d), Bm, Cm (B, S, s), A_log (d, s),
+    D (d,), float32 CUDA tensors -> (y (B, S, d), h_fin (B, d, s), h_bounds
+    (B, nc, d, s)), nc = S / chunk after ``chunk`` is capped at S and halved
+    until it divides S.
+
+    Raises:
+        ValueError: on mismatched shapes, devices or dtypes, s not in
+            ``S_SUPPORTED``, more than ``MAX_BATCH`` rows or an empty
+            sequence.
+        RuntimeError: if the launch fails.
+    """
+    tensors = (dt, x, Bm, Cm, A_log, D)
+    if any(t.dtype != torch.float32 or t.device != x.device for t in tensors) \
+            or x.device.type != "cuda":
+        raise ValueError("mamba_scan_cuda needs float32 CUDA tensors on one device")
+    if x.ndim != 3 or dt.shape != x.shape or Bm.ndim != 3 \
+            or Bm.shape[:2] != x.shape[:2] or Cm.shape != Bm.shape \
+            or A_log.shape != (x.shape[2], Bm.shape[2]) or D.shape != (x.shape[2],):
+        raise ValueError(f"shape mismatch: dt {tuple(dt.shape)}, x {tuple(x.shape)}, "
+                         f"Bm {tuple(Bm.shape)}, Cm {tuple(Cm.shape)}, "
+                         f"A_log {tuple(A_log.shape)}, D {tuple(D.shape)}")
+    B, S, d = x.shape
+    s = Bm.shape[2]
+    if s not in S_SUPPORTED or not 1 <= B <= MAX_BATCH or S < 1 or d < 1:
+        raise ValueError(f"the selective-scan kernel takes s in {S_SUPPORTED}, "
+                         f"1 <= B <= {MAX_BATCH}, S >= 1 and d >= 1, got s={s}, "
+                         f"B={B}, S={S}, d={d}")
+    chunk = scan_chunk(S, chunk)
+    dt, x, Bm, Cm, A_log, D = (t.contiguous() for t in tensors)
+    y = torch.empty((B, S, d), dtype=torch.float32, device=x.device)
+    h_fin = torch.empty((B, d, s), dtype=torch.float32, device=x.device)
+    h_bounds = torch.empty((B, S // chunk, d, s), dtype=torch.float32,
+                           device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _function()(dt.data_ptr(), x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                      A_log.data_ptr(), D.data_ptr(), y.data_ptr(),
+                      h_fin.data_ptr(), h_bounds.data_ptr(), B, S, d, s, chunk,
+                      stream)
+    if err != 0:
+        raise RuntimeError(f"mamba_scan kernel launch failed: cudaError {err}")
+    return y, h_fin, h_bounds

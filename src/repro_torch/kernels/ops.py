@@ -1,15 +1,17 @@
 """Public wrappers around the CUDA kernels.
 
-Each wrapper promotes dtypes, routes complex operands to the plain complex
-PyTorch path (as the reference package routes them to its jnp oracles: its
-TPU kernels, like these CUDA kernels, are real-only), and then dispatches on
-where the tensors lie: CPU tensors run the kernel's plain version, CUDA
-tensors launch the kernel (or raise; there is no fallback).  Complex plans
-(unit-circle points) therefore take the plain path on the card too.
+Each coded-matmul wrapper promotes dtypes, routes complex operands to the
+plain complex PyTorch path (as the reference package routes them to its jnp
+oracles: its TPU kernels, like these CUDA kernels, are real-only).  Every
+wrapper then dispatches on where the tensors lie: CPU tensors run the
+kernel's plain version, CUDA tensors launch the kernel (or raise; there is
+no fallback).  Complex plans (unit-circle points) therefore take the plain
+path on the card too.
 
 Every wrapper carries an integer ``launches`` count, raised by one where it
 launches its kernel and nowhere else, so a run can show that its main path
-went through the kernels.
+went through the kernels.  The two scan wrappers take float32 only, as
+their TPU kernels do.
 """
 from __future__ import annotations
 
@@ -22,9 +24,11 @@ from repro_torch.kernels.block_matmul import matmul_t_cuda
 from repro_torch.kernels.coded_decode import decode_cuda, decode_partial_cuda
 from repro_torch.kernels.coded_encode import encode_cuda
 from repro_torch.kernels.coded_fused import fused_worker_cuda
+from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+from repro_torch.kernels.wkv_scan import wkv_scan_cuda
 
 __all__ = ["fused_worker", "decode", "decode_partial", "encode", "matmul_t",
-           "launch_counts", "reset_launch_counts"]
+           "wkv_scan", "mamba_scan", "launch_counts", "reset_launch_counts"]
 
 
 def _common_dtype(*tensors: torch.Tensor) -> torch.dtype:
@@ -157,14 +161,46 @@ def matmul_t(A: torch.Tensor, B: torch.Tensor, *, out_dtype=None,
     return out.copy_(res)
 
 
+def wkv_scan(w: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             r: torch.Tensor, u: torch.Tensor, *, chunk: int = 64) -> tuple:
+    """RWKV-6 WKV scan from a zero state: w, k, r (B, S, H, dk) float32 (w
+    the per-step decay in (0, 1)), v (B, S, H, dv), u (H, dk) -> (y (B, S,
+    H, dv), S_fin (B, H, dk, dv), S_bounds (B, nc, H, dk, dv)), the states at
+    the entries of chunks of ``chunk`` steps (capped at S, halved until it
+    divides S)."""
+    if not _on_card(w, k, v, r, u):
+        return ref.wkv_scan_ref(w, k, v, r, u, chunk)
+    out = wkv_scan_cuda(w, k, v, r, u, chunk)
+    wkv_scan.launches += 1
+    return out
+
+
+def mamba_scan(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor,
+               Cm: torch.Tensor, A_log: torch.Tensor, D: torch.Tensor, *,
+               chunk: int = 128) -> tuple:
+    """Mamba selective scan from a zero state, ``D`` folded in: dt, x (B, S,
+    d) float32 (dt after the softplus), Bm, Cm (B, S, s), A_log (d, s), D
+    (d,) -> (y (B, S, d), h_fin (B, d, s), h_bounds (B, nc, d, s)), the
+    states at the entries of chunks of ``chunk`` steps (capped at S, halved
+    until it divides S)."""
+    if not _on_card(dt, x, Bm, Cm, A_log, D):
+        return ref.mamba_scan_ref(dt, x, Bm, Cm, A_log, D, chunk)
+    out = mamba_scan_cuda(dt, x, Bm, Cm, A_log, D, chunk)
+    mamba_scan.launches += 1
+    return out
+
+
 fused_worker.launches = 0
 decode.launches = 0
 decode_partial.launches = 0
 encode.launches = 0
 matmul_t.launches = 0
+wkv_scan.launches = 0
+mamba_scan.launches = 0
 _WRAPPERS = {"fused_worker": fused_worker, "decode": decode,
              "decode_partial": decode_partial, "encode": encode,
-             "matmul_t": matmul_t}
+             "matmul_t": matmul_t, "wkv_scan": wkv_scan,
+             "mamba_scan": mamba_scan}
 
 
 def launch_counts() -> dict:

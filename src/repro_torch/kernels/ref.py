@@ -9,7 +9,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["encode_ref", "decode_ref", "decode_partial_ref", "matmul_t_ref",
-           "fused_worker_ref"]
+           "fused_worker_ref", "scan_chunk", "linear_scan", "wkv_chunked",
+           "wkv_scan_ref", "mamba_scan_ref"]
 
 
 def encode_ref(coeff: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
@@ -84,3 +85,108 @@ def matmul_t_ref(A: torch.Tensor, B: torch.Tensor, out_dtype=None) -> torch.Tens
     acc = torch.float32 if low else A.dtype
     out = A.to(acc).T @ B.to(acc)
     return out.to(out_dtype or A.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the two recurrences of the LM substrate
+
+
+def scan_chunk(S: int, chunk: int) -> int:
+    """The chunk length the scans use for a sequence of length S: ``chunk``
+    capped at S, halved until it divides S (as the reference's kernels and
+    chunked paths pick it)."""
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    return chunk
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """Inclusive scan of (decay, update) pairs along dim 1 under
+    ``(al, bl) o (ar, br) = (al * ar, bl * ar + br)``: returns
+    (A_cum, B_cum) with B_cum[:, t] the state after step t from a zero
+    state and A_cum[:, t] the product of the decays up to t.
+
+    The reference evaluates this with ``lax.associative_scan`` (a tree of
+    combines); here it is a loop over the steps, so the two agree to float32
+    rounding, not bit for bit.  ``a`` broadcasts against ``b``.
+    """
+    A_cum = torch.empty_like(a)
+    B_cum = torch.empty_like(b)
+    A_cum[:, 0], B_cum[:, 0] = a[:, 0], b[:, 0]
+    for t in range(1, b.shape[1]):
+        torch.mul(A_cum[:, t - 1], a[:, t], out=A_cum[:, t])
+        torch.addcmul(b[:, t], B_cum[:, t - 1], a[:, t], out=B_cum[:, t])
+    return A_cum, B_cum
+
+
+def wkv_chunked(w, k, v, r, u, S0, chunk: int) -> tuple:
+    """RWKV-6 WKV by chunks, as ``models/rwkv6.py::_wkv_chunked`` of the
+    reference computes it, plus the chunk-entry states.
+
+    w, k, r: (B, S, H, dk) f32 (w the per-step decay in (0, 1)); v: (B, S,
+    H, dv); u: (H, dk); S0: (B, H, dk, dv) initial state.
+        S_t = diag(w_t) S_{t-1} + k_t^T v_t
+        y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+    Returns y (B, S, H, dv), the final state (B, H, dk, dv) and the state at
+    the entry of every chunk (B, nc, H, dk, dv).
+    """
+    B, S, H, dk = k.shape
+    dv = v.shape[-1]
+    chunk = scan_chunk(S, chunk)
+    nc = S // chunk
+    y = torch.empty((B, S, H, dv), dtype=torch.float32, device=k.device)
+    bounds = torch.empty((B, nc, H, dk, dv), dtype=torch.float32, device=k.device)
+    state = S0
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        bounds[:, c] = state
+        a = w[:, sl, ..., None]                               # (B,c,H,dk,1)
+        b = k[:, sl, ..., None] * v[:, sl, :, None, :]        # (B,c,H,dk,dv)
+        A_cum, B_cum = linear_scan(a, b)
+        # state BEFORE step t: the inclusive scan shifted right by one
+        A_prev = torch.cat([torch.ones_like(A_cum[:, :1]), A_cum[:, :-1]], dim=1)
+        B_prev = torch.cat([torch.zeros_like(B_cum[:, :1]), B_cum[:, :-1]], dim=1)
+        S_prev = A_prev * state[:, None] + B_prev
+        eff = S_prev + u[None, None, :, :, None] * b
+        y[:, sl] = torch.einsum("bchk,bchkv->bchv", r[:, sl], eff)
+        state = A_cum[:, -1] * state + B_cum[:, -1]
+    return y, state, bounds
+
+
+def wkv_scan_ref(w, k, v, r, u, chunk: int = 64) -> tuple:
+    """Plain version of the WKV kernel: zero initial state, the kernel's
+    chunking.  Returns (y (B,S,H,dv), S_fin (B,H,dk,dv), S_bounds
+    (B,nc,H,dk,dv)) in float32."""
+    B, _, H, dk = k.shape
+    S0 = torch.zeros((B, H, dk, v.shape[-1]), dtype=torch.float32, device=k.device)
+    return wkv_chunked(w, k, v, r, u, S0, chunk)
+
+
+def mamba_scan_ref(dt, x, Bm, Cm, A_log, D, chunk: int = 128) -> tuple:
+    """Plain version of the selective-scan kernel, step by step as the
+    reference's ``kernels/ref.py::mamba_scan_ref``, plus the chunk-entry
+    states at the kernel's chunking.
+
+    dt, x: (B, S, d) f32; Bm, Cm: (B, S, s) f32; A_log: (d, s); D: (d,).
+        h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t,   A = -exp(A_log)
+        y_t = h_t . C_t + D x_t
+    Returns (y (B,S,d), h_fin (B,d,s), h_bounds (B,nc,d,s)), zero initial
+    state.
+    """
+    Bsz, S, d = dt.shape
+    s = A_log.shape[1]
+    chunk = scan_chunk(S, chunk)
+    A = -torch.exp(A_log)
+    h = torch.zeros((Bsz, d, s), dtype=torch.float32, device=dt.device)
+    y = torch.empty((Bsz, S, d), dtype=torch.float32, device=dt.device)
+    bounds = torch.empty((Bsz, S // chunk, d, s), dtype=torch.float32,
+                         device=dt.device)
+    for t in range(S):
+        if t % chunk == 0:
+            bounds[:, t // chunk] = h
+        dt_t, x_t = dt[:, t], x[:, t]
+        a = torch.exp(dt_t[:, :, None] * A[None])
+        h = a * h + (dt_t * x_t)[:, :, None] * Bm[:, t, None, :]
+        y[:, t] = torch.sum(h * Cm[:, t, None, :], -1) + D[None] * x_t
+    return y, h, bounds

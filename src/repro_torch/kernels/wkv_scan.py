@@ -1,0 +1,83 @@
+"""RWKV-6 WKV scan: the CUDA kernel and its plain version.
+
+Replaces ``src/repro/kernels/wkv_scan.py::wkv_scan_pallas`` (the TPU
+kernel).  Per (batch, head), from a zero (dk, dv) state,
+
+    y_t = r_t (S_{t-1} + diag(u) k_t^T v_t),    S_t = diag(w_t) S_{t-1} + k_t^T v_t
+
+returning y, the final state and the state at every chunk entry
+(``csrc/wkv_scan.cu``).
+
+What bounds it on the card: at the RWKV-6 3B prefill (B=4, S=1024, H=48,
+dk=dv=64) bytes and FP32 operations each need about 0.09 ms, but the
+recurrence is sequential in S and B*H = 192 (batch, head) pairs fill the
+card only thinly; the kernel gives each pair one block, each value column
+one thread with its state column in registers, and stages w, k, r, v in
+shared memory a tile of steps at a time.
+
+:func:`wkv_scan_ref` (from ``ref``) is the plain version; the wrapper
+``ops.wkv_scan`` runs it for CPU tensors and launches the kernel for CUDA
+tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import scan_chunk, wkv_scan_ref
+
+__all__ = ["wkv_scan_cuda", "wkv_scan_ref", "DK_SUPPORTED", "MAX_DV"]
+
+DK_SUPPORTED = (8, 16, 32, 64)   # template instances in csrc/wkv_scan.cu
+MAX_DV = 128                     # kMaxDv: one thread per value column
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _function():
+    fn = _build.load("wkv_scan").repro_wkv_scan_f32
+    fn.argtypes = [_P] * 8 + [_I] * 6 + [_P]
+    fn.restype = _I
+    return fn
+
+
+def wkv_scan_cuda(w: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  r: torch.Tensor, u: torch.Tensor, chunk: int = 64) -> tuple:
+    """Launch the kernel: w, k, r (B, S, H, dk), v (B, S, H, dv), u (H, dk),
+    float32 CUDA tensors -> (y (B, S, H, dv), S_fin (B, H, dk, dv), S_bounds
+    (B, nc, H, dk, dv)), nc = S / chunk after ``chunk`` is capped at S and
+    halved until it divides S.
+
+    Raises:
+        ValueError: on mismatched shapes, devices or dtypes, dk not in
+            ``DK_SUPPORTED``, dv above ``MAX_DV`` or an empty sequence.
+        RuntimeError: if the launch fails.
+    """
+    tensors = (w, k, v, r, u)
+    if any(t.dtype != torch.float32 or t.device != k.device for t in tensors) \
+            or k.device.type != "cuda":
+        raise ValueError("wkv_scan_cuda needs float32 CUDA tensors on one device")
+    if k.ndim != 4 or w.shape != k.shape or r.shape != k.shape \
+            or v.shape[:3] != k.shape[:3] or u.shape != (k.shape[2], k.shape[3]):
+        raise ValueError(f"shape mismatch: w {tuple(w.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, r {tuple(r.shape)}, u {tuple(u.shape)}")
+    B, S, H, dk = k.shape
+    dv = v.shape[3]
+    if dk not in DK_SUPPORTED or not 1 <= dv <= MAX_DV or S < 1 or B * H < 1:
+        raise ValueError(f"the WKV kernel takes dk in {DK_SUPPORTED}, 1 <= dv <= "
+                         f"{MAX_DV} and S >= 1, got dk={dk}, dv={dv}, S={S}")
+    chunk = scan_chunk(S, chunk)
+    w, k, v, r, u = (t.contiguous() for t in tensors)
+    y = torch.empty((B, S, H, dv), dtype=torch.float32, device=k.device)
+    s_fin = torch.empty((B, H, dk, dv), dtype=torch.float32, device=k.device)
+    s_bounds = torch.empty((B, S // chunk, H, dk, dv), dtype=torch.float32,
+                           device=k.device)
+    stream = torch.cuda.current_stream(k.device).cuda_stream
+    err = _function()(w.data_ptr(), k.data_ptr(), v.data_ptr(), r.data_ptr(),
+                      u.data_ptr(), y.data_ptr(), s_fin.data_ptr(),
+                      s_bounds.data_ptr(), B, S, H, dk, dv, chunk, stream)
+    if err != 0:
+        raise RuntimeError(f"wkv_scan kernel launch failed: cudaError {err}")
+    return y, s_fin, s_bounds

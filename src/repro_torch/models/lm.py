@@ -1,0 +1,386 @@
+"""The LM stack: a pattern of (mixer, ffn) blocks, served by prefill + decode.
+
+An architecture is a repeating PATTERN of (mixer, ffn) blocks (Jamba's
+1:7 attention:mamba interleave, RWKV's single (rwkv, rwkv_cmix) block)
+repeated ``n_groups`` times.  The reference scans over groups with stacked
+parameters; here the model is an ``nn.Module`` holding one ``Block`` per
+layer, in execution order (layer ``g * len(pattern) + p`` is pattern
+position p of group g), walked by a Python loop.
+
+Two execution paths share the parameters:
+  prefill      - full-sequence forward, returns the last logits and the
+                 serve cache (one dict of tensors per layer)
+  decode_step  - one token, consumes and updates the cache
+
+Ported so far: mixers ``attn`` (no positions), ``mamba`` and ``rwkv``; FFNs
+``mlp`` and ``rwkv_cmix``; token input.  ``moe``, ``attn_local``, rotary
+positions, the ``embeds`` input mode and ``train_loss`` raise
+``NotImplementedError`` until their slices land (ROADMAP.md queue 1,
+item 11).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.core.numerics import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import layers as L
+from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.models.moe import MoEConfig
+
+__all__ = ["ModelConfig", "Block", "LM", "init_params", "params_from_jax",
+           "cache_shapes", "init_cache", "cache_from_jax", "cache_to_numpy",
+           "prefill", "decode_step", "train_loss"]
+
+_ROADMAP = "ROADMAP.md queue 1, item 11"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                  # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    pattern: Tuple[Tuple[str, str], ...] = (("attn", "mlp"),)
+    window: Optional[int] = None          # sliding window for attn_local
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    act: str = "swiglu"                   # swiglu | gelu
+    pos: str = "rope"                     # rope | mrope | sinusoidal | none
+    rope_theta: float = 1e6
+    mrope_sections: Tuple[int, ...] = ()
+    moe: Optional[MoEConfig] = None
+    mamba_d_state: int = 16
+    mamba_expand: int = 2
+    mamba_dconv: int = 4
+    mamba_kernel: bool = False   # prefill scan through the selective-scan kernel
+    rwkv_kernel: bool = False    # prefill WKV through the WKV kernel
+    rwkv_head_dim: int = 64
+    input_mode: str = "tokens"            # tokens | embeds (stubbed frontend)
+    tie_embeddings: bool = True
+    eps: float = 1e-6
+    dtype: str = "bfloat16"
+    tp_pad: int = 16                      # pad rwkv heads to divide tp
+    remat: bool = True
+    remat_policy: str = "none"            # none | dots (save matmul outputs)
+    proj_first: bool = False              # project-then-reshard attention
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+    loss_chunk: int = 512
+    aux_coef: float = 0.01
+    sub_quadratic: bool = False           # eligible for long_500k
+
+    def __post_init__(self):
+        assert self.n_layers % len(self.pattern) == 0, \
+            f"{self.name}: n_layers={self.n_layers} vs pattern {len(self.pattern)}"
+
+    @property
+    def n_groups(self) -> int:
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def param_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    for mixer, ffn in cfg.pattern:
+        if mixer not in ("attn", "mamba", "rwkv"):
+            raise NotImplementedError(
+                f"{cfg.name}: the {mixer!r} mixer is not ported yet ({_ROADMAP})")
+        if ffn not in ("mlp", "rwkv_cmix"):
+            raise NotImplementedError(
+                f"{cfg.name}: the {ffn!r} FFN is not ported yet ({_ROADMAP})")
+    if cfg.input_mode != "tokens":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.input_mode!r} input mode is not ported yet "
+            f"({_ROADMAP})")
+    if cfg.pos != "none" and any(m == "attn" for m, _ in cfg.pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.pos!r} positions are not ported yet ({_ROADMAP})")
+
+
+# ---------------------------------------------------------------------------
+# parameters
+
+
+def _param_dict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                             for k, v in tensors.items()})
+
+
+class Block(nn.Module):
+    """One layer: ``norm1``, ``mixer``, ``norm2`` and ``ffn`` parameter dicts
+    (the reference's names), and the layer's kinds."""
+
+    def __init__(self, mixer: str, ffn: str, params: Dict[str, Dict[str, torch.Tensor]]):
+        super().__init__()
+        self.mixer_kind, self.ffn_kind = mixer, ffn
+        for name in ("norm1", "mixer", "norm2", "ffn"):
+            setattr(self, name, _param_dict(params[name]))
+
+
+class LM(nn.Module):
+    """The model's parameters: ``embed`` (and ``lm_head`` when the
+    embeddings are not tied), ``blocks`` in execution order, and
+    ``final_norm``."""
+
+    def __init__(self, embed, lm_head, blocks: List[Block], final_norm):
+        super().__init__()
+        self.embed = _param_dict(embed)
+        self.lm_head = None if lm_head is None else _param_dict(lm_head)
+        self.blocks = nn.ModuleList(blocks)
+        self.final_norm = _param_dict(final_norm)
+
+    def head_table(self) -> torch.Tensor:
+        return (self.embed if self.lm_head is None else self.lm_head)["table"]
+
+
+def _init_mixer(cfg: ModelConfig, mixer: str, gen: torch.Generator):
+    dt = cfg.param_dtype
+    if mixer == "attn":
+        return attn_mod.init_attn(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.d_head, cfg.qk_norm, cfg.qkv_bias, dt)
+    if mixer == "mamba":
+        return mamba_mod.init_mamba(gen, cfg.d_model, expand=cfg.mamba_expand,
+                                    d_state=cfg.mamba_d_state,
+                                    dconv=cfg.mamba_dconv, dtype=dt)
+    return rwkv_mod.init_rwkv_tmix(gen, cfg.d_model, head_dim=cfg.rwkv_head_dim,
+                                   tp_pad=cfg.tp_pad, dtype=dt)
+
+
+def _init_ffn(cfg: ModelConfig, ffn: str, gen: torch.Generator):
+    if ffn == "mlp":
+        return L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.param_dtype)
+    return rwkv_mod.init_rwkv_cmix(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype)
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> LM:
+    """Random parameters from a seeded ``torch.Generator`` on ``device``
+    (the CUDA card unless the caller asks for the CPU), laid out and scaled
+    as the reference's ``init_params`` lays them out (its values come from
+    JAX's generator; carry them across with :func:`params_from_jax`).
+
+    Raises:
+        RuntimeError: with no device given and no CUDA card present.
+        NotImplementedError: for a config with parts not ported yet.
+    """
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d = cfg.d_model
+    embed = L.init_embedding(gen, cfg.vocab, d, cfg.param_dtype)
+    lm_head = (None if cfg.tie_embeddings
+               else L.init_embedding(gen, cfg.vocab, d, cfg.param_dtype))
+    blocks = []
+    for _ in range(cfg.n_groups):
+        for mixer, ffn in cfg.pattern:
+            blocks.append(Block(mixer, ffn, {
+                "norm1": L.init_rmsnorm(d, device=dev),
+                "mixer": _init_mixer(cfg, mixer, gen),
+                "norm2": L.init_rmsnorm(d, device=dev),
+                "ffn": _init_ffn(cfg, ffn, gen),
+            }))
+    return LM(embed, lm_head, blocks, L.init_rmsnorm(d, device=dev))
+
+
+def _from_numpy(x, device) -> torch.Tensor:
+    """A numpy leaf as a tensor, bit for bit.  bfloat16 leaves (``ml_dtypes``
+    arrays, which ``torch.from_numpy`` refuses) go through float32, which
+    holds every bfloat16 value exactly."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)   # a copy: the leaf may be read-only
+
+
+def params_from_jax(cfg: ModelConfig, tree, *, device=None) -> LM:
+    """The port's parameters from the reference's parameter pytree, given as
+    numpy arrays with the reference's nesting: ``blocks`` is one dict per
+    pattern position with leaves stacked ``(n_groups, ...)``.  Layer
+    ``g * len(pattern) + p`` of the port is group g of position p.  Every
+    value comes across bit for bit."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+
+    def leaves(d, g=None):
+        return {k: _from_numpy(v if g is None else np.asarray(v)[g], dev)
+                for k, v in d.items()}
+
+    blocks = []
+    for g in range(cfg.n_groups):
+        for p, (mixer, ffn) in enumerate(cfg.pattern):
+            pos = tree["blocks"][p]
+            blocks.append(Block(mixer, ffn, {name: leaves(pos[name], g)
+                                             for name in ("norm1", "mixer", "norm2", "ffn")}))
+    lm_head = leaves(tree["lm_head"]) if "lm_head" in tree else None
+    return LM(leaves(tree["embed"]), lm_head, blocks, leaves(tree["final_norm"]))
+
+
+# ---------------------------------------------------------------------------
+# the serve cache: one dict of tensors per layer
+
+
+def _layer_cache_shapes(cfg: ModelConfig, mixer: str, B: int, S_max: int) -> dict:
+    if mixer == "attn":
+        kv = ((B, S_max, cfg.n_kv_heads, cfg.d_head), cfg.param_dtype)
+        return {"k": kv, "v": kv}
+    if mixer == "mamba":
+        return mamba_mod.mamba_state_shapes(B, cfg.d_model, expand=cfg.mamba_expand,
+                                            d_state=cfg.mamba_d_state,
+                                            dconv=cfg.mamba_dconv)
+    return rwkv_mod.rwkv_state_shapes(B, cfg.d_model, head_dim=cfg.rwkv_head_dim,
+                                      tp_pad=cfg.tp_pad)
+
+
+def cache_shapes(cfg: ModelConfig, B: int, S_max: int) -> List[dict]:
+    """Per layer, {name: (shape, dtype)} of the serve cache."""
+    _check_supported(cfg)
+    return [_layer_cache_shapes(cfg, mixer, B, S_max)
+            for _ in range(cfg.n_groups) for mixer, _ in cfg.pattern]
+
+
+def init_cache(cfg: ModelConfig, B: int, S_max: int, *, device=None) -> List[dict]:
+    """A zero serve cache on ``device`` (the CUDA card unless asked)."""
+    dev = resolve_device(device)
+    return [{k: torch.zeros(shape, dtype=dt, device=dev) for k, (shape, dt) in one.items()}
+            for one in cache_shapes(cfg, B, S_max)]
+
+
+def cache_from_jax(cfg: ModelConfig, tree, *, device=None) -> List[dict]:
+    """The port's cache from the reference's (one dict per pattern
+    position, leaves stacked ``(n_groups, ...)``, as numpy arrays)."""
+    dev = resolve_device(device)
+    return [{k: _from_numpy(np.asarray(v)[g], dev) for k, v in tree[p].items()}
+            for g in range(cfg.n_groups) for p in range(len(cfg.pattern))]
+
+
+def cache_to_numpy(cfg: ModelConfig, cache: List[dict]) -> tuple:
+    """The cache in the reference's layout (one dict per pattern position,
+    leaves stacked ``(n_groups, ...)``) as float32 numpy arrays (numpy has
+    no bfloat16; the conversion is exact)."""
+    P = len(cfg.pattern)
+    return tuple(
+        {k: np.stack([cache[g * P + p][k].float().cpu().numpy()
+                      for g in range(cfg.n_groups)])
+         for k in cache[p]}
+        for p in range(P))
+
+
+# ---------------------------------------------------------------------------
+# serving
+
+
+def _tokens(batch) -> torch.Tensor:
+    if "tokens" not in batch:
+        raise NotImplementedError(f"only token input is ported ({_ROADMAP})")
+    return batch["tokens"]
+
+
+def _ffn(cfg: ModelConfig, block: Block, h: torch.Tensor, state=None):
+    """Returns (y, new ffn state or {})."""
+    if block.ffn_kind == "mlp":
+        return L.apply_mlp(block.ffn, h, cfg.act), {}
+    return rwkv_mod.rwkv_cmix_forward(block.ffn, h, state=state, return_state=True)
+
+
+def _logits(params: LM, x: torch.Tensor) -> torch.Tensor:
+    """x (B, d) -> (B, vocab) float32: the head's products accumulated in
+    float32, as the reference's ``preferred_element_type=f32`` asks (bf16
+    products are exact in float32, so upcasting first gives the same sum)."""
+    return x.float() @ params.head_table().float().T
+
+
+@torch.no_grad()
+def prefill(params: LM, cfg: ModelConfig, batch, S_max: Optional[int] = None):
+    """Full-sequence forward that also builds the serve cache.
+
+    batch: {"tokens": (B, S) int}.  Returns (last logits (B, vocab) f32,
+    cache); ``S_max`` sizes the attention cache (defaults to the prompt
+    length).  With ``cfg.rwkv_kernel`` / ``cfg.mamba_kernel`` the scans run
+    through the CUDA kernels (one launch per rwkv / mamba layer when the
+    tensors lie on the card).
+    """
+    _check_supported(cfg)
+    tokens = _tokens(batch)
+    S = tokens.shape[1]
+    S_max = S_max or S
+    x = L.embed(params.embed, tokens)
+    caches = []
+    for block in params.blocks:
+        h = L.rmsnorm(block.norm1, x, cfg.eps)
+        if block.mixer_kind == "attn":
+            y, (k, v) = attn_mod.attn_forward(block.mixer, h, None, q_chunk=cfg.q_chunk,
+                                              kv_chunk=cfg.kv_chunk, return_kv=True)
+            cache = {}
+            for name, t in (("k", k), ("v", v)):
+                full = t.new_zeros((t.shape[0], S_max) + t.shape[2:])
+                full[:, :S] = t
+                cache[name] = full
+        elif block.mixer_kind == "mamba":
+            y, cache = mamba_mod.mamba_forward(block.mixer, h, return_state=True,
+                                               use_kernel=cfg.mamba_kernel)
+        else:
+            y, cache = rwkv_mod.rwkv_tmix_forward(block.mixer, h,
+                                                  head_dim=cfg.rwkv_head_dim,
+                                                  return_state=True,
+                                                  use_kernel=cfg.rwkv_kernel)
+        x = x + y
+        h = L.rmsnorm(block.norm2, x, cfg.eps)
+        y, fstate = _ffn(cfg, block, h)
+        cache.update(fstate)
+        x = x + y
+        caches.append(cache)
+    x = L.rmsnorm(params.final_norm, x, cfg.eps)
+    return _logits(params, x[:, -1]), caches
+
+
+@torch.no_grad()
+def decode_step(params: LM, cfg: ModelConfig, cache: List[dict], batch, pos: int):
+    """One-token serve step: batch {"tokens": (B, 1)}, ``pos`` the absolute
+    position of this token.  Returns (logits (B, vocab) f32, new cache).
+    Attention layers write their key and value into the cache tensors in
+    place; the recurrent layers' states are new tensors.  No kernel runs
+    here: the scans step from a carried state on the plain path, as in the
+    reference."""
+    _check_supported(cfg)
+    x = L.embed(params.embed, _tokens(batch))
+    new_cache = []
+    for block, c in zip(params.blocks, cache):
+        h = L.rmsnorm(block.norm1, x, cfg.eps)
+        if block.mixer_kind == "attn":
+            y, ck, cv = attn_mod.attn_decode_step(block.mixer, h, None, c["k"], c["v"], pos)
+            nc = {"k": ck, "v": cv}
+        elif block.mixer_kind == "mamba":
+            y, nc = mamba_mod.mamba_decode_step(block.mixer, h, c)
+        else:
+            y, nc = rwkv_mod.rwkv_tmix_forward(block.mixer, h, head_dim=cfg.rwkv_head_dim,
+                                               state=c, return_state=True)
+        x = x + y
+        h = L.rmsnorm(block.norm2, x, cfg.eps)
+        y, fstate = _ffn(cfg, block, h, state=c)
+        nc.update(fstate)
+        x = x + y
+        new_cache.append(nc)
+    x = L.rmsnorm(params.final_norm, x, cfg.eps)
+    return _logits(params, x[:, 0]), new_cache
+
+
+def train_loss(params: LM, cfg: ModelConfig, batch):
+    """Not ported yet: training comes with its own slice."""
+    raise NotImplementedError(f"train_loss is not ported yet ({_ROADMAP})")

@@ -1,0 +1,159 @@
+"""RWKV-6 "Finch" block: time-mix with data-dependent decay + channel-mix.
+
+The WKV recurrence per head (state S is a (dk, dv) matrix):
+    S_t = diag(w_t) S_{t-1} + k_t^T v_t            (w_t in (0,1), data-dep.)
+    y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+From a zero state with ``use_kernel`` (prefill), it runs through the WKV
+kernel (``ops.wkv_scan``); otherwise, and always from a carried state
+(decode), by chunks: within a chunk the (decay, update) pairs are scanned
+step by step, chunks chained by a Python loop (``kernels.ref.wkv_chunked``).
+
+As in the reference, the decay w_t is data-dependent through a LoRA and the
+five token-shift lerp factors are learned per-channel constants.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import wkv_chunked
+from repro_torch.models.layers import normal
+
+__all__ = ["init_rwkv_tmix", "rwkv_tmix_forward", "init_rwkv_cmix",
+           "rwkv_cmix_forward", "rwkv_state_shapes"]
+
+LORA_RANK = 64
+
+
+def _heads(d_model: int, head_dim: int, tp: int = 1) -> int:
+    """Head count padded up to a multiple of ``tp`` (the parameter layout
+    the reference keeps for tensor parallelism; ``rwkv6_3b`` pads 40 heads to
+    48)."""
+    return int(math.ceil(d_model // head_dim / tp) * tp)
+
+
+def init_rwkv_tmix(gen: torch.Generator, d_model: int, *, head_dim: int = 64,
+                   tp_pad: int = 1, dtype=torch.bfloat16):
+    H = _heads(d_model, head_dim, tp_pad)
+    d_attn = H * head_dim
+    sc = 1.0 / math.sqrt(d_model)
+    dev = gen.device
+    return {
+        "mu": torch.full((5, d_model), 0.5, dtype=dtype, device=dev),  # w,k,v,r,g
+        "w_r": normal(gen, (d_model, d_attn), dtype, sc),
+        "w_k": normal(gen, (d_model, d_attn), dtype, sc),
+        "w_v": normal(gen, (d_model, d_attn), dtype, sc),
+        "w_g": normal(gen, (d_model, d_attn), dtype, sc),
+        "w_o": normal(gen, (d_attn, d_model), dtype, 1.0 / math.sqrt(d_attn)),
+        "w_decay_base": torch.full((d_attn,), -6.0, dtype=torch.float32, device=dev),
+        "w_decay_a": normal(gen, (d_model, LORA_RANK), dtype, sc),
+        "w_decay_b": normal(gen, (LORA_RANK, d_attn), dtype, 1.0 / math.sqrt(LORA_RANK)),
+        "u": torch.zeros((H, head_dim), dtype=torch.float32, device=dev),  # bonus
+        "ln_scale": torch.ones((d_attn,), dtype=torch.float32, device=dev),
+    }
+
+
+def rwkv_state_shapes(B: int, d_model: int, *, head_dim: int = 64,
+                      tp_pad: int = 1) -> dict:
+    """{name: (shape, dtype)} of one layer's serve state."""
+    H = _heads(d_model, head_dim, tp_pad)
+    return {
+        "shift_t": ((B, d_model), torch.bfloat16),
+        "shift_c": ((B, d_model), torch.bfloat16),
+        "wkv": ((B, H, head_dim, head_dim), torch.float32),
+    }
+
+
+def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
+    """x (B, S, d) shifted right one step; ``prev`` is the last token of the
+    previous segment (decode), zeros without one."""
+    if prev is None:
+        first = torch.zeros_like(x[:, :1])
+    else:
+        first = prev[:, None].to(x.dtype)
+    return torch.cat([first, x[:, :-1]], dim=1)
+
+
+def _wkv_chunked(w, k, v, r, u, S0, chunk: int):
+    """w, k, r (B, S, H, dk) f32, v (B, S, H, dv) -> y (B, S, H, dv) and the
+    final state (B, H, dk, dv)."""
+    y, S_fin, _ = wkv_chunked(w, k, v, r, u, S0, chunk)
+    return y, S_fin
+
+
+def rwkv_tmix_forward(params, x: torch.Tensor, *, head_dim: int = 64,
+                      chunk: int = 16, state=None, return_state: bool = False,
+                      use_kernel: bool = False):
+    """x (B, S, d_model) -> (B, S, d_model); with ``return_state`` also the
+    layer's new {shift_t, wkv} state."""
+    B, S, d = x.shape
+    prev = None if state is None else state["shift_t"]
+    xs = _token_shift(x, prev)
+    mu = params["mu"]
+    xw, xk, xv, xr, xg = [x + (xs - x) * mu[i][None, None] for i in range(5)]
+
+    r = xr @ params["w_r"]
+    k = xk @ params["w_k"]
+    v = xv @ params["w_v"]
+    g = xg @ params["w_g"]
+    decay_raw = (params["w_decay_base"]
+                 + (torch.tanh((xw @ params["w_decay_a"]).float())
+                    @ params["w_decay_b"].float()))
+    w = torch.exp(-torch.exp(torch.clamp(decay_raw, -20.0, 8.0)))  # (B,S,d_attn)
+
+    H = params["u"].shape[0]
+    heads = [t.reshape(B, S, H, head_dim).float() for t in (w, k, v, r)]
+    if use_kernel and state is None:
+        y, S_fin, _ = ops.wkv_scan(*heads, params["u"])
+    else:
+        S0 = (torch.zeros((B, H, head_dim, head_dim), dtype=torch.float32,
+                          device=x.device) if state is None else state["wkv"])
+        y, S_fin = _wkv_chunked(*heads, params["u"], S0, chunk)
+    # group norm over heads (per-head standardisation; population variance)
+    yh = y.reshape(B, S, H, head_dim)
+    mean = yh.mean(-1, keepdim=True)
+    var = yh.var(-1, keepdim=True, unbiased=False)
+    yh = (yh - mean) * torch.rsqrt(var + 64e-5)
+    y = yh.reshape(B, S, H * head_dim) * params["ln_scale"][None, None]
+    y = y.to(x.dtype) * F.silu(g.float()).to(x.dtype)
+    out = y @ params["w_o"]
+    if return_state:
+        return out, {"shift_t": x[:, -1].to(torch.bfloat16), "wkv": S_fin}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# channel mix
+
+
+def init_rwkv_cmix(gen: torch.Generator, d_model: int, d_ff: int,
+                   dtype=torch.bfloat16):
+    sc = 1.0 / math.sqrt(d_model)
+    return {
+        "mu": torch.full((2, d_model), 0.5, dtype=dtype, device=gen.device),  # k, r
+        "w_k": normal(gen, (d_model, d_ff), dtype, sc),
+        "w_v": normal(gen, (d_ff, d_model), dtype, 1.0 / math.sqrt(d_ff)),
+        "w_r": normal(gen, (d_model, d_model), dtype, sc),
+    }
+
+
+def rwkv_cmix_forward(params, x: torch.Tensor, *, state=None,
+                      return_state: bool = False):
+    """x (B, S, d_model) -> (B, S, d_model); with ``return_state`` also the
+    layer's new {shift_c}."""
+    prev = None if state is None else state["shift_c"]
+    xs = _token_shift(x, prev)
+    mu = params["mu"]
+    xk = x + (xs - x) * mu[0][None, None]
+    xr = x + (xs - x) * mu[1][None, None]
+    k = xk @ params["w_k"]
+    k = torch.square(torch.relu(k.float())).to(x.dtype)
+    kv = k @ params["w_v"]
+    out = torch.sigmoid((xr @ params["w_r"]).float()).to(x.dtype) * kv
+    if return_state:
+        return out, {"shift_c": x[:, -1].to(torch.bfloat16)}
+    return out

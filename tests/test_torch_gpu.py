@@ -11,9 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import make_plan
 from repro_torch.core.partition import block_decompose
 from repro_torch.kernels import ops, ref
+from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.runtime import CodedMatmul
 
 pytestmark = pytest.mark.gpu
@@ -146,7 +150,7 @@ def test_coded_matmul_on_the_card_is_exact(cuda, kind, p, m, n, pp):
 
 
 _NONE = {name: 0 for name in ("fused_worker", "decode", "decode_partial",
-                              "encode", "matmul_t")}
+                              "encode", "matmul_t", "wkv_scan", "mamba_scan")}
 
 
 @pytest.mark.parametrize("P,grid,rows,cols,K", [
@@ -291,3 +295,106 @@ def test_staged_and_partial_on_the_card_are_exact(cuda, backend, kind, p, m, n, 
     Y = cm.worker_stage(A, B)
     torch.testing.assert_close(cm.decode_stage(Y, (r, t), erased=[3]).cpu(), C0,
                                rtol=0, atol=0)
+
+
+def _close(out, exp, tol=1e-4):
+    """max |out - exp| / max |exp| within ``tol`` (float32 sums in another
+    order: the kernels sum step by step, the plain versions by chunks)."""
+    assert out.shape == exp.shape and out.dtype == exp.dtype
+    scale = float(exp.abs().max()) + 1e-9
+    assert float((out - exp).abs().max()) / scale < tol
+
+
+@pytest.mark.parametrize("B,S,H,dk,dv,chunk", [
+    (2, 64, 3, 8, 8, 16),
+    (1, 48, 2, 16, 16, 8),
+    (2, 100, 3, 16, 16, 64),      # chunk halved to 4; tiles of 32 steps ragged
+    (1, 37, 2, 64, 64, 64),       # S odd: chunk 1, 37 chunk states
+    (2, 130, 5, 64, 64, 64),
+    (1, 33, 2, 32, 40, 16),       # dv off the warp, dv != dk
+])
+def test_wkv_kernel_matches_plain(cuda, B, S, H, dk, dv, chunk):
+    gen = torch.Generator().manual_seed(12)
+    w = torch.exp(-torch.exp(torch.randn((B, S, H, dk), generator=gen))).to(cuda)
+    k, r = (torch.randn((B, S, H, dk), generator=gen).to(cuda) for _ in range(2))
+    v = torch.randn((B, S, H, dv), generator=gen).to(cuda)
+    u = torch.randn((H, dk), generator=gen).to(cuda)
+    out = ops.wkv_scan(w, k, v, r, u, chunk=chunk)
+    exp = ref.wkv_scan_ref(w, k, v, r, u, chunk)
+    torch.cuda.synchronize()
+    for o, e in zip(out, exp):
+        _close(o, e)
+    assert ops.launch_counts() == dict(_NONE, wkv_scan=1)
+
+
+@pytest.mark.parametrize("B,S,d,s,chunk", [
+    (2, 64, 32, 8, 16),
+    (1, 128, 16, 4, 32),
+    (3, 48, 24, 16, 16),
+    (2, 100, 300, 16, 128),       # chunk halved to 4, d off the 128-thread block
+    (1, 37, 130, 32, 128),        # S odd: chunk 1
+])
+def test_mamba_kernel_matches_plain(cuda, B, S, d, s, chunk):
+    gen = torch.Generator().manual_seed(13)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, d), generator=gen)).to(cuda)
+    x = torch.randn((B, S, d), generator=gen).to(cuda)
+    Bm, Cm = (torch.randn((B, S, s), generator=gen).to(cuda) for _ in range(2))
+    A_log = (torch.rand((d, s), generator=gen) * 0.9 + 0.1).to(cuda)
+    D = torch.randn((d,), generator=gen).to(cuda)
+    out = ops.mamba_scan(dt, x, Bm, Cm, A_log, D, chunk=chunk)
+    exp = ref.mamba_scan_ref(dt, x, Bm, Cm, A_log, D, chunk)
+    torch.cuda.synchronize()
+    for o, e in zip(out, exp):
+        _close(o, e)
+    assert ops.launch_counts() == dict(_NONE, mamba_scan=1)
+
+
+def test_scan_kernels_refuse_what_they_do_not_take(cuda):
+    z = torch.zeros(1, 8, 2, 12, device=cuda)
+    with pytest.raises(ValueError, match="dk in"):
+        ops.wkv_scan(z, z, z, z, torch.zeros(2, 12, device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        ops.wkv_scan(*(torch.zeros(1, 8, 2, 8, device=cuda, dtype=torch.bfloat16),) * 4,
+                     torch.zeros(2, 8, device=cuda))
+    x = torch.zeros(1, 8, 4, device=cuda)
+    with pytest.raises(ValueError, match="s in"):
+        ops.mamba_scan(x, x, torch.zeros(1, 8, 3, device=cuda),
+                       torch.zeros(1, 8, 3, device=cuda),
+                       torch.zeros(4, 3, device=cuda), torch.zeros(4, device=cuda))
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("arch", ["rwkv6_3b", "jamba_1_5_large_398b"])
+def test_smoke_model_with_kernels_matches_without(cuda, arch, dtype, tol):
+    """A SMOKE-size model on the card: prefill with the scan kernels against
+    the plain chunked path on the same weights (the bonus u, the decay base
+    and the step-size bias perturbed), one launch per rwkv / mamba layer,
+    and a decode step from each cache."""
+    cfg = get_smoke_config(arch)
+    cfg = dataclasses.replace(cfg, moe=None, dtype=dtype,
+                              pattern=tuple((m, "mlp" if f == "moe" else f)
+                                            for m, f in cfg.pattern))
+    on = dataclasses.replace(cfg, rwkv_kernel=True, mamba_kernel=True)
+    params = init_params(cfg, seed=0)
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    for block in params.blocks:
+        for name in ("u", "w_decay_base", "dt_bias"):
+            if name in block.mixer:
+                block.mixer[name].add_(torch.randn(block.mixer[name].shape, generator=gen,
+                                                   device=cuda))
+    toks = torch.randint(0, cfg.vocab, (2, 97), generator=gen, device=cuda)
+    off_logits, off_cache = prefill(params, cfg, {"tokens": toks[:, :96]}, S_max=97)
+    assert not any(ops.launch_counts().values())
+    on_logits, on_cache = prefill(params, on, {"tokens": toks[:, :96]}, S_max=97)
+    n_scan = sum(m in ("rwkv", "mamba") for m, _ in cfg.pattern) * cfg.n_groups
+    counts = ops.launch_counts()
+    assert counts["wkv_scan"] + counts["mamba_scan"] == n_scan
+    _close(on_logits, off_logits, tol)
+    for a, b in zip(on_cache, off_cache):
+        for name in b:
+            _close(a[name].float(), b[name].float(), tol)
+    dec_on, _ = decode_step(params, on, on_cache, {"tokens": toks[:, 96:]}, 96)
+    dec_off, _ = decode_step(params, cfg, off_cache, {"tokens": toks[:, 96:]}, 96)
+    _close(dec_on, dec_off, tol)
+    assert ops.launch_counts() == counts          # decode launches no kernel

@@ -18,6 +18,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import api as japi  # noqa: E402
 from repro.core import partition as jpart  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.mamba_scan import mamba_scan_pallas  # noqa: E402
+from repro.kernels.wkv_scan import wkv_scan_pallas  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import api, partition  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
@@ -26,8 +28,10 @@ from repro_torch.kernels import (  # noqa: E402
     coded_decode,
     coded_encode,
     coded_fused,
+    mamba_scan,
     ops,
     ref,
+    wkv_scan,
 )
 
 TOL = {np.float32: 1e-4, np.float64: 1e-10}  # sums taken in another order
@@ -372,6 +376,24 @@ def test_kernel_launchers_validate_before_building():
         coded_decode.decode_cuda(torch.ones(4, 3), torch.ones(3, 5), 8.0)
 
 
+def test_scan_launchers_validate_before_building():
+    """The WKV and selective-scan launchers refuse CPU tensors and other
+    dtypes before touching nvcc (shapes are checked on the card:
+    tests/test_torch_gpu.py)."""
+    z = torch.zeros(1, 8, 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv_scan.wkv_scan_cuda(z, z, z, z, torch.zeros(2, 8))
+    with pytest.raises(ValueError, match="float32"):
+        wkv_scan.wkv_scan_cuda(z.double(), z, z, z, torch.zeros(2, 8))
+    x, bm = torch.zeros(1, 8, 4), torch.zeros(1, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        mamba_scan.mamba_scan_cuda(x, x, bm, bm, torch.zeros(4, 16), torch.zeros(4))
+    with pytest.raises(ValueError, match="float32"):
+        mamba_scan.mamba_scan_cuda(x.half(), x, bm, bm, torch.zeros(4, 16), torch.zeros(4))
+    assert not _build._LIBS
+    assert {"wkv_scan", "mamba_scan"} <= set(_build.SOURCES)
+
+
 def test_build_is_lazy_and_keyed_by_source():
     """Nothing is loaded on the CPU path; each library's name hashes its
     source and flags, inside the repository's build directory."""
@@ -381,3 +403,43 @@ def test_build_is_lazy_and_keyed_by_source():
     assert all(p.parent == _build.BUILD_DIR for p in paths)
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
     assert paths == [_build._library_path(name) for name in _build.SOURCES]
+
+
+# ---------------------------------------------------------------------------
+# the WKV and selective-scan kernels' plain versions against Pallas
+
+
+@pytest.mark.parametrize("B,S,H,dk,chunk", [
+    (2, 64, 3, 8, 16), (1, 48, 2, 16, 8),
+    (1, 40, 2, 8, 16),            # chunk 16 halved to 8: 5 chunk states
+])
+def test_wkv_scan_matches_pallas(rng, B, S, H, dk, chunk):
+    w = np.exp(-np.exp(rng.normal(size=(B, S, H, dk)))).astype(np.float32)
+    k, v, r = (rng.normal(size=(B, S, H, dk)).astype(np.float32) for _ in range(3))
+    u = rng.normal(size=(H, dk)).astype(np.float32)
+    exp = wkv_scan_pallas(*map(jnp.asarray, (w, k, v, r, u)), chunk=chunk,
+                          interpret=True)
+    got = ops.wkv_scan(*map(torch.as_tensor, (w, k, v, r, u)), chunk=chunk)
+    for o, e in zip(got, exp):
+        assert o.shape == e.shape
+        np.testing.assert_allclose(o.numpy(), np.asarray(e), rtol=1e-4, atol=1e-4)
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("B,S,d,s,chunk,d_blk", [
+    (2, 64, 32, 8, 16, 16), (1, 128, 16, 4, 32, 16), (3, 48, 24, 16, 16, 8),
+    (1, 40, 24, 8, 16, 16),       # chunk 16 halved to 8, d_blk 16 to 8
+])
+def test_mamba_scan_matches_pallas(rng, B, S, d, s, chunk, d_blk):
+    dt = np.asarray(jax.nn.softplus(rng.normal(size=(B, S, d))), np.float32)
+    x = rng.normal(size=(B, S, d)).astype(np.float32)
+    Bm, Cm = (rng.normal(size=(B, S, s)).astype(np.float32) for _ in range(2))
+    A_log = rng.uniform(0.1, 1.0, size=(d, s)).astype(np.float32)
+    D = rng.normal(size=(d,)).astype(np.float32)
+    exp = mamba_scan_pallas(*map(jnp.asarray, (dt, x, Bm, Cm, A_log, D)),
+                            chunk=chunk, d_blk=d_blk, interpret=True)
+    got = ops.mamba_scan(*map(torch.as_tensor, (dt, x, Bm, Cm, A_log, D)), chunk=chunk)
+    for o, e in zip(got, exp):
+        assert o.shape == e.shape
+        np.testing.assert_allclose(o.numpy(), np.asarray(e), rtol=1e-4, atol=1e-4)
+    assert not any(ops.launch_counts().values())

@@ -1,0 +1,405 @@
+"""The port's LM serving path (on the CPU) against the JAX package's.
+
+The same parameters (the reference's initialisation, with the constants it
+starts at zero or one perturbed by seeded numpy noise so the bonus, decay,
+step-size and bias terms are exercised) and the same tokens go through both
+packages' layers, blocks and whole models.  Where the JAX function reaches a
+Pallas kernel it runs in interpret mode, as its own tests run it; the port
+runs the kernels' plain versions.
+
+Tolerances, max |port - ref| / max |ref|: 1e-4 in float32 (sums in another
+order; the reference's associative scans and the port's step loops agree to
+float32 rounding), 5e-2 in the configs' own bfloat16 (bf16 rounds at other
+places in the two frameworks), the bound the reference holds its own decode
+against its full forward to.  The largest error measured for each is written
+beside the test.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import get_config as jget_config
+from repro.configs import get_smoke_config as jget_smoke_config
+from repro.models import attention as jattn
+from repro.models import decode_step as jdecode_step
+from repro.models import init_params as jinit_params
+from repro.models import layers as jlayers
+from repro.models import mamba as jmamba
+from repro.models import prefill as jprefill
+from repro.models import rwkv6 as jrwkv
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels import ops
+from repro_torch.launch import serve
+from repro_torch.models import (
+    attention,
+    cache_from_jax,
+    cache_to_numpy,
+    decode_step,
+    init_params,
+    layers,
+    mamba,
+    params_from_jax,
+    prefill,
+    rwkv6,
+    train_loss,
+)
+
+TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+ARCHS = ("rwkv6_3b", "jamba_1_5_large_398b")
+
+
+def _rel(got, exp) -> float:
+    got = got.float().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    exp = np.asarray(exp, np.float32)
+    assert got.shape == exp.shape, (got.shape, exp.shape)
+    return float(np.max(np.abs(got - exp)) / (np.max(np.abs(exp)) + 1e-12))
+
+
+def _leaf_ok(got, exp, tol) -> bool:
+    """A cache leaf within ``tol``.  The shift and conv states are stored in
+    bfloat16 whatever the config's dtype (in both packages), so in a float32
+    config a difference of 1e-7 in their float32 source can move one value
+    by a bfloat16 rounding step: those leaves are held to one step per
+    element, |got - exp| <= 2^-7 |exp|, instead."""
+    if np.asarray(exp).dtype.name == "bfloat16" and tol < 2.0 ** -7:
+        exp = np.asarray(exp, np.float32)
+        got = np.asarray(got, np.float32)
+        return bool(np.all(np.abs(got - exp) <= 2.0 ** -7 * np.abs(exp)))
+    return _rel(got, exp) < tol
+
+
+def _t(x):
+    """numpy -> CPU tensor (bfloat16 through float32, exactly)."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _dense(cfg):
+    """Jamba's pattern with every FFN a dense MLP and no MoE config: the
+    one-group cut the port serves (the reference runs it as well)."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=None,
+                               pattern=tuple((m, "mlp") for m, _ in cfg.pattern))
+
+
+def _configs(arch, dtype, kernel):
+    jcfg = _dense(jget_smoke_config(arch))
+    cfg = _dense(get_smoke_config(arch))
+    kw = dict(dtype=dtype, rwkv_kernel=kernel, mamba_kernel=kernel)
+    return dataclasses.replace(jcfg, **kw), dataclasses.replace(cfg, **kw)
+
+
+# leaf name -> scale of the seeded noise added to the reference's init
+_PERTURB = {"u": 0.5, "mu": 0.3, "w_decay_base": 1.5, "dt_bias": 1.0, "D": 0.3,
+            "conv_b": 0.1, "ln_scale": 0.2, "scale": 0.1}
+
+
+def _perturbed_params(jcfg, seed=0):
+    """The reference's init_params, with the constants perturbed; returns
+    (JAX params, the same as numpy arrays)."""
+    rng = np.random.default_rng(seed)
+    params = jinit_params(jcfg, jax.random.PRNGKey(seed))
+
+    def perturb(path, x):
+        name = path[-1].key
+        if name not in _PERTURB:
+            return x
+        noisy = np.asarray(x, np.float32) + _PERTURB[name] * rng.standard_normal(x.shape)
+        return jnp.asarray(noisy, x.dtype)
+
+    params = jax.tree_util.tree_map_with_path(perturb, params)
+    return params, jax.tree.map(np.asarray, params)
+
+
+# ---------------------------------------------------------------------------
+# configs and layers
+
+
+def test_configs_match_the_reference_field_for_field():
+    for arch in ARCHS:
+        for port_cfg, jax_cfg in ((get_config(arch), jget_config(arch)),
+                                  (get_smoke_config(arch), jget_smoke_config(arch))):
+            a, b = dataclasses.asdict(port_cfg), dataclasses.asdict(jax_cfg)
+            assert a == b, arch
+            assert port_cfg.n_groups == jax_cfg.n_groups
+    assert get_config("rwkv6_3b").param_dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        get_config("qwen3_0_6b")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        get_smoke_config("gemma3_12b")
+
+
+@pytest.mark.parametrize("act", ["swiglu", "gelu"])
+def test_layers_match_jax(rng, act):
+    d, d_ff = 24, 40
+    x = rng.normal(size=(2, 5, d)).astype(np.float32)
+    p = jlayers.init_mlp(jax.random.PRNGKey(1), d, d_ff, act, jnp.float32)
+    pn = {k: np.asarray(v) for k, v in p.items()}
+    got = layers.apply_mlp({k: _t(v) for k, v in pn.items()}, _t(x), act)
+    assert _rel(got, jlayers.apply_mlp(p, jnp.asarray(x), act)) < 1e-5   # 1.2e-7
+    scale = rng.normal(size=(d,)).astype(np.float32)
+    got = layers.rmsnorm({"scale": _t(scale)}, _t(x))
+    assert _rel(got, jlayers.rmsnorm({"scale": jnp.asarray(scale)}, jnp.asarray(x))) < 1e-6
+    table = rng.normal(size=(50, d)).astype(np.float32)
+    toks = rng.integers(0, 50, size=(2, 5))
+    np.testing.assert_array_equal(
+        layers.embed({"table": _t(table)}, _t(toks)).numpy(),
+        np.asarray(jlayers.embed({"table": jnp.asarray(table)}, jnp.asarray(toks))))
+
+
+# ---------------------------------------------------------------------------
+# mixers and FFNs, with and without a carried state
+
+
+def _block_params(arch, position, dtype="float32"):
+    """One pattern position's (mixer, ffn) parameters of the SMOKE config,
+    perturbed, group 0: (JAX dict, port dict) for each."""
+    jcfg, cfg = _configs(arch, dtype, False)
+    jp, npp = _perturbed_params(jcfg)
+    blk_j = jax.tree.map(lambda a: a[0], jp["blocks"][position])
+    blk_n = jax.tree.map(lambda a: a[0], npp["blocks"][position])
+    port = {k: {n: _t(v) for n, v in blk_n[k].items()} for k in ("mixer", "ffn")}
+    return jcfg, cfg, blk_j, port
+
+
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_rwkv_blocks_match_jax(rng, carried, use_kernel):
+    jcfg, cfg, pj, pt = _block_params("rwkv6_3b", 0)
+    B, S, d = 2, 24, cfg.d_model
+    x = rng.normal(size=(B, S, d)).astype(np.float32)
+    H = pt["mixer"]["u"].shape[0]
+    hd = cfg.rwkv_head_dim
+    state_n = None
+    if carried:
+        state_n = {"shift_t": np.asarray(jnp.asarray(rng.normal(size=(B, d)), jnp.bfloat16)),
+                   "shift_c": np.asarray(jnp.asarray(rng.normal(size=(B, d)), jnp.bfloat16)),
+                   "wkv": rng.normal(size=(B, H, hd, hd)).astype(np.float32)}
+    sj = None if state_n is None else {k: jnp.asarray(v) for k, v in state_n.items()}
+    st = None if state_n is None else {k: _t(v) for k, v in state_n.items()}
+    yj, cj = jrwkv.rwkv_tmix_forward(pj["mixer"], jnp.asarray(x), head_dim=hd,
+                                     state=sj, return_state=True, use_kernel=use_kernel)
+    yt, ct = rwkv6.rwkv_tmix_forward(pt["mixer"], _t(x), head_dim=hd, state=st,
+                                     return_state=True, use_kernel=use_kernel)
+    assert _rel(yt, yj) < TOL["float32"]                                 # 3.3e-7
+    for k in ("shift_t", "wkv"):
+        assert ct[k].dtype == (torch.bfloat16 if k == "shift_t" else torch.float32)
+        assert _rel(ct[k], cj[k]) < TOL["float32"]                       # 1.8e-7
+    yj, cj = jrwkv.rwkv_cmix_forward(pj["ffn"], jnp.asarray(x), state=sj,
+                                     return_state=True)
+    yt, ct = rwkv6.rwkv_cmix_forward(pt["ffn"], _t(x), state=st, return_state=True)
+    assert _rel(yt, yj) < TOL["float32"]                                 # 4.7e-8
+    assert _rel(ct["shift_c"], cj["shift_c"]) == 0.0
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_mamba_block_matches_jax(rng, carried, use_kernel):
+    jcfg, cfg, pj, pt = _block_params("jamba_1_5_large_398b", 1)
+    B, S, d = 2, 20, cfg.d_model
+    d_inner = cfg.mamba_expand * d
+    x = rng.normal(size=(B, S, d)).astype(np.float32)
+    state_n = None
+    if carried:
+        state_n = {"conv": np.asarray(jnp.asarray(
+                       rng.normal(size=(B, cfg.mamba_dconv - 1, d_inner)), jnp.bfloat16)),
+                   "ssm": rng.normal(size=(B, d_inner, cfg.mamba_d_state)).astype(np.float32)}
+    sj = None if state_n is None else {k: jnp.asarray(v) for k, v in state_n.items()}
+    st = None if state_n is None else {k: _t(v) for k, v in state_n.items()}
+    yj, cj = jmamba.mamba_forward(pj["mixer"], jnp.asarray(x), state=sj,
+                                  return_state=True, use_kernel=use_kernel)
+    yt, ct = mamba.mamba_forward(pt["mixer"], _t(x), state=st, return_state=True,
+                                 use_kernel=use_kernel)
+    assert _rel(yt, yj) < TOL["float32"]                                 # 2.0e-7
+    assert ct["conv"].dtype == torch.bfloat16
+    for k in ("conv", "ssm"):
+        assert _rel(ct[k], cj[k]) < TOL["float32"]                       # 2.0e-7
+    if carried:   # one decode step on the state just produced
+        x1 = rng.normal(size=(B, 1, d)).astype(np.float32)
+        yj, cj2 = jmamba.mamba_decode_step(pj["mixer"], jnp.asarray(x1), cj)
+        yt, ct2 = mamba.mamba_decode_step(pt["mixer"], _t(x1), ct)
+        assert _rel(yt, yj) < TOL["float32"]
+        assert _rel(ct2["ssm"], cj2["ssm"]) < TOL["float32"]
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("qk_norm,qkv_bias", [(False, False), (True, True)])
+def test_attention_matches_jax(rng, qk_norm, qkv_bias):
+    B, S, d, H, KH, hd = 2, 40, 32, 4, 2, 8
+    p = jattn.init_attn(jax.random.PRNGKey(3), d, H, KH, hd, qk_norm, qkv_bias,
+                        jnp.float32)
+    p = {k: jnp.asarray(np.asarray(v) + 0.3 * rng.standard_normal(v.shape), v.dtype)
+         if k in ("bq", "bk", "bv", "q_norm", "k_norm") else v for k, v in p.items()}
+    pt = {k: _t(np.asarray(v)) for k, v in p.items()}
+    x = rng.normal(size=(B, S, d)).astype(np.float32)
+    # q_chunk 16, kv_chunk 8: several q chunks, each over several kv tiles
+    yj, (kj, vj) = jattn.attn_forward(p, jnp.asarray(x), (None, None), q_chunk=16,
+                                      kv_chunk=8, return_kv=True)
+    yt, (kt, vt) = attention.attn_forward(pt, _t(x), None, q_chunk=16, kv_chunk=8,
+                                          return_kv=True)
+    assert _rel(yt, yj) < TOL["float32"]                                 # 3.1e-7
+    assert _rel(kt, kj) < TOL["float32"] and _rel(vt, vj) < TOL["float32"]
+    # decode at position S - 4 of a cache of S - 2, holding the first S - 4
+    S_max, pos = S - 2, S - 4
+    ck = np.zeros((B, S_max, KH, hd), np.float32)
+    cv = np.zeros((B, S_max, KH, hd), np.float32)
+    ck[:, :pos], cv[:, :pos] = np.asarray(kj)[:, :pos], np.asarray(vj)[:, :pos]
+    x1 = x[:, pos:pos + 1]
+    yj, ckj, cvj = jattn.attn_decode_step(p, jnp.asarray(x1), (None, None),
+                                          jnp.asarray(ck), jnp.asarray(cv), jnp.int32(pos))
+    ckt, cvt = _t(ck), _t(cv)
+    yt, ck2, cv2 = attention.attn_decode_step(pt, _t(x1), None, ckt, cvt, pos)
+    assert ck2 is ckt and cv2 is cvt                  # written in place
+    assert _rel(yt, yj) < TOL["float32"]                                 # 1.7e-7
+    assert _rel(ck2, ckj) < TOL["float32"] and _rel(cv2, cvj) < TOL["float32"]
+    # the decode step's output equals the full forward's at that position
+    assert _rel(yt[:, 0], np.asarray(
+        jattn.attn_forward(p, jnp.asarray(x[:, :pos + 1]), (None, None)))[:, -1]) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# whole models: prefill, every cache tensor, 4 chained decode steps
+
+_JAX_DECODE = {}
+
+
+def _jax_decode(jcfg):
+    key = (jcfg.name, jcfg.dtype)
+    if key not in _JAX_DECODE:
+        _JAX_DECODE[key] = jax.jit(lambda p, c, b, pos: jdecode_step(p, jcfg, c, b, pos))
+    return _JAX_DECODE[key]
+
+
+@pytest.mark.parametrize("kernel", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_serving_matches_jax(rng, arch, dtype, kernel):
+    jcfg, cfg = _configs(arch, dtype, kernel)
+    jp, npp = _perturbed_params(jcfg)
+    params = params_from_jax(cfg, npp, device="cpu")
+    B, S, n_dec = 2, 32, 4
+    toks = rng.integers(0, cfg.vocab, size=(B, S + n_dec))
+    tol = TOL[dtype]
+
+    jl, jc = jax.jit(lambda p, b: jprefill(p, jcfg, b, S_max=S + n_dec))(
+        jp, {"tokens": jnp.asarray(toks[:, :S])})
+    logits, cache = prefill(params, cfg, {"tokens": _t(toks[:, :S])}, S_max=S + n_dec)
+    assert logits.dtype == torch.float32 and logits.shape == (B, cfg.vocab)
+    assert _rel(logits, jl) < tol          # f32 <= 1.7e-6, bf16 <= 2.2e-2
+    for got, exp in zip(cache_to_numpy(cfg, cache), jc):
+        assert set(got) == set(exp)
+        for name in exp:   # f32 <= 3.1e-6 (bf16-stored: one step); bf16 <= 4.0e-2
+            assert _leaf_ok(got[name], exp[name], tol), name
+
+    # four chained decode steps.  Each package runs on its own cache and the
+    # logits are held at every step.  The stored bf16 conv/shift states can
+    # differ by a rounding step (above), which later steps carry into the
+    # float32 states (jamba float32: ssm 1.2e-4 after four steps), so every
+    # cache tensor is compared on one step from the SAME input cache: the
+    # port's step on the reference's cache against the reference's step.
+    dec = _jax_decode(jcfg)
+    for i in range(n_dec):
+        step = toks[:, S + i:S + i + 1]
+        same_in = cache_from_jax(cfg, jax.tree.map(np.asarray, jc), device="cpu")
+        jl, jc = dec(jp, jc, {"tokens": jnp.asarray(step)}, jnp.int32(S + i))
+        logits, cache = decode_step(params, cfg, cache, {"tokens": _t(step)}, S + i)
+        assert _rel(logits, jl) < tol, i   # f32 <= 5.1e-5, bf16 <= 3.2e-2
+        _, same_out = decode_step(params, cfg, same_in, {"tokens": _t(step)}, S + i)
+        for got, exp in zip(cache_to_numpy(cfg, same_out), jc):
+            for name in exp:   # f32 <= 1.3e-6 (bf16-stored: one step); bf16 <= 2.2e-2
+                assert _leaf_ok(got[name], exp[name], tol), (i, name)
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_params_from_jax_is_bit_exact(arch):
+    jcfg, cfg = _configs(arch, "bfloat16", False)
+    _, npp = _perturbed_params(jcfg, seed=1)
+    params = params_from_jax(cfg, npp, device="cpu")
+    P = len(cfg.pattern)
+    n_leaves = 0
+    for p, pos in enumerate(npp["blocks"]):
+        for part, leaves in pos.items():
+            for name, leaf in leaves.items():
+                assert leaf.shape[0] == cfg.n_groups
+                for g in range(cfg.n_groups):
+                    got = getattr(params.blocks[g * P + p], part)[name]
+                    assert got.dtype == getattr(torch, leaf.dtype.name)
+                    np.testing.assert_array_equal(got.float().numpy(),
+                                                  leaf[g].astype(np.float32))
+                    n_leaves += 1
+    for top in ("embed", "lm_head", "final_norm"):
+        for name, leaf in npp[top].items():
+            np.testing.assert_array_equal(
+                getattr(params, top)[name].float().numpy(), leaf.astype(np.float32))
+            n_leaves += 1
+    n_jax = sum(leaf.shape[0] if leaf.ndim and len(leaf) == cfg.n_groups else 1
+                for leaf in jax.tree.leaves(npp["blocks"])) \
+        + len(jax.tree.leaves({k: npp[k] for k in ("embed", "lm_head", "final_norm")}))
+    assert n_leaves == n_jax == len(list(params.parameters()))
+    # the port's own initialisation has the same layout
+    own = init_params(cfg, device="cpu")
+    assert [(n, t.shape, t.dtype) for n, t in own.named_parameters()] \
+        == [(n, t.shape, t.dtype) for n, t in params.named_parameters()]
+
+
+def test_decode_matches_full_forward_in_the_port(rng):
+    """prefill(S) + decode(1) == prefill(S + 1)'s last logits, the
+    reference's own check, on the port's own parameters."""
+    for arch in ARCHS:
+        cfg = dataclasses.replace(_dense(get_smoke_config(arch)), rwkv_kernel=True,
+                                  mamba_kernel=True)
+        params = init_params(cfg, seed=2, device="cpu")
+        toks = _t(rng.integers(0, cfg.vocab, size=(2, 41)))
+        full, _ = prefill(params, cfg, {"tokens": toks})
+        _, cache = prefill(params, cfg, {"tokens": toks[:, :40]}, S_max=44)
+        dec, _ = decode_step(params, cfg, cache, {"tokens": toks[:, 40:]}, 40)
+        assert _rel(dec, full.numpy()) < 5e-2, arch     # rwkv 0.0, jamba 2.1e-2
+
+
+def test_unported_parts_raise_naming_the_roadmap():
+    cfg = get_smoke_config("jamba_1_5_large_398b")          # has MoE layers
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        init_params(cfg, device="cpu")
+    dense = _dense(cfg)
+    for bad in (dataclasses.replace(dense, pattern=(("attn_local", "mlp"),) * 8),
+                dataclasses.replace(dense, pos="rope"),
+                dataclasses.replace(dense, input_mode="embeds")):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            init_params(bad, device="cpu")
+    params = init_params(dense, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        train_loss(params, dense, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+
+
+def test_entry_points_need_a_card_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("rwkv6_3b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "rwkv6_3b", "--smoke"])
+
+
+def test_serve_cli_runs_on_the_cpu(capsys):
+    tokens = serve.main(["--arch", "rwkv6_3b", "--smoke", "--batch", "2",
+                         "--prompt-len", "8", "--gen", "3", "--device", "cpu"])
+    assert tokens.shape == (2, 3) and tokens.dtype == torch.int64
+    out = capsys.readouterr().out
+    assert "arch=rwkv6-smoke batch=2 prompt=8 gen=3 device=cpu" in out
+    cfg = dataclasses.replace(_dense(get_smoke_config("jamba_1_5_large_398b")),
+                              mamba_kernel=True)
+    params = init_params(cfg, device="cpu")
+    prompts = torch.randint(0, cfg.vocab, (2, 8))
+    toks, stats = serve.generate(cfg, params, prompts, 4)
+    assert toks.shape == (2, 4) and stats["decode_steps"] == 3
+    assert not any(ops.launch_counts().values())

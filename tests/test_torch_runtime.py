@@ -5,6 +5,7 @@ import rules.
 Integer inputs within the plan's bounds decode EXACTLY in both packages, so
 every comparison here is element for element.
 """
+import dataclasses
 import itertools
 import os
 import subprocess
@@ -24,9 +25,12 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import make_plan as jmake_plan  # noqa: E402
 from repro.runtime import CodedMatmul as JCodedMatmul  # noqa: E402
 from repro.runtime import ErasurePattern as JErasurePattern  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import make_plan  # noqa: E402
 from repro_torch.core.schemes import make_scheme  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
 from repro_torch.runtime import CacheGroup, CodedMatmul, ErasurePattern, plan_token  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -235,9 +239,16 @@ def test_cpu_path_launches_no_kernel(rng):
         cm = CodedMatmul(plan, backend, device="cpu")
         cm(A, B, erased=[1])
         cm(A, B, progress=np.r_[0.5, np.ones(plan.K - 1)], sub_tasks=2)
+    # the LM serving path with both scan kernels' fields on
+    for arch in ("rwkv6_3b", "jamba_1_5_large_398b"):
+        cfg = get_smoke_config(arch)
+        cfg = dataclasses.replace(cfg, moe=None, rwkv_kernel=True, mamba_kernel=True,
+                                  pattern=tuple((m, "mlp" if f == "moe" else f)
+                                                for m, f in cfg.pattern))
+        generate(cfg, init_params(cfg, device="cpu"), torch.zeros(1, 8, dtype=torch.long), 2)
     counts = ops.launch_counts()
     assert set(counts) == {"fused_worker", "decode", "decode_partial", "encode",
-                           "matmul_t"}
+                           "matmul_t", "wkv_scan", "mamba_scan"}
     assert all(n == 0 for n in counts.values()), counts
 
 
