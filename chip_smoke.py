@@ -10,8 +10,14 @@ Phases, each raising on failure:
 1. device  - the card's name and power limit, CUDA version;
 2. build   - nvcc builds every kernel from ``src/repro_torch/kernels/csrc``
              (one process per source, all at once) and prints ``-Xptxas -v``;
+             ``cuobjdump -sass`` must show DMMA (FP64 tensor-core)
+             instructions in every float64 kernel behind
+             ``repro_fused_worker_f64`` and ``repro_matmul_t_f64``;
 3. kernels - each kernel against its plain PyTorch version on the card, at a
-             ragged small shape and at the main path's shapes;
+             ragged small shape and at the main path's shapes; kernels 1 and
+             5 also with K=1 and with a row stride that is (16-byte copies)
+             and is not (one-element copies) 16-byte aligned, integer inputs
+             exactly and random ones to a tolerance;
 4. main    - ``CodedMatmul(plan)`` on the default "fused" backend serves
              requests at the paper's geometry (bec p=m=n=2, K=10,
              equispaced points, v=r=t=8000, float64, entries in {0..15})
@@ -27,7 +33,9 @@ Phases, each raising on failure:
              worker_stage + decode_stage pair;
 5. times   - each kernel, its plain version and one PyTorch call computing
              the same function, timed with CUDA events at the main path's
-             shapes, beside the least time the card could take;
+             shapes, beside the least time the card could take; kernels 1
+             and 5 also as TFLOP/s and share of the FP64 tensor peak, and
+             the encode's share of kernel 1 (kernel 1 - K x kernel 5);
 6. rwkv    - LM serving: RWKV-6 3B whole (``configs/rwkv6_3b.py``, bf16,
              random weights from the seed) with the WKV kernel, 4 prompts of
              1024 tokens then 16 greedy tokens; prefill logits against the
@@ -63,11 +71,12 @@ import torch  # noqa: E402
 
 import dataclasses  # noqa: E402
 import gc  # noqa: E402
+import re  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import bounds, make_plan  # noqa: E402
 from repro_torch.core.partition import block_decompose  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, coded_fused, ops, ref  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.runtime import CodedMatmul, PartialPattern, chunk_bounds  # noqa: E402
@@ -93,6 +102,10 @@ Q_SUB = 4
 PROGRESS = ([4, 1, 4, 0, 0, 1, 3, 4, 1, 4], [3, 3, 2, 2, 1, 2, 3, 0, 2, 3],
             [4, 0, 2, 1, 2, 0, 2, 4, 2, 0], [3, 3, 3, 3, 3, 3, 0, 3, 3, 3])
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+# Floors for the tensor-core kernels 5 and 1: twice as fast as the FMA
+# kernels they replaced (8.986 and 202.12 ms on an H100 80GB HBM3 at
+# 700 W), printed beside the phase-5 times
+FLOOR_MS = {"matmul_t": 4.5, "fused_worker": 101.0}
 KERNELS = ("fused_worker", "decode", "encode", "matmul_t", "decode_partial",
            "mamba_scan", "wkv_scan")
 
@@ -173,6 +186,18 @@ def build_phase() -> None:
         for line in log.splitlines():
             if "ptxas info" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    # the FP64 products must run on the tensor cores: DMMA in the machine
+    # code of every float64 kernel the two entry points launch
+    for name, entry in (("coded_fused", "repro_fused_worker_f64"),
+                        ("block_matmul", "repro_matmul_t_f64")):
+        counts = {}
+        for section in _build.sass(name).split("Function : ")[1:]:
+            m = re.search(r"\d([a-z_]+_kernel)I([df])Li(\d+)E", section.split("\n", 1)[0])
+            if m and m.group(2) == "d":
+                counts[f"{m.group(1)}<double, {m.group(3)}>"] = section.count("DMMA")
+        print(f"{entry}: DMMA instructions per float64 kernel {counts}")
+        check(len(counts) == 2 and all(counts.values()),
+              f"{entry}: a float64 kernel without DMMA instructions: {counts}")
 
 
 def fused_inputs(plan, A, B, dtype):
@@ -195,6 +220,57 @@ def check_exact(name: str, out: torch.Tensor, exp: torch.Tensor) -> float:
     print(f"{name} {tuple(out.shape)}: max abs err {err}")
     check(torch.equal(out, exp), f"{name} differs by {err}")
     return err
+
+
+def with_row_stride(x: torch.Tensor, stride: str) -> torch.Tensor:
+    """x's values in a view whose row stride is a 16-byte multiple
+    ("aligned") or an odd number of elements ("odd")."""
+    width = x.shape[-1]
+    step = 16 // x.element_size()
+    ld = -(-width // step) * step if stride == "aligned" else width | 1
+    buf = torch.zeros((*x.shape[:-1], ld), dtype=x.dtype, device=x.device)
+    buf[..., :width] = x
+    return buf[..., :width]
+
+
+def copy_width(*operands: torch.Tensor) -> int:
+    """The copy width the wrappers of kernels 1 and 5 pick for these
+    (block-stacked) operands."""
+    return coded_fused.copy_bytes(operands[0].element_size(), *(
+        (x.data_ptr(), coded_fused._block_offsets(x)[0] if x.ndim > 2 else (0,),
+         x.stride(-2)) for x in operands))
+
+
+def edge_cases(gen, dtype) -> None:
+    """Kernels 1 and 5 at the new design's edges: K=1 (the mesh caller's
+    single coefficient row) on ragged 129 x 257 blocks, and a row stride
+    that is 16-byte aligned beside an odd one, so both copy widths run;
+    integer inputs exactly, random inputs to TOL."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+    def ints(*shape):       # every sum an integer below 2^24: exact in float32
+        return torch.randint(-9, 10, shape, generator=gen, device="cuda").to(dtype)
+
+    for stride in ("aligned", "odd"):
+        for data, make in (("random", rand), ("integer", ints)):
+            ca, cb = make(1, 4), make(1, 4)
+            a = with_row_stride(make(4, 129, 257), stride)
+            b = with_row_stride(make(4, 129, 65), stride)
+            label = f"fused_worker K=1 {stride} rows ({copy_width(a, b)}-byte copies) {data}"
+            out, exp = ops.fused_worker(ca, cb, a, b), ref.fused_worker_ref(ca, cb, a, b)
+            if data == "integer":
+                check_exact(f"{label} {dtype}", out, exp)
+            else:
+                check_close(label, out, exp, dtype)
+            a = with_row_stride(make(300, 257), stride)
+            b = with_row_stride(make(300, 65), stride)
+            label = f"matmul_t {stride} rows ({copy_width(a, b)}-byte copies) {data}"
+            out, exp = ops.matmul_t(a, b), ref.matmul_t_ref(a, b)
+            if data == "integer":
+                check_exact(f"{label} {dtype}", out, exp)
+            else:
+                check_close(label, out, exp, dtype)
 
 
 def kernels_phase(plan, A, B, gen) -> dict:
@@ -226,10 +302,19 @@ def kernels_phase(plan, A, B, gen) -> dict:
         a, b = ints(300, 257), ints(300, 65)
         check_exact(f"matmul_t {dtype} ragged integer", ops.matmul_t(a, b),
                     ref.matmul_t_ref(a, b))
+        edge_cases(gen, dtype)
         # main-path shapes: the plan's coefficients on strided 4000^2 block
         # views (fused, encode), one worker's coded blocks (matmul_t)
         args = fused_inputs(plan, A, B, dtype)
         ca, cb, a4, b4 = args
+        print(f"main-path block views: {copy_width(a4, b4)}-byte copies")
+        # integer coefficients in {0, 1} keep every sum of the integer
+        # blocks below 2^24, so both dtypes must match exactly
+        ci = torch.randint(0, 2, ca.shape, generator=gen, device="cuda").to(dtype)
+        check_exact(f"fused_worker {dtype} main integer", ops.fused_worker(ci, ci, a4, b4),
+                    ref.fused_worker_ref(ci, ci, a4, b4))
+        check_exact(f"matmul_t {dtype} main integer (strided 4000^2 blocks)",
+                    ops.matmul_t(a4[0, 0], b4[0, 0]), ref.matmul_t_ref(a4[0, 0], b4[0, 0]))
         out = ops.fused_worker(*args)
         err = check_close("fused_worker main", out, ref.fused_worker_ref(*args), dtype)
         if dtype == torch.float64:
@@ -612,6 +697,7 @@ def times_phase(plan, A, B) -> dict:
           f"({flops / PEAK_FP64_VECTOR * 1e3:.3f} ms at FP64 vector peak); "
           f"kernel {fused['ms']:.3f} ms, plain {fused['plain_ms']:.3f} ms, "
           f"einsum+bmm {fused['library_ms']:.3f} ms")
+    tensor_rate("fused_worker", flops, fused)
 
     # encode: the kernel reads the strided block view; the plain version and
     # torch.matmul get the (P, E) stack made beforehand (their reshape would
@@ -641,6 +727,11 @@ def times_phase(plan, A, B) -> dict:
           f"FP64 tensor peak ({flops / PEAK_FP64_VECTOR * 1e3:.3f} ms at FP64 vector "
           f"peak); kernel {mm['ms']:.3f} ms, plain {mm['plain_ms']:.3f} ms (A.T @ B: the "
           f"plain version is the library call), A.T @ B {mm['library_ms']:.3f} ms")
+    tensor_rate("matmul_t", flops, mm)
+    encode_ms = fused["ms"] - K * mm["ms"]
+    print(f"encode inside fused_worker: kernel 1 - K x kernel 5 = {fused['ms']:.3f} - "
+          f"{K} x {mm['ms']:.3f} = {encode_ms:.3f} ms ({encode_ms / fused['ms']:.1%} of "
+          f"kernel 1)")
     del at, bt, a1, b1
 
     Y = ops.fused_worker(ca, cb, a4, b4).reshape(K, -1)
@@ -684,6 +775,15 @@ def times_phase(plan, A, B) -> dict:
           f"per-chunk matmul+extract {part['library_ms']:.3f} ms")
     return {"fused_worker": fused, "decode": dec, "encode": enc, "matmul_t": mm,
             "decode_partial": part}
+
+
+def tensor_rate(name: str, flops: float, t: dict) -> None:
+    """Print a kernel's achieved FP64 rate, its share of the tensor peak and
+    whether it meets its floor."""
+    rate = flops / (t["ms"] * 1e-3)
+    print(f"{name}: {rate / 1e12:.2f} TFLOP/s, {rate / PEAK_FP64_TENSOR:.1%} of the "
+          f"FP64 tensor peak; floor {FLOOR_MS[name]} ms "
+          f"{'met' if t['ms'] <= FLOOR_MS[name] else 'MISSED'}")
 
 
 def main() -> None:

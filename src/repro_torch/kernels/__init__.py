@@ -12,8 +12,8 @@ launches the kernel for CUDA tensors:
                   panel in shared memory, read from strided block views
                   (csrc/coded_encode.cu)
   block_matmul  - the staged backend's per-worker product A~^T B~
-                  (csrc/block_matmul.cu; its product tile, tile_gemm.cuh,
-                  is shared with coded_fused)
+                  (csrc/block_matmul.cu; its FP64 tensor-core main loop,
+                  dmma_gemm.cuh, is shared with coded_fused)
   coded_decode  - decode panel @ worker outputs with FUSED digit extraction
                   (round/mod-s/recentre), whole-product and per-chunk
                   (partial stragglers); X never reaches device memory

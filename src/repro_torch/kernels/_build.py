@@ -16,7 +16,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build", "load"]
+__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "sass"]
 
 SOURCES = ("coded_fused", "coded_decode", "coded_encode", "block_matmul",
            "wkv_scan", "mamba_scan")
@@ -92,3 +92,12 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_library_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of the library for ``csrc/<name>.cu``, built
+    first if it is not: the machine code the card runs."""
+    build([name])
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(cuobjdump), "-sass", str(_library_path(name))],
+                          capture_output=True, text=True, check=True).stdout

@@ -7,9 +7,10 @@ kernel): one worker's coded block product ``A^T B`` for A (v, r), B (v, t)
 
 What bounds it on the card: FP64 operations, 2*v*r*t of them (1.28e11 per
 worker at the paper's 8000^2 geometry) against 0.38 GB of operands.  The
-kernel is the register-blocked FMA product of the fused kernel (a 64x64
-output tile per block, 4x4 per thread, shared with it through
-``csrc/tile_gemm.cuh``) without the encode; every edge is masked.
+kernel is the main loop it shares with the fused kernel
+(``csrc/dmma_gemm.cuh``: a 128x128 output tile per block, FP64 on the
+tensor cores with mma.sync m16n8k8, a 4-stage cp.async ring) without the
+encode; every edge is zero-filled by the copies.
 
 :func:`matmul_t_ref` (from ``ref``) is the plain version; the wrapper
 ``ops.matmul_t`` runs it for CPU tensors and launches the kernel for CUDA
@@ -23,7 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.coded_fused import _unit_column_stride
+from repro_torch.kernels.coded_fused import _unit_column_stride, copy_bytes
 from repro_torch.kernels.ref import matmul_t_ref
 
 __all__ = ["matmul_t_cuda", "matmul_t_ref"]
@@ -35,7 +36,7 @@ _SYMBOLS = {torch.float64: "repro_matmul_t_f64",
 
 def _function(dtype: torch.dtype):
     fn = getattr(_build.load("block_matmul"), _SYMBOLS[dtype])
-    fn.argtypes = [_P, _P, _P, _L, _L, _L, _L, _L, _P]
+    fn.argtypes = [_P, _P, _P, _L, _L, _L, _L, _L, _I, _P]
     fn.restype = _I
     return fn
 
@@ -75,9 +76,11 @@ def matmul_t_cuda(A: torch.Tensor, B: torch.Tensor,
         return out
     a = _unit_column_stride(A)
     b = _unit_column_stride(B)
+    width = copy_bytes(a.element_size(), (a.data_ptr(), (0,), a.stride(0)),
+                       (b.data_ptr(), (0,), b.stride(0)))
     stream = torch.cuda.current_stream(A.device).cuda_stream
     err = _function(dtype)(a.data_ptr(), b.data_ptr(), out.data_ptr(), v, r, t,
-                           a.stride(0), b.stride(0), stream)
+                           a.stride(0), b.stride(0), width, stream)
     if err != 0:
         raise RuntimeError(f"matmul_t kernel launch failed: cudaError {err}")
     return out

@@ -10,9 +10,11 @@ in shared memory and never reach device memory (``csrc/coded_fused.cu``).
 
 What bounds it on the card: FP64 operations, 2*K*r*t*v (1.28e12 at the
 paper's 8000^2 geometry) against about 2.3 GB of operands, so it is
-compute-bound.  The kernel is a simple register-blocked FMA product (a
-64x64 output tile per block, 4x4 per thread) with the encode fused into
-the shared-memory tile loads; tensor cores (DMMA) and TMA are later work.
+compute-bound, with the raw-tile reads from L2 behind.  The kernel is the
+FP64 tensor-core main loop of ``csrc/dmma_gemm.cuh`` (a 128x128 output
+tile per block, mma.sync m16n8k8, a 2-stage cp.async ring of raw tiles)
+with the encode fused in shared memory, the worker on the grid's fastest
+axis; FP32 runs the same ring with CUDA-core FMAs.
 
 :func:`fused_worker_ref` (from ``ref``) is the plain version; the wrapper
 ``ops.fused_worker`` runs it for CPU tensors and launches the kernel for
@@ -29,7 +31,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import fused_worker_ref
 
-__all__ = ["fused_worker_cuda", "fused_worker_ref", "MAX_BLOCKS"]
+__all__ = ["fused_worker_cuda", "fused_worker_ref", "copy_bytes", "MAX_BLOCKS"]
 
 MAX_BLOCKS = 64  # kMaxBlocks in csrc/coded_fused.cu
 
@@ -42,7 +44,7 @@ _SYMBOLS = {torch.float64: "repro_fused_worker_f64",
 
 def _function(dtype: torch.dtype):
     fn = getattr(_build.load("coded_fused"), _SYMBOLS[dtype])
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _I, _P]
     fn.restype = _I
     return fn
 
@@ -55,6 +57,22 @@ def _block_offsets(x: torch.Tensor):
     offsets = [sum(i * s for i, s in zip(idx, strides))
                for idx in itertools.product(*(range(g) for g in grid))]
     return (_L * len(offsets))(*offsets), x.stride(-2)
+
+
+def copy_bytes(itemsize: int, *operands) -> int:
+    """The width of the kernels' global-to-shared copies: 16 bytes where
+    every operand's data pointer, block offsets and row stride are 16-byte
+    multiples, else one element (``itemsize`` bytes).
+
+    Each operand is ``(data_ptr, offsets, row_stride)``: the byte address
+    of its storage view, its blocks' offsets and its row stride, both in
+    elements.
+    """
+    for ptr, offsets, row_stride in operands:
+        if ptr % 16 or (row_stride * itemsize) % 16 or any(
+                (o * itemsize) % 16 for o in offsets):
+            return itemsize
+    return 16
 
 
 def _unit_column_stride(x: torch.Tensor) -> torch.Tensor:
@@ -105,11 +123,13 @@ def fused_worker_cuda(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
     b = _unit_column_stride(b_blocks)
     a_off, a_sv = _block_offsets(a)
     b_off, b_sv = _block_offsets(b)
+    width = copy_bytes(a.element_size(), (a.data_ptr(), a_off, a_sv),
+                       (b.data_ptr(), b_off, b_sv))
     stream = torch.cuda.current_stream(coeff_a.device).cuda_stream
     err = _function(dtype)(
         ca.data_ptr(), cb.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
         ctypes.addressof(a_off), ctypes.addressof(b_off), K, P, Q, v, r, t,
-        a_sv, b_sv, stream)
+        a_sv, b_sv, width, stream)
     if err != 0:
         raise RuntimeError(f"fused_worker kernel launch failed: cudaError {err}")
     return out

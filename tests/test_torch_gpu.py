@@ -16,7 +16,7 @@ import dataclasses
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import make_plan
 from repro_torch.core.partition import block_decompose
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import coded_fused, ops, ref
 from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.runtime import CodedMatmul
 
@@ -39,24 +39,65 @@ def _rand(gen, shape, dtype):
     return torch.randn(shape, generator=gen, dtype=torch.float64).to("cuda", dtype)
 
 
+def _data(gen, shape, dtype, data):
+    """Random normal values, or integers in [-3, 3] (every sum the kernels
+    and the plain versions form is then an exact integer in float32 too)."""
+    if data == "integer":
+        return torch.randint(-3, 4, shape, generator=gen).to("cuda", dtype)
+    return _rand(gen, shape, dtype)
+
+
+def _with_row_stride(x, stride):
+    """x's values in a view whose row stride is a 16-byte multiple
+    ("aligned": the kernels' 16-byte copies) or an odd number of elements
+    ("odd": one-element copies)."""
+    width = x.shape[-1]
+    if stride == "aligned":
+        step = 16 // x.element_size()
+        ld = -(-width // step) * step
+    else:
+        ld = width if width % 2 else width + 1
+    buf = torch.zeros((*x.shape[:-1], ld), dtype=x.dtype, device=x.device)
+    buf[..., :width] = x
+    return buf[..., :width]
+
+
+def _check(out, exp, data):
+    """Integer inputs exactly, random ones within TOL of the largest value."""
+    torch.cuda.synchronize()
+    assert out.shape == exp.shape and out.dtype == exp.dtype
+    if data == "integer":
+        torch.testing.assert_close(out, exp, rtol=0, atol=0)
+    else:
+        scale = float(exp.abs().max()) + 1e-9
+        assert float((out - exp).abs().max()) / scale < TOL[out.dtype]
+
+
 @pytest.mark.parametrize("K,P,Q,v,r,t", [
     (4, 4, 4, 256, 128, 128),
     (6, 8, 2, 300, 200, 150),
     (3, 1, 1, 64, 40, 24),
     (1, 5, 3, 129, 257, 65),
     (2, 3, 2, 0, 9, 7),           # empty contraction: zeros
+    (1, 4, 4, 300, 129, 257),     # K=1, as the mesh caller sends
+    (7, 4, 4, 100, 257, 129),     # odd K
+    (5, 1, 1, 5, 129, 4000),      # P=Q=1; v below one 8-row step
+    (2, 64, 3, 21, 65, 33),       # P=64: 16 groups of raw blocks per step
+    (3, 2, 64, 13, 4000, 40),     # Q=64, r=4000
 ])
+@pytest.mark.parametrize("stride", ["aligned", "odd"])
+@pytest.mark.parametrize("data", ["random", "integer"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_fused_kernel_matches_plain(cuda, K, P, Q, v, r, t, dtype):
+def test_fused_kernel_matches_plain(cuda, K, P, Q, v, r, t, stride, data, dtype):
     gen = torch.Generator().manual_seed(0)
-    ca, cb = _rand(gen, (K, P), dtype), _rand(gen, (K, Q), dtype)
-    a, b = _rand(gen, (P, v, r), dtype), _rand(gen, (Q, v, t), dtype)
+    ca, cb = _data(gen, (K, P), dtype, data), _data(gen, (K, Q), dtype, data)
+    a = _with_row_stride(_data(gen, (P, v, r), dtype, data), stride)
+    b = _with_row_stride(_data(gen, (Q, v, t), dtype, data), stride)
+    width = coded_fused.copy_bytes(a.element_size(), *(
+        (x.data_ptr(), coded_fused._block_offsets(x)[0], x.stride(-2)) for x in (a, b)))
+    assert width == (16 if stride == "aligned" else a.element_size())
     out = ops.fused_worker(ca, cb, a, b)
-    exp = ref.fused_worker_ref(ca, cb, a, b)
-    torch.cuda.synchronize()
-    assert out.shape == (K, r, t) and out.dtype == dtype
-    scale = float(exp.abs().max()) + 1e-9
-    assert float((out - exp).abs().max()) / scale < TOL[dtype]
+    _check(out, ref.fused_worker_ref(ca, cb, a, b), data)
     assert ops.launch_counts()["fused_worker"] == 1
 
 
@@ -193,17 +234,22 @@ def test_encode_kernel_on_strided_block_views_is_exact(cuda):
 
 
 @pytest.mark.parametrize("v,r,t", [(256, 128, 128), (300, 200, 150),
-                                   (129, 257, 65), (1, 1, 1), (0, 9, 7)])
+                                   (129, 257, 65), (1, 1, 1), (0, 9, 7),
+                                   (5, 129, 257),       # v below one 16-row step
+                                   (100, 4000, 129),    # v not a multiple of 16
+                                   (33, 257, 4000)])
+@pytest.mark.parametrize("stride", ["aligned", "odd"])
+@pytest.mark.parametrize("data", ["random", "integer"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_matmul_t_kernel_matches_plain(cuda, v, r, t, dtype):
+def test_matmul_t_kernel_matches_plain(cuda, v, r, t, stride, data, dtype):
     gen = torch.Generator().manual_seed(7)
-    A, B = _rand(gen, (v, r), dtype), _rand(gen, (v, t), dtype)
+    A = _with_row_stride(_data(gen, (v, r), dtype, data), stride)
+    B = _with_row_stride(_data(gen, (v, t), dtype, data), stride)
+    width = coded_fused.copy_bytes(A.element_size(), (A.data_ptr(), (0,), A.stride(0)),
+                                   (B.data_ptr(), (0,), B.stride(0)))
+    assert width == (16 if stride == "aligned" else A.element_size())
     out = ops.matmul_t(A, B)
-    exp = ref.matmul_t_ref(A, B)
-    torch.cuda.synchronize()
-    assert out.shape == (r, t) and out.dtype == dtype
-    scale = float(exp.abs().max()) + 1e-9
-    assert float((out - exp).abs().max()) / scale < TOL[dtype]
+    _check(out, ref.matmul_t_ref(A, B), data)
     Y = torch.full((2, r, t), float("nan"), device=cuda, dtype=dtype)
     ops.matmul_t(A, B, out=Y[1])
     torch.testing.assert_close(Y[1], out, rtol=0, atol=0)

@@ -113,6 +113,37 @@ def test_block_offsets_address_every_block(rng, v, r, rows, cols):
         np.testing.assert_array_equal(_np(got), _np(block))
 
 
+_BASE = 0x7F3A_0000_0000  # a 256-byte aligned device address
+
+
+@pytest.mark.parametrize("itemsize,operands,width", [
+    # the main path: 2x2 blocks of an 8000^2 float64 matrix, both operands
+    (8, [(_BASE, (0, 4000, 32_000_000, 32_004_000), 8000)] * 2, 16),
+    (8, [(_BASE, (0,), 4000), (_BASE + 256, (0,), 4000)], 16),    # matmul_t A, B
+    (8, [(_BASE, (0,), 4000), (_BASE, (0,), 4001)], 8),           # odd row stride
+    (8, [(_BASE + 8, (0,), 4000), (_BASE, (0,), 4000)], 8),       # pointer off 16 B
+    (8, [(_BASE, (0, 2001), 4002), (_BASE, (0,), 4000)], 8),      # odd block offset
+    (4, [(_BASE, (0, 4, 8), 12)] * 2, 16),                        # float32, 48 B rows
+    (4, [(_BASE, (0,), 6), (_BASE, (0,), 8)], 4),                 # float32, 24 B rows
+    (4, [(_BASE, (0, 2), 8), (_BASE, (0,), 8)], 4),               # float32, offset 8 B
+])
+def test_copy_bytes_picks_16_byte_copies_only_when_aligned(itemsize, operands, width):
+    """The kernels copy 16 bytes at a time only where every data pointer,
+    block offset and row stride is a 16-byte multiple; else one element."""
+    assert coded_fused.copy_bytes(itemsize, *operands) == width
+
+
+def test_copy_bytes_on_block_views(rng):
+    """The rule on the offsets and strides of real block views: a float64
+    width of 12 splits into 16-byte aligned blocks, 14 does not."""
+    for cols, width in ((12, 16), (14, 8)):
+        x = torch.as_tensor(rng.normal(size=(8, cols)))
+        blocks = partition.block_decompose(x, 2, 2)
+        offsets, row_stride = coded_fused._block_offsets(blocks)
+        got = coded_fused.copy_bytes(8, (_BASE, offsets, row_stride))
+        assert got == width
+
+
 def test_fused_worker_on_block_views_matches_stacked(rng):
     """Leading block dims flatten row-major, as the reference's reshape."""
     A = torch.as_tensor(rng.normal(size=(16, 12)))
