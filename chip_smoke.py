@@ -12,7 +12,9 @@ Phases, each raising on failure:
              (one process per source, all at once) and prints ``-Xptxas -v``;
              ``cuobjdump -sass`` must show DMMA (FP64 tensor-core)
              instructions in every float64 kernel behind
-             ``repro_fused_worker_f64`` and ``repro_matmul_t_f64``;
+             ``repro_fused_worker_f64`` and ``repro_matmul_t_f64``; the scan
+             kernels' registers and spills are printed, and the selective
+             scan's SASS must hold MUFU.EX2 (its one-op exponentials);
 3. kernels - each kernel against its plain PyTorch version on the card, at a
              ragged small shape and at the main path's shapes; kernels 1 and
              5 also with K=1 and with a row stride that is (16-byte copies)
@@ -48,10 +50,12 @@ Phases, each raising on failure:
              the dense MLP (the MoE layers cut), through the selective-scan
              kernel (7 launches per prefill).
 
-Phase 3 also holds the WKV and selective-scan kernels against their plain
-versions at the LM prefill's shapes and at a ragged shape, and phase 5
-times them.  Each path's launch counts are set to 0 just before it and read
-just after.
+Phase 3b holds the WKV and selective-scan kernels against their plain
+versions at the LM prefill's shapes, at ragged shapes and (the selective
+scan) at the Jamba initialisation's long-memory regime; phase 5b times them
+beside their bounds (the selective scan's also beside the MUFU time of its
+one-op exponentials), the previous design's times and their floors.  Each
+path's launch counts are set to 0 just before it and read just after.
 The line before the last is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -106,6 +110,14 @@ TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 # kernels they replaced (8.986 and 202.12 ms on an H100 80GB HBM3 at
 # 700 W), printed beside the phase-5 times
 FLOOR_MS = {"matmul_t": 4.5, "fused_worker": 101.0}
+# The scan kernels at the LM prefill shapes: the previous design's times (WKV
+# a block per (batch, head) and a thread per value column, the scan an
+# accurate expf per state; this script on an H100 80GB HBM3 at 700 W) and
+# the floors of the present design, half and two thirds of those
+SCAN_BEFORE_MS = {"wkv_scan": 1.401, "mamba_scan": 0.945}
+SCAN_FLOOR_MS = {"wkv_scan": 0.70, "mamba_scan": 0.63}
+SMS = 132                    # H100 SXM streaming multiprocessors
+MUFU_EX2_PER_CLOCK = 16      # per SM, compute capability 9.0 (CUDA C Programming Guide)
 KERNELS = ("fused_worker", "decode", "encode", "matmul_t", "decode_partial",
            "mamba_scan", "wkv_scan")
 
@@ -172,9 +184,13 @@ def device_phase() -> dict:
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}  cuda {torch.version.cuda}  device {name}  "
           f"count {torch.cuda.device_count()}")
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    print(f"clocks.max.sm {clock} MHz")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return {"name": name, "smi": smi.splitlines()[0]}
+    return {"name": name, "smi": smi.splitlines()[0], "sm_clock_hz": float(clock) * 1e6}
 
 
 def build_phase() -> None:
@@ -198,6 +214,39 @@ def build_phase() -> None:
         print(f"{entry}: DMMA instructions per float64 kernel {counts}")
         check(len(counts) == 2 and all(counts.values()),
               f"{entry}: a float64 kernel without DMMA instructions: {counts}")
+    for name in ("wkv_scan", "mamba_scan"):
+        print(f"{name}: {ptxas_summary(logs[name]) or 'built before this run'}")
+    # the selective scan's exponentials must be one MUFU op each
+    ex2 = {kernel_name(section.split("\n", 1)[0]): section.count("MUFU.EX2")
+           for section in _build.sass("mamba_scan").split("Function : ")[1:]}
+    print(f"mamba_scan: MUFU.EX2 instructions per kernel {ex2}")
+    check(len(ex2) == 4 and all(ex2.values()), f"mamba_scan: a kernel without MUFU.EX2: {ex2}")
+
+
+def kernel_name(mangled: str) -> str:
+    """The "name<template ints>" of a mangled kernel template instance."""
+    m = re.search(r"\d+([a-z_]+_kernel)I(\S+)", mangled)
+    if not m:
+        return mangled.strip()
+    return f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+
+
+def ptxas_summary(log: str) -> str:
+    """``-Xptxas -v``'s registers and spills per kernel instance, as
+    "kernel<template ints>: N registers, S/L bytes spill stores/loads"."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"{m.group(1)}/{m.group(2)} bytes spill stores/loads"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {spill}")
+            name = None
+    return "; ".join(out)
 
 
 def fused_inputs(plan, A, B, dtype):
@@ -371,11 +420,19 @@ def wkv_inputs(gen, B, S, H, dk, dv=None):
             rand(B, S, H, dv or dk), rand(B, S, H, dk), rand(H, dk))
 
 
-def mamba_inputs(gen, B, S, d, s):
+def mamba_inputs(gen, B, S, d, s, jamba_init=False):
     """Random f32 selective-scan inputs made as tests/test_kernels.py makes
-    them: dt = softplus(N(0, 1)), A_log uniform in [0.1, 1)."""
+    them: dt = softplus(N(0, 1)), A_log uniform in [0.1, 1).  With
+    ``jamba_init``, the long-memory regime of the Jamba initialisation
+    (models/mamba.py: dt_bias -4.6, A_log = log(1..s), D = 1): dt =
+    softplus(N(0, 0.25) - 4.6), near 0.01, so the decays are 0.84-0.99."""
     def rand(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
+    if jamba_init:
+        A_log = torch.log(torch.arange(1, s + 1, dtype=torch.float32, device="cuda"))
+        return (torch.nn.functional.softplus(0.5 * rand(B, S, d) - 4.6), rand(B, S, d),
+                rand(B, S, s), rand(B, S, s), A_log.expand(d, s).contiguous(),
+                torch.ones(d, device="cuda"))
     return (torch.nn.functional.softplus(rand(B, S, d)), rand(B, S, d),
             rand(B, S, s), rand(B, S, s),
             torch.rand((d, s), generator=gen, device="cuda") * 0.9 + 0.1, rand(d))
@@ -395,11 +452,14 @@ def check_scan(name: str, out, exp) -> float:
 
 def scan_kernels_phase(gen) -> dict:
     """Kernels 6 and 7 against their plain versions at the LM prefill's
-    shapes and at a ragged shape (chunk halved, d off the thread block)."""
+    shapes, at ragged shapes (chunk halved, d off the thread block, dv off
+    the 32-column groups) and, for kernel 6, at the Jamba initialisation."""
     phase("3b scan kernels against their plain versions")
     errs = {}
     x = wkv_inputs(gen, B=2, S=1000, H=5, dk=64)           # chunk 64 -> 8
     check_scan("wkv_scan ragged S=1000", ops.wkv_scan(*x), ref.wkv_scan_ref(*x))
+    x = wkv_inputs(gen, B=2, S=1000, H=5, dk=64, dv=72)    # groups of 32, 32, 8
+    check_scan("wkv_scan ragged S=1000 dv=72", ops.wkv_scan(*x), ref.wkv_scan_ref(*x))
     x = wkv_inputs(gen, **WKV_SHAPE)
     errs["wkv_scan"] = check_scan("wkv_scan main", ops.wkv_scan(*x), ref.wkv_scan_ref(*x))
     x = mamba_inputs(gen, B=2, S=1000, d=1000, s=16)       # chunk 128 -> 8
@@ -408,10 +468,13 @@ def scan_kernels_phase(gen) -> dict:
     x = mamba_inputs(gen, **MAMBA_SHAPE)
     errs["mamba_scan"] = check_scan("mamba_scan main", ops.mamba_scan(*x),
                                     ref.mamba_scan_ref(*x))
+    x = mamba_inputs(gen, **MAMBA_SHAPE, jamba_init=True)
+    errs["mamba_scan"] = max(errs["mamba_scan"], check_scan(
+        "mamba_scan main, Jamba init", ops.mamba_scan(*x), ref.mamba_scan_ref(*x)))
     return errs
 
 
-def scan_times_phase(gen) -> dict:
+def scan_times_phase(gen, dev: dict) -> dict:
     phase("5b scan kernel times")
     out = {}
     B, S, H, dk = (WKV_SHAPE[k] for k in ("B", "S", "H", "dk"))
@@ -435,19 +498,36 @@ def scan_times_phase(gen) -> dict:
     nbytes = 4 * (2 * B * S * d + 2 * B * S * s + d * s + d + B * S * d
                   + (1 + nc) * B * d * s)
     flops = 7 * B * S * d * s + 3 * B * S * d   # dt*A, FMA x2, mul; dt*x, D*x FMA
+    n_exp = B * S * d * s
     out["mamba_scan"] = dict(ms=time_ms(lambda: ops.mamba_scan(*x), 20),
                              plain_ms=time_ms(lambda: ref.mamba_scan_ref(*x), 3),
                              library_ms=None)
     out["mamba_scan"] |= scan_bound(flops, nbytes)
-    print(f"mamba_scan (B={B}, S={S}, d={d}, s={s}): {flops:.4g} FLOP + "
-          f"{B * S * d * s:.4g} exp, {nbytes:.4g} B; bound "
-          f"{out['mamba_scan']['bound_ms']:.4f} ms ({out['mamba_scan']['bound_by']}); "
-          f"kernel {out['mamba_scan']['ms']:.4f} ms, plain "
-          f"{out['mamba_scan']['plain_ms']:.3f} ms; no single PyTorch call computes the scan")
+    # The MUFU time of this design (every exponential one MUFU.EX2): a design
+    # figure, not a bound, since a kernel may take part of the exponentials
+    # to the FMA pipes
+    mufu_ms = n_exp / (SMS * MUFU_EX2_PER_CLOCK * dev["sm_clock_hz"]) * 1e3
+    print(f"mamba_scan (B={B}, S={S}, d={d}, s={s}): {flops:.4g} FLOP + {n_exp:.4g} exp, "
+          f"{nbytes:.4g} B; bound {out['mamba_scan']['bound_ms']:.4f} ms "
+          f"({out['mamba_scan']['bound_by']}); the MUFU time of this design ({SMS} SMs x "
+          f"{MUFU_EX2_PER_CLOCK} MUFU.EX2 per clock x clocks.max.sm "
+          f"{dev['sm_clock_hz'] / 1e6:.0f} MHz) {mufu_ms:.4f} ms; kernel "
+          f"{out['mamba_scan']['ms']:.4f} ms, plain {out['mamba_scan']['plain_ms']:.3f} ms; "
+          f"no single PyTorch call computes the scan; on {dev['smi']}")
+    for name in ("wkv_scan", "mamba_scan"):
+        t = out[name]
+        print(f"{name}: {t['ms']:.4f} ms (previous design: {SCAN_BEFORE_MS[name]} ms, "
+              f"{SCAN_BEFORE_MS[name] / t['ms']:.2f}x), {t['bound_ms'] / t['ms']:.1%} of its "
+              f"bound; floor {SCAN_FLOOR_MS[name]} ms "
+              f"{'met' if t['ms'] <= SCAN_FLOOR_MS[name] else 'MISSED'}")
+        check(t["ms"] <= SCAN_FLOOR_MS[name],
+              f"{name} {t['ms']:.4f} ms misses its floor {SCAN_FLOOR_MS[name]} ms")
     return out
 
 
 def scan_bound(flops: float, nbytes: float) -> dict:
+    """The least time for the work: FP32 operations at the non-tensor peak
+    against the bytes at the HBM rate."""
     t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_HBM
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
@@ -807,7 +887,7 @@ def main() -> None:
              "staged": staged_phase(plan, A, B, C_ref),
              "partial": partial_phase(plan, A, B, C_ref)}
     times = times_phase(plan, A, B)
-    times |= scan_times_phase(gen)
+    times |= scan_times_phase(gen, dev)
     for name, path in paths.items():
         wall = path["walls"]
         print(f"request wall time ({name}, 8000^2, float64): first {wall[0]:.2f} ms, "

@@ -19,11 +19,14 @@ launches the kernel for CUDA tensors:
                   (partial stragglers); X never reaches device memory
                   (csrc/coded_decode.cu)
   wkv_scan      - the RWKV-6 WKV recurrence from a zero state (prefill),
-                  one block per (batch, head), the state in registers
+                  one block per (batch, head, 32 value columns), each
+                  column's rows split over lanes, the state in registers
                   (csrc/wkv_scan.cu)
   mamba_scan    - the Mamba selective scan from a zero state (prefill),
-                  one thread per channel, the state in registers
-                  (csrc/mamba_scan.cu)
+                  one thread per channel, the state in registers, one
+                  MUFU op per exponential (csrc/mamba_scan.cu)
+
+The two scans stage their inputs with cp.async (csrc/async_copy.cuh).
 
 The CUDA sources are built with nvcc at first use (``_build``); importing
 this package builds nothing.

@@ -12,30 +12,49 @@
 //
 // What bounds it on this card: at the LM's prefill shapes (B=4, S=1024,
 // d=16384, s=16) it reads dt and x (537 MB) and writes y and the chunk states
-// (302 MB), about 0.25 ms at the HBM rate, and it takes B*S*d*s = 1.07e9
-// exponentials, about as long again on the FP32 pipes (expf is a range
-// reduction around one MUFU.EX2).  The sequential walk over S is spread over
-// B*d = 65536 independent channels, enough threads to fill the card.
+// (302 MB), 0.25 ms at the HBM rate, and it takes B*S*d*s = 1.07e9
+// exponentials.  The exponential is the special-function unit's ex2 (MUFU.EX2),
+// 16 per clock per SM: 1.07e9 of them need 0.26 ms at the H100's 1.98 GHz
+// maximum SM clock.  Bytes and the MUFU rate bound it alike.
 //
 // Design.  The TPU kernel keeps a (d_blk, s) state tile in VMEM across a
 // sequential grid walk over sequence chunks; Hopper blocks run in no order, so
-// here each thread owns one channel, holds its s states and its row of A in
-// registers (s is a template parameter) and loops over t itself.  B_t and C_t
-// (s floats per step, shared by every channel of the batch row) are staged in
-// shared memory a tile of kTile steps at a time; the tile's dt and x, which
-// neighbouring threads read at neighbouring addresses, are loaded into
-// registers before the tile's steps run, so kTile loads are in flight at once
-// instead of one per step.  Channels past d (a ragged last block) only help
-// with the staging.  expf, not __expf: __expf (one MUFU.EX2 on a scaled
-// argument) was not tried in this version; the tests hold the kernel at 1e-4
-// against the plain version, which uses torch.exp.
+// each thread owns one channel, holds its s states in registers (s is a
+// template parameter) and loops over t itself.  B*d = 65536 channels fill the
+// card.
+//   - Each exponential is one MUFU op: log2(e) is folded into A once,
+//     A2 = -exp(A_log) log2(e), and a step's decay is ex2.approx.ftz(dt A2)
+//     (relative error about 2^-22; an accurate expf is a range reduction
+//     around the same MUFU op, some 8-10 instructions).  That leaves about
+//     five issue slots per state and step: the ex2, its argument, the two
+//     FMAs of the update and output, and dt x B's multiply.
+//   - B_t and C_t (s floats per step, shared by every channel of the batch
+//     row) are read as float4 broadcasts from shared memory.
+//   - Everything a tile of kTile steps reads (B, C, and the block's channels
+//     of dt and x, which neighbouring threads copy from neighbouring
+//     addresses) comes in with cp.async into one of two buffers while the
+//     block steps through the other, so the loads hide behind a tile of work
+//     and the registers hold only the state and A2; small blocks (kThreads)
+//     then keep many warps on each SM.
+// Channels past d (a ragged last block) step through a copy of the last
+// channel and store nothing.
 
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;  // channels per block
-constexpr int kTile = 16;      // time steps staged at once
+constexpr int kThreads = 64;   // channels per block
+constexpr int kTile = 16;      // time steps per staged tile (two in flight)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit: one MUFU.EX2.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 template <int NS>
 __global__ void __launch_bounds__(kThreads)
@@ -44,73 +63,100 @@ mamba_kernel(const float* __restrict__ dt, const float* __restrict__ x,
              const float* __restrict__ A_log, const float* __restrict__ Dp,
              float* __restrict__ y, float* __restrict__ h_fin,
              float* __restrict__ h_bounds, int S, int d, int chunk) {
-  __shared__ float b_s[kTile * NS];
-  __shared__ float c_s[kTile * NS];
+  static_assert(NS % 4 == 0, "float4 reads of B_t and C_t");
+  __shared__ __align__(16) float bc_s[2][2][kTile * NS];   // [buffer][B, C][step, n]
+  __shared__ float dx_s[2][2][kTile][kThreads];             // [buffer][dt, x][step, channel]
 
   const int b = blockIdx.y;
-  const int c = blockIdx.x * kThreads + threadIdx.x;
+  const int tid = threadIdx.x;
+  const int c = blockIdx.x * kThreads + tid;
   const bool active = c < d;
+  const int ch = active ? c : d - 1;   // channels past d step through a copy
   const int nc = S / chunk;
 
-  float A[NS], h[NS];
-  float Dc = 0.f;
+  float A2[NS], h[NS];
 #pragma unroll
   for (int n = 0; n < NS; ++n) {
-    A[n] = active ? -expf(A_log[static_cast<long long>(c) * NS + n]) : 0.f;
+    A2[n] = -expf(A_log[static_cast<long long>(ch) * NS + n]) * kLog2e;
     h[n] = 0.f;
   }
-  if (active) Dc = Dp[c];
+  const float Dc = Dp[ch];
+  const long long row0 = static_cast<long long>(b) * S;     // (b, t=0) row
 
-  for (int t0 = 0; t0 < S; t0 += kTile) {
+  // B_t and C_t of the tile (all threads), and this thread's channel of dt
+  // and x (read back by this thread only)
+  auto stage = [&](int t0, int buf) {
     const int steps = S - t0 < kTile ? S - t0 : kTile;
-    __syncthreads();   // the previous tile is consumed
-    const long long bc_base = (static_cast<long long>(b) * S + t0) * NS;
-    for (int e = threadIdx.x; e < steps * NS; e += kThreads) {
-      b_s[e] = Bm[bc_base + e];
-      c_s[e] = Cm[bc_base + e];
+    const long long off = (row0 + t0) * NS;
+    for (int e = tid; e < steps * NS; e += kThreads) {
+      async_copy::copy<4>(&bc_s[buf][0][e], Bm + off + e);
+      async_copy::copy<4>(&bc_s[buf][1][e], Cm + off + e);
     }
-    float dt_r[kTile], x_r[kTile];
-    const long long base = (static_cast<long long>(b) * S + t0) * d + c;
-#pragma unroll
-    for (int tt = 0; tt < kTile; ++tt) {
-      const bool ok = active && tt < steps;
-      dt_r[tt] = ok ? dt[base + static_cast<long long>(tt) * d] : 0.f;
-      x_r[tt] = ok ? x[base + static_cast<long long>(tt) * d] : 0.f;
+    const long long at = (row0 + t0) * d + ch;
+    for (int tt = 0; tt < steps; ++tt) {
+      async_copy::copy<4>(&dx_s[buf][0][tt][tid], dt + at + static_cast<long long>(tt) * d);
+      async_copy::copy<4>(&dx_s[buf][1][tt][tid], x + at + static_cast<long long>(tt) * d);
     }
-    __syncthreads();
-    if (!active) continue;
-#pragma unroll
-    for (int tt = 0; tt < kTile; ++tt) {
-      if (tt >= steps) continue;   // a constant index after unrolling
-      const int t = t0 + tt;
-      if (t % chunk == 0) {
-        float4* dst = reinterpret_cast<float4*>(
-            h_bounds + ((static_cast<long long>(b) * nc + t / chunk) * d + c) * NS);
-#pragma unroll
-        for (int q = 0; q < NS / 4; ++q) {
-          dst[q] = make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
-        }
-      }
-      const float dtv = dt_r[tt];
-      const float dtx = dtv * x_r[tt];
-      float acc = 0.f;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const float a = expf(dtv * A[n]);
-        h[n] = fmaf(a, h[n], dtx * b_s[tt * NS + n]);
-        acc = fmaf(h[n], c_s[tt * NS + n], acc);
-      }
-      y[base + static_cast<long long>(tt) * d] = fmaf(Dc, x_r[tt], acc);
-    }
-  }
-  if (active) {
-    float4* dst = reinterpret_cast<float4*>(
-        h_fin + (static_cast<long long>(b) * d + c) * NS);
+    async_copy::commit();
+  };
+  auto store_state = [&](float* dst) {
+    float4* d4 = reinterpret_cast<float4*>(dst + static_cast<long long>(c) * NS);
 #pragma unroll
     for (int q = 0; q < NS / 4; ++q) {
-      dst[q] = make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
+      d4[q] = make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
     }
+  };
+
+  const int ntiles = (S + kTile - 1) / kTile;
+  int next_bound = 0, bound = 0;     // the next chunk entry and its index
+  stage(0, 0);
+  for (int n = 0; n < ntiles; ++n) {
+    const int t0 = n * kTile;
+    const int buf = n & 1;
+    const int steps = S - t0 < kTile ? S - t0 : kTile;
+    if (n + 1 < ntiles) {
+      stage(t0 + kTile, buf ^ 1);    // that buffer was consumed in tile n - 1
+    } else {
+      async_copy::commit();          // an empty group: tile n is then the older one
+    }
+    async_copy::wait<1>();
+    __syncthreads();                 // tile n visible to every thread
+
+    const float4* b4 = reinterpret_cast<const float4*>(&bc_s[buf][0][0]);
+    const float4* c4 = reinterpret_cast<const float4*>(&bc_s[buf][1][0]);
+#pragma unroll 4
+    for (int tt = 0; tt < steps; ++tt) {
+      const int t = t0 + tt;
+      if (t == next_bound) {
+        if (active) store_state(h_bounds + (static_cast<long long>(b) * nc + bound) * d * NS);
+        next_bound += chunk;
+        ++bound;
+      }
+      const float dtv = dx_s[buf][0][tt][tid];
+      const float xv = dx_s[buf][1][tt][tid];
+      const float dtx = dtv * xv;
+      float acc0 = 0.f, acc1 = 0.f;
+#pragma unroll
+      for (int q = 0; q < NS / 4; ++q) {
+        const float4 bq = b4[tt * (NS / 4) + q], cq = c4[tt * (NS / 4) + q];
+        const float bx[4] = {bq.x, bq.y, bq.z, bq.w};
+        const float cx[4] = {cq.x, cq.y, cq.z, cq.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * q + e;
+          h[i] = fmaf(ex2(dtv * A2[i]), h[i], dtx * bx[e]);
+          if (e & 1) {
+            acc1 = fmaf(h[i], cx[e], acc1);
+          } else {
+            acc0 = fmaf(h[i], cx[e], acc0);
+          }
+        }
+      }
+      if (active) y[(row0 + t) * d + c] = fmaf(Dc, xv, acc0 + acc1);
+    }
+    __syncthreads();                 // buffer `buf` consumed
   }
+  if (active) store_state(h_fin + static_cast<long long>(b) * d * NS);
 }
 
 template <int NS>

@@ -9,15 +9,19 @@ with A = -exp(A_log), returning y, the final state and the state at every
 chunk entry (``csrc/mamba_scan.cu``).
 
 What bounds it on the card: at the Jamba prefill (B=4, S=1024, d=16384,
-s=16) the 0.84 GB it moves need about 0.25 ms and its 1.07e9 exponentials
-about as long.  The kernel gives each channel one thread, its states and its
-row of A in registers, stages B_t and C_t in shared memory a tile of steps at
-a time and loads the tile's dt and x (coalesced across channels) into
-registers before stepping through it.
+s=16) the 0.84 GB it moves need 0.25 ms at the HBM rate, and its 1.07e9
+exponentials 0.26 ms on the special-function unit (MUFU.EX2, 16 per clock
+per SM at the 1.98 GHz maximum SM clock).  The kernel gives each channel
+one thread with its states in registers and takes each exponential as one
+``ex2.approx`` on ``dt * A2``, log2(e) folded into ``A2 = -exp(A_log)
+log2(e)`` once.  B_t and C_t are read as float4 broadcasts from shared
+memory; they and the block's channels of dt and x come in with
+``cp.async``, double-buffered, while the block steps through the previous
+tile, so the loads hide behind a tile of work.
 
 The reference picks a channel block (``d_blk``, 256 halved until it divides
 d) for its VMEM tiles; the outputs do not depend on it, and the CUDA kernel
-blocks channels by 128 threads and masks a ragged last block instead.
+blocks channels by 64 threads and masks a ragged last block instead.
 
 :func:`mamba_scan_ref` (from ``ref``) is the plain version; the wrapper
 ``ops.mamba_scan`` runs it for CPU tensors and launches the kernel for CUDA

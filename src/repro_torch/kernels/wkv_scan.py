@@ -10,10 +10,18 @@ returning y, the final state and the state at every chunk entry
 
 What bounds it on the card: at the RWKV-6 3B prefill (B=4, S=1024, H=48,
 dk=dv=64) bytes and FP32 operations each need about 0.09 ms, but the
-recurrence is sequential in S and B*H = 192 (batch, head) pairs fill the
-card only thinly; the kernel gives each pair one block, each value column
-one thread with its state column in registers, and stages w, k, r, v in
-shared memory a tile of steps at a time.
+recurrence is sequential in S, so a kernel is held by one step's latency
+times S unless enough warps run beside it, and then by the shared-memory
+traffic of feeding w_t, k_t and r_t to every thread.  The columns of the
+state are independent: a block owns one (batch, head, group of 32
+value columns), splits each column's dk rows over up to 8 threads and
+gives each thread those rows of 2 columns (the geometry is
+``csrc/wkv_scan.cu``'s own), so the prefill runs 1,536 warps, a thread's
+state update is one FMA per row and column, and one shared-memory read of
+w_t, k_t, r_t serves two columns.  y_t is summed across the lanes once per
+tile from partial sums in shared memory, off the recurrence's path.  Tiles
+of w, k, r and v come in with ``cp.async``, double-buffered, 16 bytes at a
+time where every pointer allows it (:func:`copy_elems`).
 
 :func:`wkv_scan_ref` (from ``ref``) is the plain version; the wrapper
 ``ops.wkv_scan`` runs it for CPU tensors and launches the kernel for CUDA
@@ -28,19 +36,26 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import scan_chunk, wkv_scan_ref
 
-__all__ = ["wkv_scan_cuda", "wkv_scan_ref", "DK_SUPPORTED", "MAX_DV"]
+__all__ = ["wkv_scan_cuda", "wkv_scan_ref", "copy_elems", "DK_SUPPORTED", "MAX_DV"]
 
 DK_SUPPORTED = (8, 16, 32, 64)   # template instances in csrc/wkv_scan.cu
-MAX_DV = 128                     # kMaxDv: one thread per value column
+MAX_DV = 128                     # kMaxDv
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _function():
     fn = _build.load("wkv_scan").repro_wkv_scan_f32
-    fn.argtypes = [_P] * 8 + [_I] * 6 + [_P]
+    fn.argtypes = [_P] * 8 + [_I] * 7 + [_P]
     fn.restype = _I
     return fn
+
+
+def copy_elems(dv: int, *addresses: int) -> int:
+    """Floats per ``cp.async`` copy: 4 (16 bytes) where every input address
+    is a 16-byte multiple and dv a multiple of 4 (dk always is), so every
+    staged row starts 16-byte aligned; else 1."""
+    return 4 if dv % 4 == 0 and all(a % 16 == 0 for a in addresses) else 1
 
 
 def wkv_scan_cuda(w: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -70,6 +85,7 @@ def wkv_scan_cuda(w: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{MAX_DV} and S >= 1, got dk={dk}, dv={dv}, S={S}")
     chunk = scan_chunk(S, chunk)
     w, k, v, r, u = (t.contiguous() for t in tensors)
+    vec = copy_elems(dv, *(t.data_ptr() for t in (w, k, v, r)))
     y = torch.empty((B, S, H, dv), dtype=torch.float32, device=k.device)
     s_fin = torch.empty((B, H, dk, dv), dtype=torch.float32, device=k.device)
     s_bounds = torch.empty((B, S // chunk, H, dk, dv), dtype=torch.float32,
@@ -77,7 +93,7 @@ def wkv_scan_cuda(w: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(k.device).cuda_stream
     err = _function()(w.data_ptr(), k.data_ptr(), v.data_ptr(), r.data_ptr(),
                       u.data_ptr(), y.data_ptr(), s_fin.data_ptr(),
-                      s_bounds.data_ptr(), B, S, H, dk, dv, chunk, stream)
+                      s_bounds.data_ptr(), B, S, H, dk, dv, chunk, vec, stream)
     if err != 0:
         raise RuntimeError(f"wkv_scan kernel launch failed: cudaError {err}")
     return y, s_fin, s_bounds

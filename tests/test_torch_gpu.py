@@ -16,7 +16,7 @@ import dataclasses
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import make_plan
 from repro_torch.core.partition import block_decompose
-from repro_torch.kernels import coded_fused, ops, ref
+from repro_torch.kernels import coded_fused, ops, ref, wkv_scan
 from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.runtime import CodedMatmul
 
@@ -358,6 +358,20 @@ def _close(out, exp, tol=1e-4):
     (1, 37, 2, 64, 64, 64),       # S odd: chunk 1, 37 chunk states
     (2, 130, 5, 64, 64, 64),
     (1, 33, 2, 32, 40, 16),       # dv off the warp, dv != dk
+    # ragged column groups (32 columns a block): the last group 8, 8, 32 wide
+    (2, 70, 3, 64, 40, 64),
+    (1, 50, 2, 64, 72, 16),
+    (2, 40, 2, 64, 128, 8),
+    # every dk with its lane count (2 lanes at dk=8, 4 at 16, 8 above), dv = dk
+    (2, 50, 3, 8, 8, 64),
+    (2, 50, 3, 16, 16, 64),
+    (2, 50, 3, 32, 32, 64),
+    (1, 50, 2, 32, 100, 64),      # dv off 32 and off 4: one-float copies
+    # S shorter than one 16-step tile, and chunk 1 (S odd)
+    (2, 5, 3, 64, 64, 64),
+    (1, 16, 2, 16, 16, 64),       # exactly one tile
+    (2, 7, 2, 64, 40, 64),        # chunk 1, ragged group, one short tile
+    (1, 33, 3, 8, 24, 1),         # chunk 1 asked for
 ])
 def test_wkv_kernel_matches_plain(cuda, B, S, H, dk, dv, chunk):
     gen = torch.Generator().manual_seed(12)
@@ -373,20 +387,61 @@ def test_wkv_kernel_matches_plain(cuda, B, S, H, dk, dv, chunk):
     assert ops.launch_counts() == dict(_NONE, wkv_scan=1)
 
 
-@pytest.mark.parametrize("B,S,d,s,chunk", [
-    (2, 64, 32, 8, 16),
-    (1, 128, 16, 4, 32),
-    (3, 48, 24, 16, 16),
-    (2, 100, 300, 16, 128),       # chunk halved to 4, d off the 128-thread block
-    (1, 37, 130, 32, 128),        # S odd: chunk 1
+def test_wkv_kernel_one_float_copies_on_unaligned_inputs(cuda):
+    """Inputs that start 4 bytes past a 16-byte boundary take the one-float
+    copies and give exactly what the same values 16-byte aligned give."""
+    def off_by_one_float(x):
+        view = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+        return view.copy_(x)
+
+    gen = torch.Generator().manual_seed(15)
+    B, S, H, dk = 2, 40, 3, 64
+    w = torch.exp(-torch.exp(torch.randn((B, S, H, dk), generator=gen))).to(cuda)
+    k, v, r = (torch.randn((B, S, H, dk), generator=gen).to(cuda) for _ in range(3))
+    u = torch.randn((H, dk), generator=gen).to(cuda)
+    shifted = [off_by_one_float(t) for t in (w, k, v, r)]
+    assert wkv_scan.copy_elems(dk, *(t.data_ptr() for t in shifted)) == 1
+    assert wkv_scan.copy_elems(dk, *(t.data_ptr() for t in (w, k, v, r))) == 4
+    out = ops.wkv_scan(*shifted, u)
+    aligned = ops.wkv_scan(w, k, v, r, u)
+    exp = ref.wkv_scan_ref(w, k, v, r, u)
+    torch.cuda.synchronize()
+    for o, a, e in zip(out, aligned, exp):
+        _close(o, e)
+        assert torch.equal(o, a)
+
+
+@pytest.mark.parametrize("B,S,d,s,chunk,init", [
+    (2, 64, 32, 8, 16, "random"),
+    (1, 128, 16, 4, 32, "random"),
+    (3, 48, 24, 16, 16, "random"),
+    (2, 100, 300, 16, 128, "random"),   # chunk halved to 4, d off the 64-thread block
+    (1, 37, 130, 32, 128, "random"),    # S odd: chunk 1
+    (2, 5, 200, 16, 128, "random"),     # S shorter than one 16-step tile, chunk 5
+    (1, 16, 128, 8, 128, "random"),     # exactly one tile
+    (2, 33, 64, 4, 1, "random"),        # chunk 1 asked for, a short last tile
+    (2, 1024, 256, 16, 128, "jamba_init"),
 ])
-def test_mamba_kernel_matches_plain(cuda, B, S, d, s, chunk):
-    gen = torch.Generator().manual_seed(13)
-    dt = torch.nn.functional.softplus(torch.randn((B, S, d), generator=gen)).to(cuda)
-    x = torch.randn((B, S, d), generator=gen).to(cuda)
-    Bm, Cm = (torch.randn((B, S, s), generator=gen).to(cuda) for _ in range(2))
-    A_log = (torch.rand((d, s), generator=gen) * 0.9 + 0.1).to(cuda)
-    D = torch.randn((d,), generator=gen).to(cuda)
+def test_mamba_kernel_matches_plain(cuda, B, S, d, s, chunk, init):
+    """``jamba_init`` is the long-memory regime of the Jamba initialisation
+    (models/mamba.py): dt = softplus(about -4.6), so dt is near 0.01, and
+    A_log = log(1..16), so each step's decay is 0.84-0.99 and the state
+    remembers about 100 steps; the one-MUFU exponentials must still hold
+    1e-4 over 1024 steps."""
+    gen = torch.Generator().manual_seed(13 if init == "random" else 16)
+    if init == "random":
+        dt = torch.nn.functional.softplus(torch.randn((B, S, d), generator=gen))
+    else:
+        dt = torch.nn.functional.softplus(0.5 * torch.randn((B, S, d), generator=gen) - 4.6)
+    x = torch.randn((B, S, d), generator=gen)
+    Bm, Cm = (torch.randn((B, S, s), generator=gen) for _ in range(2))
+    if init == "random":
+        A_log = torch.rand((d, s), generator=gen) * 0.9 + 0.1
+        D = torch.randn((d,), generator=gen)
+    else:
+        A_log = torch.log(torch.arange(1, s + 1, dtype=torch.float32)).expand(d, s)
+        D = torch.ones((d,))
+    dt, x, Bm, Cm, A_log, D = (t.to(cuda) for t in (dt, x, Bm, Cm, A_log, D))
     out = ops.mamba_scan(dt, x, Bm, Cm, A_log, D, chunk=chunk)
     exp = ref.mamba_scan_ref(dt, x, Bm, Cm, A_log, D, chunk)
     torch.cuda.synchronize()

@@ -425,6 +425,17 @@ def test_scan_launchers_validate_before_building():
     assert {"wkv_scan", "mamba_scan"} <= set(_build.SOURCES)
 
 
+@pytest.mark.parametrize("dv,addresses,elems", [
+    (64, (_BASE, _BASE + 256, _BASE + 512, _BASE + 768), 4),
+    (40, (_BASE,) * 4, 4),
+    (37, (_BASE,) * 4, 1),        # v rows off 16 bytes
+    (64, (_BASE, _BASE + 4, _BASE, _BASE), 1),   # one input 4 bytes off
+    (64, (_BASE + 8,) * 4, 1),
+])
+def test_wkv_copy_elems_picks_16_byte_copies_only_when_aligned(dv, addresses, elems):
+    assert wkv_scan.copy_elems(dv, *addresses) == elems
+
+
 def test_build_is_lazy_and_keyed_by_source():
     """Nothing is loaded on the CPU path; each library's name hashes its
     source and flags, inside the repository's build directory."""
