@@ -14,12 +14,16 @@ Phases, each raising on failure:
              instructions in every float64 kernel behind
              ``repro_fused_worker_f64`` and ``repro_matmul_t_f64``; the scan
              kernels' registers and spills are printed, and the selective
-             scan's SASS must hold MUFU.EX2 (its one-op exponentials);
+             scan's SASS must hold MUFU.EX2 (its one-op exponentials); the
+             per-chunk decode's (kernel 3) registers and spills are printed,
+             and its float64 bulk-copy instances must hold UBLKCP;
 3. kernels - each kernel against its plain PyTorch version on the card, at a
              ragged small shape and at the main path's shapes; kernels 1 and
              5 also with K=1 and with a row stride that is (16-byte copies)
              and is not (one-element copies) 16-byte aligned, integer inputs
-             exactly and random ones to a tolerance;
+             exactly and random ones to a tolerance; kernel 3 in both copy
+             forms (bulk copies on aligned chunk bounds, one-element
+             loads on odd ones), exactly;
 4. main    - ``CodedMatmul(plan)`` on the default "fused" backend serves
              requests at the paper's geometry (bec p=m=n=2, K=10,
              equispaced points, v=r=t=8000, float64, entries in {0..15})
@@ -38,6 +42,10 @@ Phases, each raising on failure:
              shapes, beside the least time the card could take; kernels 1
              and 5 also as TFLOP/s and share of the FP64 tensor peak, and
              the encode's share of kernel 1 (kernel 1 - K x kernel 5);
+             kernel 3 also as GB/s and share of its bound, against its floor
+             (the run fails above it), at Q=1 beside kernel 2 on the
+             same Y, and its 16-row instance (mn 16, 20 and 24; K 10 and
+             40) exactly against the plain version and timed;
 6. rwkv    - LM serving: RWKV-6 3B whole (``configs/rwkv6_3b.py``, bf16,
              random weights from the seed) with the WKV kernel, 4 prompts of
              1024 tokens then 16 greedy tokens; prefill logits against the
@@ -80,7 +88,7 @@ import re  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import bounds, make_plan  # noqa: E402
 from repro_torch.core.partition import block_decompose  # noqa: E402
-from repro_torch.kernels import _build, coded_fused, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, coded_decode, coded_fused, ops, ref  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.runtime import CodedMatmul, PartialPattern, chunk_bounds  # noqa: E402
@@ -110,6 +118,11 @@ TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 # kernels they replaced (8.986 and 202.12 ms on an H100 80GB HBM3 at
 # 700 W), printed beside the phase-5 times
 FLOOR_MS = {"matmul_t": 4.5, "fused_worker": 101.0}
+# Kernel 3 at Q=4, K=10, E=16e6 float64 (bounds form): 67% of its 0.535 ms
+# bytes bound; the design before its redesign took 1.092 ms (this script on
+# an H100 80GB HBM3 at 700 W).  Missing it fails the run.
+FLOOR_MS["decode_partial"] = 0.80
+DECODE_PARTIAL_BEFORE_MS = 1.092
 # The scan kernels at the LM prefill shapes: the previous design's times (WKV
 # a block per (batch, head) and a thread per value column, the scan an
 # accurate expf per state; this script on an H100 80GB HBM3 at 700 W) and
@@ -221,14 +234,27 @@ def build_phase() -> None:
            for section in _build.sass("mamba_scan").split("Function : ")[1:]}
     print(f"mamba_scan: MUFU.EX2 instructions per kernel {ex2}")
     check(len(ex2) == 4 and all(ex2.values()), f"mamba_scan: a kernel without MUFU.EX2: {ex2}")
+    # kernel 3's bulk-copy form must copy through the bulk-copy engine
+    print(f"coded_decode: {ptxas_summary(logs['coded_decode']) or 'built before this run'}")
+    blk = {kernel_name(head): section.count("UBLKCP")
+           for section in _build.sass("coded_decode").split("Function : ")[1:]
+           if "decode_partial" in (head := section.split("\n", 1)[0])}
+    print(f"coded_decode: UBLKCP (bulk copy) instructions per kernel 3 instance {blk}")
+    f64_bulk = [n for k, n in blk.items() if k.startswith("decode_partial_kernel<double, bulk")]
+    check(len(f64_bulk) == 2 and all(f64_bulk),
+          f"coded_decode: a float64 bulk instance without UBLKCP: {blk}")
 
 
 def kernel_name(mangled: str) -> str:
-    """The "name<template ints>" of a mangled kernel template instance."""
+    """The "name<template args>" of a mangled kernel template instance: a
+    leading float type, then bools (kernel 3's copy form) and ints."""
     m = re.search(r"\d+([a-z_]+_kernel)I(\S+)", mangled)
     if not m:
         return mangled.strip()
-    return f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+    args = [{"d": "double", "f": "float"}[m.group(2)[0]]] if m.group(2)[0] in "df" else []
+    args += [("bulk" if b == "1" else "element") if b else i
+             for b, i in re.findall(r"Lb([01])E|Li(\d+)E", m.group(2))]
+    return f"{m.group(1)}<{', '.join(args)}>"
 
 
 def ptxas_summary(log: str) -> str:
@@ -391,23 +417,35 @@ def kernels_phase(plan, A, B, gen) -> dict:
         errs["decode"] = max(err, errs.get("decode", 0.0))
     del Yf
     # decode_partial: the same products erased chunk by chunk under a real
-    # progress pattern, as the runtime holds them (Y (K, E), chunks of rows)
+    # progress pattern, as the runtime holds them (Y (K, E), chunks of rows:
+    # aligned bounds, the bulk-copy form); then erased by column chunks whose
+    # bounds are odd (the one-element form)
     pat = PartialPattern.from_progress(K, Q_SUB, np.asarray(PROGRESS[1]) / Q_SUB)
     cmask = torch.as_tensor(pat.chunk_masks, device="cuda")
-    rows = chunk_bounds(Y.shape[1], Q_SUB)
-    for q in range(Q_SUB):
-        Y[:, rows[q]:rows[q + 1], :].mul_(cmask[q][:, None, None])
-    cols = [b * Y.shape[2] for b in rows]
     W_stack = torch.as_tensor(plan.make_panel_cache().get_partial(pat.chunk_masks),
                               device="cuda")
-    Yf = Y.reshape(K, -1)
-    for extract in (True, False):
-        err = check_exact(f"decode_partial float64 extract={extract} Q={Q_SUB} "
-                          f"{tuple(W_stack.shape)} x",
-                          ops.decode_partial(W_stack, Yf, plan.s, extract=extract,
-                                             bounds=cols),
-                          ref.decode_partial_ref(W_stack, Yf, plan.s, extract, cols))
-        errs["decode_partial"] = max(err, errs.get("decode_partial", 0.0))
+    rows = chunk_bounds(Y.shape[1], Q_SUB)
+    aligned = [b * Y.shape[2] for b in rows]
+    odd = [0, *(b + 2 * q + 1 for q, b in enumerate(aligned[1:-1])), aligned[-1]]
+    Y = Y.reshape(K, -1)
+    for label, cols in (("aligned", aligned), ("odd", odd)):
+        Yc = Y.clone()
+        for q in range(Q_SUB):
+            Yc[:, cols[q]:cols[q + 1]].mul_(cmask[q][:, None])
+        widths = [b1 - b0 for b0, b1 in zip(cols, cols[1:])]
+        form = ("bulk-copy" if coded_decode.bulk_copies(8, (Yc.data_ptr(),), cols[:-1],
+                                                        (Yc.shape[1],), widths)
+                else "one-element")
+        check(form == ("bulk-copy" if label == "aligned" else "one-element"),
+              f"decode_partial {label} bounds take the {form} form")
+        for extract in (True, False):
+            err = check_exact(f"decode_partial float64 {label} bounds {cols} ({form} form) "
+                              f"extract={extract} Q={Q_SUB} {tuple(W_stack.shape)} x",
+                              ops.decode_partial(W_stack, Yc, plan.s, extract=extract,
+                                                 bounds=cols),
+                              ref.decode_partial_ref(W_stack, Yc, plan.s, extract, cols))
+            errs["decode_partial"] = max(err, errs.get("decode_partial", 0.0))
+        del Yc
     return errs
 
 
@@ -747,7 +785,7 @@ def partial_phase(plan, A, B, C_ref) -> dict:
     return out
 
 
-def times_phase(plan, A, B) -> dict:
+def times_phase(plan, A, B, smi: str) -> dict:
     phase("5 times")
     ca, cb, a4, b4 = fused_inputs(plan, A, B, torch.float64)
     K, P, Q = plan.K, ca.shape[1], cb.shape[1]
@@ -776,7 +814,7 @@ def times_phase(plan, A, B) -> dict:
           f"{fused['bound_ms']:.3f} ms at FP64 tensor peak "
           f"({flops / PEAK_FP64_VECTOR * 1e3:.3f} ms at FP64 vector peak); "
           f"kernel {fused['ms']:.3f} ms, plain {fused['plain_ms']:.3f} ms, "
-          f"einsum+bmm {fused['library_ms']:.3f} ms")
+          f"einsum+bmm {fused['library_ms']:.3f} ms; on {smi}")
     tensor_rate("fused_worker", flops, fused)
 
     # encode: the kernel reads the strided block view; the plain version and
@@ -792,7 +830,7 @@ def times_phase(plan, A, B) -> dict:
     enc |= bound(flops, nbytes, "bytes")
     print(f"encode: {flops:.4g} FLOP, {nbytes:.4g} B; bound {enc['bound_ms']:.3f} ms at "
           f"HBM peak; kernel {enc['ms']:.3f} ms ({nbytes / enc['ms'] / 1e6:.1f} GB/s), "
-          f"plain {enc['plain_ms']:.3f} ms, torch.matmul {enc['library_ms']:.3f} ms")
+          f"plain {enc['plain_ms']:.3f} ms, torch.matmul {enc['library_ms']:.3f} ms; on {smi}")
     del stack
 
     at, bt = ops.encode(ca, a4), ops.encode(cb, b4)
@@ -806,12 +844,12 @@ def times_phase(plan, A, B) -> dict:
     print(f"matmul_t: {flops:.4g} FLOP, {nbytes:.4g} B; bound {mm['bound_ms']:.3f} ms at "
           f"FP64 tensor peak ({flops / PEAK_FP64_VECTOR * 1e3:.3f} ms at FP64 vector "
           f"peak); kernel {mm['ms']:.3f} ms, plain {mm['plain_ms']:.3f} ms (A.T @ B: the "
-          f"plain version is the library call), A.T @ B {mm['library_ms']:.3f} ms")
+          f"plain version is the library call), A.T @ B {mm['library_ms']:.3f} ms; on {smi}")
     tensor_rate("matmul_t", flops, mm)
     encode_ms = fused["ms"] - K * mm["ms"]
     print(f"encode inside fused_worker: kernel 1 - K x kernel 5 = {fused['ms']:.3f} - "
           f"{K} x {mm['ms']:.3f} = {encode_ms:.3f} ms ({encode_ms / fused['ms']:.1%} of "
-          f"kernel 1)")
+          f"kernel 1); on {smi}")
     del at, bt, a1, b1
 
     Y = ops.fused_worker(ca, cb, a4, b4).reshape(K, -1)
@@ -832,7 +870,7 @@ def times_phase(plan, A, B) -> dict:
     print(f"decode: {flops:.4g} FLOP, {nbytes:.4g} B; bound {dec['bound_ms']:.3f} ms "
           f"at HBM peak; kernel {dec['ms']:.3f} ms ({nbytes / dec['ms'] / 1e6:.1f} "
           f"GB/s), plain {dec['plain_ms']:.3f} ms, matmul+extract "
-          f"{dec['library_ms']:.3f} ms")
+          f"{dec['library_ms']:.3f} ms; on {smi}")
 
     pat = PartialPattern.from_progress(K, Q_SUB, np.asarray(PROGRESS[0]) / Q_SUB)
     W_stack = torch.as_tensor(plan.make_panel_cache().get_partial(pat.chunk_masks),
@@ -849,10 +887,46 @@ def times_phase(plan, A, B) -> dict:
         library_ms=time_ms(library_partial, 20))
     flops, nbytes = 2 * mn * K * E, 8 * (K * E + Q_SUB * mn * K + mn * E)
     part |= bound(flops, nbytes, "bytes")
-    print(f"decode_partial (Q={Q_SUB}): {flops:.4g} FLOP, {nbytes:.4g} B; bound "
-          f"{part['bound_ms']:.3f} ms at HBM peak; kernel {part['ms']:.3f} ms "
-          f"({nbytes / part['ms'] / 1e6:.1f} GB/s), plain {part['plain_ms']:.3f} ms, "
-          f"per-chunk matmul+extract {part['library_ms']:.3f} ms")
+    floor = FLOOR_MS["decode_partial"]
+    print(f"decode_partial (Q={Q_SUB}, bounds {cols}): {flops:.4g} FLOP, {nbytes:.4g} B; "
+          f"bound {part['bound_ms']:.4f} ms at HBM peak; kernel {part['ms']:.4f} ms "
+          f"({nbytes / part['ms'] / 1e6:.1f} GB/s, {part['bound_ms'] / part['ms']:.1%} of "
+          f"the bound; previous design {DECODE_PARTIAL_BEFORE_MS} ms, "
+          f"{DECODE_PARTIAL_BEFORE_MS / part['ms']:.2f}x), plain {part['plain_ms']:.3f} ms, "
+          f"per-chunk matmul+extract {part['library_ms']:.3f} ms; floor {floor} ms "
+          f"{'met' if part['ms'] <= floor else 'MISSED'}; on {smi}")
+    check(part["ms"] <= floor, f"decode_partial {part['ms']:.4f} ms misses its floor {floor} ms")
+    # kernel 3 with one chunk over the whole of Y beside kernel 2 on the same
+    # Y and panel, in turns
+    k2a = time_ms(lambda: ops.decode(W, Y, s), 20)
+    q1 = [time_ms(lambda: ops.decode_partial(W[None], Y, s, bounds=[0, E]), 20)
+          for _ in range(2)]
+    k2b = time_ms(lambda: ops.decode(W, Y, s), 20)
+    q1_ms, k2_ms = sum(q1) / 2, (k2a + k2b) / 2
+    print(f"same Y (K={K}, E={E}), same panel: kernel 3 at Q=1 {q1[0]:.4f} / {q1[1]:.4f} ms "
+          f"({nbytes / q1_ms / 1e6:.1f} GB/s), kernel 2 {k2a:.4f} / {k2b:.4f} ms "
+          f"({nbytes / k2_ms / 1e6:.1f} GB/s); on {smi}")
+    check(q1_ms <= k2_ms, f"kernel 3 at Q=1 ({q1_ms:.4f} ms) slower than kernel 2 "
+          f"({k2_ms:.4f} ms) on the same Y")
+    # kernel 3's 16-row instance, which the main path (mn = 4) does not
+    # reach: one register pass (mn = 16), two over a tile's K rows resident
+    # in shared memory (mn = 20), and two that copy their row groups again
+    # (mn = 24, K = 40: too many rows to stay resident)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    Ex = 4_000_000
+    bx = [q * Ex // Q_SUB for q in range(Q_SUB + 1)]
+    for mn_x, K_x in ((16, 10), (20, 10), (24, 40)):
+        Yx = torch.randint(-40, 41, (K_x, Ex), generator=gen, device="cuda").double()
+        Wx = torch.randint(-2, 3, (Q_SUB, mn_x, K_x), generator=gen, device="cuda").double()
+        label = f"decode_partial mn={mn_x} K={K_x} (Q={Q_SUB}, E={Ex}, float64)"
+        check_exact(label, ops.decode_partial(Wx, Yx, s, bounds=bx),
+                    ref.decode_partial_ref(Wx, Yx, s, True, bx))
+        ms = time_ms(lambda: ops.decode_partial(Wx, Yx, s, bounds=bx), 20)
+        nb = 8 * (K_x * Ex + Q_SUB * mn_x * K_x + mn_x * Ex)
+        print(f"{label}: kernel {ms:.4f} ms ({nb / ms / 1e6:.1f} GB/s, "
+              f"{nb / PEAK_HBM * 1e3 / ms:.1%} of its {nb / PEAK_HBM * 1e3:.4f} ms "
+              f"bytes bound); on {smi}")
+    del Yx, Wx
     return {"fused_worker": fused, "decode": dec, "encode": enc, "matmul_t": mm,
             "decode_partial": part}
 
@@ -886,7 +960,7 @@ def main() -> None:
     paths = {"fused": main_phase(plan, A, B, C_ref),
              "staged": staged_phase(plan, A, B, C_ref),
              "partial": partial_phase(plan, A, B, C_ref)}
-    times = times_phase(plan, A, B)
+    times = times_phase(plan, A, B, dev["smi"])
     times |= scan_times_phase(gen, dev)
     for name, path in paths.items():
         wall = path["walls"]

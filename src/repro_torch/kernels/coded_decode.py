@@ -10,13 +10,23 @@ decode per output-row chunk with chunk q's panel, in one launch for all
 chunks, on Y as the runtime holds it (chunks of unequal width) or on the
 reference package's equal-width (Q, K, Ec) stack.
 
-What bounds it on the card: device-memory bytes.  At the paper's geometry
-it reads Y (K=10, E=16e6 float64, 1.28 GB) once and writes C (mn=4, 0.51 GB)
-once for only 2*mn*K operations per column.  The kernels stream Y with
-coalesced loads, keep the panel in shared memory and the mn sums in
-registers, so X never reaches device memory.  Panels, s and the extract
-flag are runtime arguments: a new erasure or progress pattern never
-rebuilds anything.
+What bounds both on the card: device-memory bytes.  At the paper's geometry
+they read Y (K=10, E=16e6 float64, 1.28 GB) once and write C (mn=4,
+0.51 GB) once for only 2*mn*K operations per column; every row of Y is
+read, also one whose panel column is 0, so a NaN there reaches C as in the
+reference.  Both keep the panel in shared memory and the mn sums in
+registers, so X never reaches device memory.  The decode kernel streams Y
+with coalesced loads, a thread a column.  The per-chunk kernel keeps more
+bytes in flight: persistent blocks walk one flat list of column tiles over
+all chunks, and one thread per block feeds a ring of shared-memory stages
+with bulk copies (``cp.async.bulk`` on an mbarrier), which the block reads
+16 bytes a thread and turns into 16-byte streaming stores of C.  That form
+needs 16-byte aligned addresses and sizes (:func:`bulk_copies` decides it
+per launch); otherwise the same tiles and sums run on one-element loads and
+stores.  Every output element is the decode kernel's chain of FMAs over k
+ascending, so a chunk decodes bit for bit as the decode kernel would.
+Panels, s and the extract flag are runtime arguments: a new erasure or
+progress pattern never rebuilds anything.
 
 :func:`decode_ref` and :func:`decode_partial_ref` (from ``ref``) are the
 plain versions; the wrappers ``ops.decode`` and ``ops.decode_partial`` run
@@ -32,7 +42,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_partial_ref, decode_ref
 
 __all__ = ["decode_cuda", "decode_ref", "decode_partial_cuda",
-           "decode_partial_ref", "MAX_PANEL_BYTES", "MAX_CHUNKS"]
+           "decode_partial_ref", "bulk_copies", "MAX_PANEL_BYTES", "MAX_CHUNKS"]
 
 MAX_PANEL_BYTES = 48 * 1024  # the panel lives in (static-limit) shared memory
 MAX_CHUNKS = 128             # kMaxChunks in csrc/coded_decode.cu
@@ -52,9 +62,18 @@ def _function(dtype: torch.dtype):
 
 def _partial_function(dtype: torch.dtype):
     fn = getattr(_build.load("coded_decode"), _PARTIAL_SYMBOLS[dtype])
-    fn.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _L, _L, _D, _I, _P]
+    fn.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _L, _L, _D, _I, _I, _P]
     fn.restype = _I
     return fn
+
+
+def bulk_copies(itemsize: int, addresses, offsets, strides, widths) -> bool:
+    """Whether the per-chunk kernel can take its bulk-copy form: every
+    data address (bytes) a 16-byte multiple, and every chunk offset, row
+    stride and chunk width (elements of ``itemsize`` bytes) 16 bytes wide.
+    Else it takes one-element loads and stores."""
+    return (all(a % 16 == 0 for a in addresses)
+            and all(n * itemsize % 16 == 0 for n in (*offsets, *strides, *widths)))
 
 
 def _check_operands(W: torch.Tensor, Y: torch.Tensor, what: str) -> None:
@@ -152,12 +171,14 @@ def decode_partial_cuda(W_stack: torch.Tensor, Y: torch.Tensor, s: float,
         return out.zero_()
     Wc = W_stack.contiguous()
     Yc = Y.contiguous()
+    bulk = bulk_copies(Yc.element_size(), (Yc.data_ptr(), out.data_ptr()),
+                       (*y_off, *out_off), (ys, os_), width)
     offsets = [(_L * Q)(*x) for x in (y_off, out_off, width)]
     stream = torch.cuda.current_stream(Y.device).cuda_stream
     err = _partial_function(dtype)(
         Wc.data_ptr(), Yc.data_ptr(), out.data_ptr(), Q, mn, K,
         *(ctypes.addressof(x) for x in offsets), ys, os_, float(s),
-        int(bool(extract)), stream)
+        int(bool(extract)), int(bulk), stream)
     if err != 0:
         raise RuntimeError(f"decode_partial kernel launch failed: cudaError {err}")
     return out

@@ -1,11 +1,21 @@
-// Asynchronous global-to-shared copies (cp.async) for the scan kernels,
-// wkv_scan.cu (kernel 7) and mamba_scan.cu (kernel 6): each thread issues its
-// share of a tile's copies, commits them as one group, and waits for the
-// group before a barrier makes the tile visible to the block, so the copies
-// of the next tile run while the block steps through this one.
+// Asynchronous global-to-shared copies, the one home of these primitives for
+// every kernel of the port.
+//
+// cp.async (scan kernels wkv_scan.cu and mamba_scan.cu, and the product
+// main loop dmma_gemm.cuh of kernels 1 and 5): each thread issues its share
+// of a tile's copies, commits them as one group, and waits for the group
+// before a barrier makes the tile visible to the block, so the copies of the
+// next tile run while the block works on this one.
+//
+// Bulk copies (coded_decode.cu, kernel 3): one thread asks the copy engine
+// for whole row segments (cp.async.bulk, SASS UBLKCP); an mbarrier armed
+// with the stage's byte count completes when they have landed, and the
+// other threads wait on its phase.  No tensor map, so nothing links libcuda.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace async_copy {
 
@@ -20,6 +30,20 @@ __device__ __forceinline__ void copy(float* dst, const float* src) {
     static_assert(kBytes == 4, "4- or 16-byte copies");
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
                  ::"r"(s), "l"(src) : "memory");
+  }
+}
+
+// Start copying src_bytes (<= kBytes; kBytes 4, 8 or 16) from global to
+// shared memory, zero-filling the rest of the kBytes.
+template <int kBytes>
+__device__ __forceinline__ void copy_zfill(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 ::"r"(s), "l"(src), "r"(src_bytes) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 ::"r"(s), "l"(src), "n"(kBytes), "r"(src_bytes) : "memory");
   }
 }
 
@@ -56,6 +80,59 @@ __device__ __forceinline__ void copy_rows(int vec, float* dst, int dst_ld, const
     copy_rows<4>(dst, dst_ld, src, src_ld, rows, width, tid, nthreads);
   } else {
     copy_rows<1>(dst, dst_ld, src, src_ld, rows, width, tid, nthreads);
+  }
+}
+
+// ---- bulk copies completing on an mbarrier ---------------------------------
+
+__device__ __forceinline__ uint32_t smem_address(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One thread sets up a barrier that completes a phase on one arrival plus
+// the bytes it announces; then a fence and a block barrier publish it.
+__device__ __forceinline__ void barrier_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               ::"r"(smem_address(bar)) : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Order this thread's earlier generic-proxy accesses of shared memory (the
+// block's reads of a stage, made visible to it by a block barrier) before
+// the bulk copies it issues next into the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Arrive on the barrier and announce the bytes this phase's copies bring.
+__device__ __forceinline__ void arrive_expect_bytes(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_address(bar)), "r"(bytes) : "memory");
+}
+
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// global to shared memory; the barrier counts them off as they land.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      ::"r"(smem_address(dst)), "l"(src), "r"(bytes), "r"(smem_address(bar))
+      : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void barrier_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_address(bar)), "r"(parity) : "memory");
   }
 }
 

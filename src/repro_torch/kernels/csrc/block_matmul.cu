@@ -61,18 +61,18 @@ matmul_t_kernel(const T* __restrict__ A, const T* __restrict__ B,
   // always means "this step's tiles have landed".
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < steps) load(s);
-    cp_async_commit();
+    async_copy::commit();
   }
   Tile<T> acc(tid);
   for (long long step = 0; step < steps; ++step) {
-    cp_async_wait<kStages - 2>();
+    async_copy::wait<kStages - 2>();
     __syncthreads();  // this step's tiles visible; the last step's product done
     if (step + kStages - 1 < steps) load(step + kStages - 1);
-    cp_async_commit();
+    async_copy::commit();
     const int s = static_cast<int>(step % kStages);
     acc.template multiply<kBK>(a_s + s * kStage, b_s + s * kStage);
   }
-  cp_async_wait<0>();
+  async_copy::wait<0>();
   acc.store(out, r0, t0, r, t);
 }
 

@@ -180,13 +180,13 @@ fused_worker_kernel(const T* __restrict__ ca, const T* __restrict__ cb,
   };
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < items) load(s);
-    cp_async_commit();
+    async_copy::commit();
   }
   for (long long item = 0; item < items; ++item) {
-    cp_async_wait<kStages - 2>();
+    async_copy::wait<kStages - 2>();
     __syncthreads();  // this item's raw tiles and the last encode visible
     if (item + kStages - 1 < items) load(item + kStages - 1);
-    cp_async_commit();
+    async_copy::commit();
     const long long step = item / groups;
     const int g = static_cast<int>(item % groups);
     const bool multiply = g == 0 && step > 0;
@@ -205,7 +205,7 @@ fused_worker_kernel(const T* __restrict__ ca, const T* __restrict__ cb,
     __syncthreads();  // the last coded pair is complete
     product(items / groups - 1);
   }
-  cp_async_wait<0>();
+  async_copy::wait<0>();
   acc.store(out + k * r * t, r0, t0, r, t);
 }
 

@@ -29,6 +29,8 @@
 
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
+
 namespace dmma_gemm {
 
 constexpr int kBM = 128;          // output rows (r) per block
@@ -36,32 +38,6 @@ constexpr int kBN = 128;          // output cols (t) per block
 constexpr int kPitch = kBM + 4;   // shared-memory row pitch, in elements
 constexpr int kThreads = 256;
 static_assert(kBM == kBN, "one tile loader serves both operands");
-
-// ---- asynchronous copies -------------------------------------------------
-
-// Copy src_bytes (<= kBytes) from global to shared memory, zero-filling the
-// rest of the kBytes.
-template <int kBytes>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 ::"r"(s), "l"(src), "r"(src_bytes) : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
-                 ::"r"(s), "l"(src), "n"(kBytes), "r"(src_bytes) : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most kPending of this thread's copy groups are in flight.
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 // Start copying a (kRows x kBM) tile whose element (0, 0) is `src` (row
 // stride ld, unit column stride) into dst[kRows][kPitch]: rows at or past
@@ -81,7 +57,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long ld,
     const int col = (c % kPerRow) * kVec;
     long long n = cols_left - col;
     n = row >= rows_left || n < 0 ? 0 : (n > kVec ? kVec : n);
-    cp_async<static_cast<int>(kVec * sizeof(T))>(
+    async_copy::copy_zfill<static_cast<int>(kVec * sizeof(T))>(
         dst + row * kPitch + col, n ? src + row * ld + col : src,
         static_cast<int>(n * sizeof(T)));
   }

@@ -16,7 +16,7 @@ import dataclasses
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import make_plan
 from repro_torch.core.partition import block_decompose
-from repro_torch.kernels import coded_fused, ops, ref, wkv_scan
+from repro_torch.kernels import coded_decode, coded_fused, ops, ref, wkv_scan
 from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.runtime import CodedMatmul
 
@@ -277,16 +277,34 @@ def test_new_kernels_refuse_half_precision(cuda):
         ops.decode_partial(x[:, :4, :2], x.transpose(1, 2)[:, :2, :], 4.0)
 
 
+def _partial_form(Y, y_off, ys, widths):
+    """The copy form the per-chunk kernel takes for Y (a fresh output is
+    aligned)."""
+    return ("bulk" if coded_decode.bulk_copies(Y.element_size(), (Y.data_ptr(),), y_off,
+                                               (ys,), widths) else "element")
+
+
+# (Q, mn, K, Ec): odd and aligned widths, mn = 20 past the 16 register rows
+# (two passes over a tile's 11 rows, resident in shared memory), mn = 24
+# with K = 64 (too many rows to stay resident: each pass copies them again),
+# K = 700 over many row groups (a 44.8 KB float64 panel), Q = 1, Q = 128
+# chunks narrower than one tile
+_STACKS = [(5, 20, 11, 1031), (5, 20, 11, 1032), (2, 24, 64, 1032), (3, 8, 700, 2048),
+           (1, 4, 10, 4096), (128, 4, 10, 64), (4, 2, 6, 130)]
+
+
+@pytest.mark.parametrize("Q,mn,K,Ec", _STACKS)
 @pytest.mark.parametrize("extract", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_decode_partial_kernel_equals_per_chunk_decode(cuda, extract, dtype):
+def test_decode_partial_kernel_equals_per_chunk_decode(cuda, Q, mn, K, Ec, extract, dtype):
     """Random (non-integer) data: the per-chunk kernel must agree with the
-    decode kernel on each chunk BIT FOR BIT, as one launch for all chunks;
-    mn = 20 takes it past its 16 register rows."""
+    decode kernel on each chunk BIT FOR BIT, as one launch for all chunks, in
+    either copy form (the stack's offsets are multiples of Ec)."""
     gen = torch.Generator().manual_seed(9)
-    Q, mn, K, Ec = 5, 20, 11, 1031
     W = _rand(gen, (Q, mn, K), dtype)
     Y = _rand(gen, (Q, K, Ec), dtype) * 1000
+    form = _partial_form(Y, [q * K * Ec for q in range(Q)], Ec, [Ec])
+    assert form == ("bulk" if Ec * Y.element_size() % 16 == 0 else "element")
     out = ops.decode_partial(W, Y, 64.0, extract=extract)
     assert out.shape == (Q, mn, Ec) and ops.launch_counts()["decode_partial"] == 1
     per_chunk = torch.stack([ops.decode(W[q], Y[q], 64.0, extract=extract)
@@ -294,25 +312,47 @@ def test_decode_partial_kernel_equals_per_chunk_decode(cuda, extract, dtype):
     torch.testing.assert_close(out, per_chunk, rtol=0, atol=0)
 
 
+# (dtype, bounds, form, nan): Y (K, bounds[-1]); chunks of width 0 and
+# narrower than one tile (512 float64 or 1024 float32 columns)
+_BOUNDS = [
+    (torch.float64, [0, 1025, 2050, 3075, 4099], "element", False),
+    (torch.float64, [0, 1024, 2048, 3072, 4096], "bulk", False),
+    (torch.float32, [0, 2048, 2048, 6144, 8192], "bulk", False),
+    (torch.float64, [0, 0, 16, 528, 1040], "bulk", False),
+    (torch.float32, [0, 1, 1, 3000, 4099], "element", False),
+    (torch.float64, [0, 1024, 2048, 3072, 4096], "bulk", True),
+    (torch.float32, [0, 1025, 2050, 3075, 4099], "element", True),
+]
+
+
+@pytest.mark.parametrize("dtype,bounds,form,nan", _BOUNDS)
 @pytest.mark.parametrize("extract", [True, False])
-def test_decode_partial_kernel_unequal_chunks(cuda, extract):
+def test_decode_partial_kernel_unequal_chunks(cuda, dtype, bounds, form, nan, extract):
     """Y (K, E) as the runtime holds it, chunks that differ in width: equal
     to the plain version (integer data, exact) and to the decode kernel
-    on each column slice, bit for bit."""
+    on each column slice, bit for bit.  With ``nan``, a NaN in a row whose
+    panel column is 0 (an erased worker) still reaches C: every row of Y
+    is read, as the reference reads it."""
     gen = torch.Generator().manual_seed(10)
-    Q, mn, K, E = 4, 6, 9, 4099
-    bounds = [0, 1025, 2050, 3075, E]
-    W = torch.randint(-2, 3, (Q, mn, K), generator=gen).to(cuda, torch.float64)
-    Y = torch.randint(-40, 41, (K, E), generator=gen).to(cuda, torch.float64)
+    Q, mn, K, E = 4, 6, 9, bounds[-1]
+    W = torch.randint(-2, 3, (Q, mn, K), generator=gen).to(cuda, dtype)
+    Y = torch.randint(-40, 41, (K, E), generator=gen).to(cuda, dtype)
+    if nan:
+        W[:, :, 3] = 0                      # worker 3 erased in every chunk
+        Y[3, ::7] = float("nan")
+    widths = [b1 - b0 for b0, b1 in zip(bounds, bounds[1:])]
+    assert _partial_form(Y, bounds[:-1], E, widths) == form
     out = ops.decode_partial(W, Y, 64.0, extract=extract, bounds=bounds)
     assert out.shape == (mn, E)
-    torch.testing.assert_close(
-        out, ref.decode_partial_ref(W, Y, 64.0, extract, bounds), rtol=0, atol=0)
+    exp = ref.decode_partial_ref(W, Y, 64.0, extract, bounds)
+    torch.testing.assert_close(out, exp, rtol=0, atol=0, equal_nan=nan)
+    assert torch.equal(torch.isnan(out), torch.isnan(exp))
+    assert bool(torch.isnan(out).any()) == nan
     for q in range(Q):
         cols = slice(bounds[q], bounds[q + 1])
         torch.testing.assert_close(out[:, cols],
                                    ops.decode(W[q], Y[:, cols], 64.0, extract=extract),
-                                   rtol=0, atol=0)
+                                   rtol=0, atol=0, equal_nan=nan)
 
 
 @pytest.mark.parametrize("backend", ["staged", "fused"])

@@ -367,6 +367,29 @@ def test_decode_partial_bounds_form_matches_per_chunk(rng):
                                       _np(ops.decode(W[q], Y[:, cols], 7.0)))
 
 
+_MAIN = ((0, 4_000_000, 8_000_000, 12_000_000), (16_000_000,), (4_000_000,) * 4)
+
+
+@pytest.mark.parametrize("itemsize,addresses,offsets,strides,widths,bulk", [
+    # the main path: Q=4 chunks of 4e6 float64 columns of Y (10, 16e6)
+    (8, (_BASE, _BASE + 2**20), *_MAIN, True),
+    (8, (_BASE, _BASE), (0, 0, 16), (1040,), (0, 16, 1024), True),   # a width of 0
+    (4, (_BASE, _BASE), (0, 4, 8), (12,), (4, 4, 4), True),          # float32
+    (8, (_BASE + 8, _BASE), *_MAIN, False),                          # Y 8 B off
+    (8, (_BASE, _BASE + 8), *_MAIN, False),                          # output 8 B off
+    (8, (_BASE, _BASE), (0, 1025), (4096,), (1025, 3071), False),    # odd offset
+    (8, (_BASE, _BASE), (0, 1024), (4097,), (1024, 1024), False),    # odd row stride
+    (8, (_BASE, _BASE), (0, 1024), (4096,), (1024, 1023), False),    # odd width
+    (4, (_BASE, _BASE), (0, 2), (8,), (2, 6), False),                # float32, 8 B off
+    (4, (_BASE, _BASE), (0, 4), (8, 6), (4, 4), False),              # output rows 24 B
+])
+def test_bulk_copies_only_when_aligned(itemsize, addresses, offsets, strides, widths, bulk):
+    """The per-chunk decode kernel takes its bulk-copy form only where every
+    address, chunk offset, row stride and chunk width is 16 bytes wide;
+    else its one-element form."""
+    assert coded_decode.bulk_copies(itemsize, addresses, offsets, strides, widths) is bulk
+
+
 def test_decode_partial_complex_routes_to_plain(rng):
     Q, mn, K, E = 2, 4, 3, 6
     W = rng.integers(-2, 3, size=(Q, mn, K)) + 1j * rng.integers(-2, 3, size=(Q, mn, K))
