@@ -53,12 +53,27 @@ Phases, each raising on failure:
              to the run's bf16 rounding scale), prefill(1024) + one decode
              step against prefill(1025), 32 WKV launches per prefill and
              none per decode step;
+7. obs     - observability on the main path: one fused request per erasure
+             pattern with ``repro_torch.obs`` off, then on (a fresh facade),
+             plus one staged and one partial request with it on; obs-on C
+             bit-identical to obs-off C and to A^T B, one pipeline build per
+             kind, ``executable_cache_size`` flat, ``kernel.call`` equal to
+             the launch deltas, one panel miss per pattern; the kernel spans
+             beside phase 5's times, the walls on vs off, and the Perfetto and
+             Prometheus dumps written, read back, checked and rendered;
+8. paper   - the paper's experiments at its own v = 8000 through the port's
+             benches: Table I (``benchmarks/torch_table1_error.py``, fused
+             kernels and the plain reference on the card; the bound-15 control
+             row must be exact), Fig. 1 (``torch_fig1_latency.py`` on
+             ``configs/paper_matmul.py``; bec flat through 6 stragglers and up
+             at 7, polycode up from 2) and the p' tradeoff sweep
+             (``torch_tradeoff_sweep.py``, 8000 columns);
    6b jamba - the same for Jamba-1.5-Large at full width, cut to one
              pattern group (8 layers: 1 attention + 7 Mamba) with every FFN
              the dense MLP (the MoE layers cut), through the selective-scan
              kernel (7 launches per prefill).
 
-Phase 3b holds the WKV and selective-scan kernels against their plain
+Phases 7 and 8 run after phase 5b and before the LM phases.  Phase 3b holds the WKV and selective-scan kernels against their plain
 versions at the LM prefill's shapes, at ragged shapes and (the selective
 scan) at the Jamba initialisation's long-memory regime; phase 5b times them
 beside their bounds (the selective scan's also beside the MUFU time of its
@@ -73,24 +88,29 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
-
 import dataclasses  # noqa: E402
 import gc  # noqa: E402
 import re  # noqa: E402
 
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from benchmarks import torch_fig1_latency, torch_table1_error, torch_tradeoff_sweep  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.paper_matmul import CONFIG as PAPER  # noqa: E402
 from repro_torch.core import bounds, make_plan  # noqa: E402
 from repro_torch.core.partition import block_decompose  # noqa: E402
 from repro_torch.kernels import _build, coded_decode, coded_fused, ops, ref  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
+from repro_torch.obs import export, report  # noqa: E402
 from repro_torch.runtime import CodedMatmul, PartialPattern, chunk_bounds  # noqa: E402
 
 # Published H100 SXM peaks at 700 W (NVIDIA data sheet).
@@ -100,9 +120,10 @@ PEAK_FP32 = 67e12            # FLOP/s, FP32 outside the tensor cores
 PEAK_HBM = 3.35e12           # bytes/s
 
 # The paper's geometry (configs/paper_matmul.py) at entry bound 15, which is
-# exact in float64 (entry bound 50 is not: see ROADMAP.md).
-V = R = T = 8000
-ENTRY_MAX = 15
+# exact in float64 (the paper's entry bound 50 is not: see ROADMAP.md).
+MAIN = dataclasses.replace(PAPER, entry_max=15)
+V, R, T = MAIN.v, MAIN.r, MAIN.t
+ENTRY_MAX = MAIN.entry_max
 # Survivor sets bunched at one end of [-1, 1] amplify rounding in the decode
 # (erasing workers 0-5 multiplies it by 243 and is inexact even here); these
 # patterns amplify it by at most 15.2.
@@ -729,7 +750,7 @@ def drive(label: str, requests, C_ref, cm, per_request: dict) -> dict:
 
 def main_phase(plan, A, B, C_ref) -> dict:
     phase("4 main path")
-    L = V * ENTRY_MAX * ENTRY_MAX + 1
+    L = MAIN.L
     safe = bounds.is_safe(L, plan.s, plan.scheme.digit_depth, "float64", tau=plan.tau)
     print(f"plan bec p=m=n=2 K={plan.K} tau={plan.tau} s=2^{int(np.log2(plan.s))} "
           f"L={L} is_safe(slack 4 bits)={safe}")
@@ -931,6 +952,183 @@ def times_phase(plan, A, B, smi: str) -> dict:
             "decode_partial": part}
 
 
+def serve_timed(call) -> tuple:
+    """``call()`` between two synchronizes: (result, wall ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int64), b.view(torch.int64))
+
+
+def obs_phase(plan, A, B, C_ref, times: dict, smi: str) -> dict:
+    """The fused main path with observability off, then on; one staged and
+    one partial request with it on; the counters and spans against the
+    launch counts, and the dumps written and read back."""
+    phase("7 observability on the main path")
+    obs.disable()
+    ops.reset_launch_counts()
+    cm_off = CodedMatmul(plan)
+    off, walls_off = [], []
+    for e in ERASURES:
+        C, ms = serve_timed(lambda: cm_off(A, B, erased=e))
+        check(torch.equal(C, C_ref), f"obs off erased={e}: C differs from A^T B")
+        off.append(C)
+        walls_off.append(ms)
+    session = obs.enable(fresh=True)
+    reg, rec = session.registry, session.recorder
+    before = ops.launch_counts()
+    cm = CodedMatmul(plan)
+    walls_on, sizes = [], []
+    for e, C_off in zip(ERASURES, off):
+        C, ms = serve_timed(lambda: cm(A, B, erased=e))
+        check(same_bits(C, C_off) and torch.equal(C, C_ref),
+              f"obs on erased={e}: C is not bit-identical to obs off / A^T B")
+        walls_on.append(ms)
+        sizes.append(cm.executable_cache_size())
+    del off
+    compiles = {dict(lab)["kind"]: m.value for (n, lab), m in reg.collect()
+                if n == "runtime.executable.compile"}
+    hits = reg.total("runtime.executable.hit")
+    misses = reg.value("decode.panel_cache.miss", cache="panel")
+    print(f"obs on, {len(ERASURES)} patterns: runtime.executable.compile {compiles}, "
+          f".hit {hits:g}, executable_cache_size {sizes}, decode.panel_cache.miss"
+          f"{{cache=panel}} {misses:g}, spans {len(rec.spans)}")
+    check(compiles == {"concrete": 1}, f"pipeline builds per kind {compiles}, not 1")
+    check(hits == len(ERASURES) - 1, f"runtime.executable.hit {hits}")
+    check(len(set(sizes)) == 1 and sizes[0] == 1, f"executable_cache_size moved: {sizes}")
+    check(misses == len({tuple(e) for e in ERASURES}),
+          f"panel misses {misses} for {len(ERASURES)} distinct patterns")
+    C, ms_staged = serve_timed(lambda: cm.with_backend("staged")(A, B, erased=ERASURES[1]))
+    check(torch.equal(C, C_ref), "obs on staged request: C differs from A^T B")
+    progress = np.asarray(PROGRESS[0]) / Q_SUB
+    C, ms_partial = serve_timed(lambda: cm(A, B, progress=progress, sub_tasks=Q_SUB))
+    check(torch.equal(C, C_ref), "obs on partial request: C differs from A^T B")
+    del C
+    after = ops.launch_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    calls = {k: reg.value("kernel.call", op=k, traced=0) or 0 for k in after}
+    print(f"obs on: launches {({k: v for k, v in launched.items() if v})}, "
+          f"kernel.call {({k: int(v) for k, v in calls.items() if v})}")
+    check(calls == launched, f"kernel.call {calls} != launch deltas {launched}")
+    for op in ("fused_worker", "decode", "encode", "matmul_t", "decode_partial"):
+        spans = rec.by_name(f"kernel.{op}")
+        check(len(spans) == launched[op] and all(x.duration_s > 0 for x in spans),
+              f"kernel.{op}: {len(spans)} spans for {launched[op]} launches")
+        mean = sum(x.duration_s for x in spans) / len(spans) * 1e3
+        print(f"span kernel.{op}: n={len(spans)}, mean {mean:.4f} ms (CUDA events at "
+              f"launch); phase 5 CUDA-event mean {times[op]['ms']:.4f} ms; on {smi}")
+    print(f"fused request wall, obs off {[round(w, 2) for w in walls_off]} ms, obs on "
+          f"{[round(w, 2) for w in walls_on]} ms (a synchronize per launch, and the "
+          f"first request builds the pipeline); staged {ms_staged:.2f} ms, partial "
+          f"{ms_partial:.2f} ms with obs on; on {smi}")
+    with tempfile.TemporaryDirectory() as tmp:
+        tpath, mpath = Path(tmp) / "trace.json", Path(tmp) / "metrics.prom"
+        export.write_perfetto(str(tpath), rec.spans)
+        export.write_prometheus(str(mpath), reg)
+        doc = json.loads(tpath.read_text())
+        text = mpath.read_text()
+    slices = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    check(doc["displayTimeUnit"] == "ms" and len(slices) == len(rec.spans)
+          and all(set(e) == {"ph", "name", "pid", "tid", "ts", "dur", "args"}
+                  for e in slices),
+          "Perfetto dump: schema")
+    lanes = {e["args"]["name"] for e in doc["traceEvents"]
+             if e["ph"] == "M" and e["name"] == "thread_name"}
+    check({"main", "kernels"} <= lanes, f"Perfetto dump lanes {lanes}")
+    samples = export.parse_prometheus(text)
+    check("# TYPE runtime_executable_compile counter" in text
+          and samples["runtime_executable_compile"][0][0]["kind"] == "concrete"
+          and sum(v for _, v in samples["kernel_call"]) == sum(launched.values()),
+          "Prometheus dump: schema and counts")
+    print(f"dumps: {len(slices)} Perfetto slices on lanes {sorted(lanes)}, "
+          f"{len(text.splitlines())} Prometheus lines, read back and checked; report:")
+    print(report.render(text, doc), end="")
+    obs.disable()
+    return {"counts": ops.launch_counts()}
+
+
+def paper_phase(smi: str) -> dict:
+    """The paper's Table I, Fig. 1 and p' sweep at v = 8000 through the
+    port's benches; each bench's launch counts set to 0 just before it."""
+    phase("8 the paper's experiments at v = 8000")
+    counts = dict.fromkeys(ops.launch_counts(), 0)
+
+    def run(label, fn):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        for k, v in got.items():
+            counts[k] += v
+        print(f"{label}: {time.perf_counter() - t0:.1f} s, launches "
+              f"{({k: v for k, v in got.items() if v})}")
+        return out, got
+
+    bounds_list = (15, 100, 200, 500, 1000, 2000)
+    fused, got = run("Table I fused", lambda: torch_table1_error.run(
+        v=PAPER.v, bounds_list=bounds_list, fused=True))
+    check(got["fused_worker"] == got["decode"] == len(bounds_list),
+          f"Table I fused launched {got}")
+    plain, got = run("Table I reference", lambda: torch_table1_error.run(
+        v=PAPER.v, bounds_list=bounds_list, fused=False))
+    check(not any(got.values()), f"Table I reference launched {got}")
+    print(f"Table I (v={PAPER.v}, A, B {PAPER.v}x{PAPER.v // 2} in {{0..bound}}, bec "
+          f"p=m=n=2, K=10 equispaced, worker 0 erased; float64) on {smi}")
+    print("bound,s,log2_maxX,analytic_safe,rel_err fused (kernels 1+2),"
+          "rel_err reference (plain, on the card)")
+    for f, r in zip(fused, plain):
+        print(f"{f['bound']},2^{int(np.log2(f['s']))},{f['log2_maxX']:.1f},"
+              f"{f['analytic_safe']},{f['rel_err']!r},{r['rel_err']!r}")
+    check(all(np.isfinite(r["rel_err"]) for r in fused + plain), "Table I: rel_err not finite")
+    check(fused[0]["bound"] == 15 and fused[0]["rel_err"] == 0.0,
+          f"Table I bound-15 control row not exact with the fused kernels: {fused[0]}")
+    if plain[0]["rel_err"] != 0.0:
+        print(f"NOTE: the plain reference on the card is not exact at bound 15: {plain[0]}")
+
+    rows, got = run("Fig. 1", lambda: torch_fig1_latency.run(size=PAPER.v))
+    check(all(got[k] > 0 for k in ("fused_worker", "decode", "matmul_t")),
+          f"Fig. 1 launched {got}")
+    r0 = rows[0]
+    print(f"Fig. 1 ({PAPER.name}: v=r=t={PAPER.v}, entries {{0..{PAPER.entry_max}}}, K="
+          f"{PAPER.K}, stragglers x{PAPER.straggler_slowdown}; float64) on {smi}")
+    print(f"t_worker {r0['worker_s'] * 1e3:.4f} ms (kernel 5, one {PAPER.v // PAPER.p}x"
+          f"{PAPER.r // PAPER.m} block product; torch.matmul {r0['worker_library_s'] * 1e3:.4f}"
+          f" ms for reference)")
+    lat = {}
+    for scheme in ("bec", "polycode"):
+        rs = [r for r in rows if r["scheme"] == scheme]
+        lat[scheme] = [r["latency_s"] for r in rs]
+        print(f"{scheme}: tau {rs[0]['tau']}, t_decode {rs[0]['decode_s'] * 1e3:.4f} ms "
+              f"(kernel 2), rel_err {rs[0]['rel_err']!r}; latency (ms) for S=0..8 "
+              f"{[round(x * 1e3, 4) for x in lat[scheme]]}")
+    bec, poly = lat["bec"], lat["polycode"]
+    check(len(set(bec[:7])) == 1 and bec[7] > bec[6],
+          f"Fig. 1: bec not flat through S=6 with a jump at S=7: {bec}")
+    check(poly[1] == poly[0] and all(x > poly[0] for x in poly[2:]),
+          f"Fig. 1: polycode does not rise from S=2: {poly}")
+
+    sweep, got = run("tradeoff sweep", lambda: torch_tradeoff_sweep.run(
+        v=PAPER.v, cols=PAPER.v))
+    check(got["fused_worker"] == len(sweep), f"tradeoff sweep launched {got}")
+    print(f"p' tradeoff sweep (p=8, m=n=2, v={PAPER.v}, {PAPER.v} columns, entries in "
+          f"[-20, 20], chebyshev points, Y from kernel 1) on {smi}")
+    print("p_prime,tau,digit_depth,log2_analytic_maxX,log2_measured_maxY,f64_safe")
+    for r in sweep:
+        print(f"{r['p_prime']},{r['tau']},{r['digit_depth']},{r['log2_analytic_maxX']:.2f},"
+              f"{r['log2_measured_maxY']:.2f},{r['f64_safe']}")
+    check(all(np.isfinite(r["log2_measured_maxY"]) for r in sweep),
+          "tradeoff sweep: max|Y| not finite")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": counts}
+
+
 def tensor_rate(name: str, flops: float, t: dict) -> None:
     """Print a kernel's achieved FP64 rate, its share of the tensor peak and
     whether it meets its floor."""
@@ -952,8 +1150,8 @@ def main() -> None:
                       dtype=torch.float64)
     B = torch.randint(0, ENTRY_MAX + 1, (V, T), generator=gen, device="cuda",
                       dtype=torch.float64)
-    plan = make_plan("bec", 2, 2, 2, K=10, L=V * ENTRY_MAX * ENTRY_MAX + 1,
-                     points="equispaced")
+    plan = make_plan("bec", MAIN.p, MAIN.m, MAIN.n, K=MAIN.K, L=MAIN.L,
+                     points=MAIN.points)
     errs = kernels_phase(plan, A, B, gen)
     errs |= scan_kernels_phase(gen)
     C_ref = A.T @ B  # exact: every partial sum is an integer below 2^53
@@ -966,8 +1164,10 @@ def main() -> None:
         wall = path["walls"]
         print(f"request wall time ({name}, 8000^2, float64): first {wall[0]:.2f} ms, "
               f"median of the rest {float(np.median(wall[1:])):.2f} ms on {dev['smi']}")
+    paths["obs"] = obs_phase(plan, A, B, C_ref, times, dev["smi"])
     del A, B, C_ref
     torch.cuda.empty_cache()
+    paths["paper"] = paper_phase(dev["smi"])
     lms = {"rwkv6_3b": rwkv_phase(args.seed), "jamba group": jamba_phase(args.seed)}
     for name, lm in lms.items():
         print(f"LM serving ({name}, {LM_BATCH}x{LM_PROMPT} prompt, {LM_GEN} tokens, bf16): "

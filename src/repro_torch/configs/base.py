@@ -4,7 +4,10 @@ Every architecture module defines CONFIG (the published geometry) and SMOKE
 (a reduced same-family config for CPU tests), field for field as the
 reference package's ``configs/`` define them.  The port serves the
 architectures in ``PORTED_ARCHS``; the others raise ``NotImplementedError``
-until their slice lands (ROADMAP.md queue 1, item 11).
+until their slice lands (ROADMAP.md queue 1, item 8).  ``paper_matmul`` is
+the paper's own coded-matmul experiment (``PaperMatmulConfig``, not a
+``ModelConfig``): ``get_config`` serves it and ``list_archs`` leaves it out,
+as in the reference package.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ ARCH_IDS = (
     "qwen2_vl_72b",
     "paper_matmul",
 )
-PORTED_ARCHS = ("jamba_1_5_large_398b", "rwkv6_3b")
+PORTED_ARCHS = ("jamba_1_5_large_398b", "rwkv6_3b", "paper_matmul")
 
 
 def _module(arch: str):
@@ -37,7 +40,7 @@ def _module(arch: str):
         if arch in ARCH_IDS:
             raise NotImplementedError(
                 f"{arch} is not ported to repro_torch yet; the port serves "
-                f"{PORTED_ARCHS} (see ROADMAP.md, queue 1, item 11)")
+                f"{PORTED_ARCHS} (see ROADMAP.md, queue 1, item 8)")
         raise ValueError(f"unknown architecture {arch!r}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
@@ -51,5 +54,5 @@ def get_smoke_config(arch: str) -> ModelConfig:
 
 
 def list_archs() -> List[str]:
-    """The architectures the port serves."""
-    return list(PORTED_ARCHS)
+    """The model architectures the port serves."""
+    return [a for a in PORTED_ARCHS if a != "paper_matmul"]

@@ -1,6 +1,8 @@
-"""Core: the paper's coded-matmul schemes, decoding, bounds, and plans."""
+"""Core: the paper's coded-matmul schemes, decoding, bounds, plans, and the
+straggler simulator."""
 from repro_torch.core.api import (
     CodedMatmulPlan,
+    coded_matmul,
     encode_blocks,
     extend_plan,
     fused_worker_products,
@@ -37,9 +39,18 @@ from repro_torch.core.schemes import (
     TradeoffScheme,
     make_scheme,
 )
+from repro_torch.core.simulator import (
+    LatencyModel,
+    WorkerTimes,
+    completion_quantile,
+    masked_completion_cdf,
+    masked_completion_mean,
+    masked_completion_quantile,
+    simulate_completion,
+)
 
 __all__ = [
-    "CodedMatmulPlan", "make_plan", "plan_from_arrays", "encode_blocks",
+    "CodedMatmulPlan", "coded_matmul", "make_plan", "plan_from_arrays", "encode_blocks",
     "uncoded_matmul", "worker_products", "fused_worker_products",
     "extend_plan", "shrink_plan",
     "BoundsReport", "choose_s", "conservative_L", "is_safe", "plan_p_prime",
@@ -51,4 +62,7 @@ __all__ = [
     "extend_points", "make_points",
     "EntangledBoundedScheme", "PolynomialCodeYu", "Scheme", "TradeoffScheme",
     "make_scheme",
+    "LatencyModel", "WorkerTimes", "simulate_completion",
+    "completion_quantile", "masked_completion_cdf",
+    "masked_completion_mean", "masked_completion_quantile",
 ]

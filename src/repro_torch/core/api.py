@@ -10,6 +10,7 @@ they are given.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
@@ -17,13 +18,14 @@ import torch
 
 from repro_torch.core import bounds as bounds_mod
 from repro_torch.core.decoding import DecodePanelCache
-from repro_torch.core.numerics import complex_dtype
+from repro_torch.core.numerics import complex_dtype, resolve_device, resolve_dtype
 from repro_torch.core.points import extend_points, make_points
 from repro_torch.core.schemes import Scheme, make_scheme
 
 __all__ = ["CodedMatmulPlan", "make_plan", "plan_from_arrays", "extend_plan",
            "shrink_plan", "encode_blocks", "worker_products",
-           "fused_worker_products", "uncoded_matmul"]
+           "fused_worker_products", "uncoded_matmul", "runtime_facade",
+           "coded_matmul"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,6 +226,82 @@ def fused_worker_products(plan: CodedMatmulPlan, a_blocks: torch.Tensor,
     ca = _coeffs(plan.coeff_a.reshape(plan.K, p * m), a_blocks, plan)
     cb = _coeffs(plan.coeff_b.reshape(plan.K, p * n), b_blocks, plan)
     return kops.fused_worker(ca, cb, a_blocks, b_blocks)
+
+
+# ---------------------------------------------------------------------------
+# Legacy entry point: deprecation shim over the unified runtime.
+# ---------------------------------------------------------------------------
+
+_RUNTIME_FACADES: dict = {}
+_RUNTIME_FACADES_MAX = 64
+
+
+def runtime_facade(plan: CodedMatmulPlan, backend: str = "fused",
+                   dtype=torch.float64, *, panel_cache=None, device=None,
+                   **opts):
+    """Module-level memo of ``repro_torch.runtime.CodedMatmul`` facades.
+
+    Keyed by plan VALUE (scheme geometry + points + base), not identity, so
+    equal plans share one facade - and therefore one decode-panel cache and
+    one pipeline memo - across shim calls.  The key also holds the dtype,
+    the backend, the device (``None`` resolves to the card, as every entry
+    point does) and a caller-supplied ``panel_cache`` by identity: callers
+    with their own caches get their own facades instead of clobbering the
+    shared one.  The memo is FIFO-bounded so long-lived processes churning
+    through many distinct plans cannot pin pipelines without limit.
+    """
+    from repro_torch.runtime import CodedMatmul
+
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype)
+    key = (plan.scheme, plan.K, plan.s,
+           tuple(np.asarray(plan.z_points).ravel().tolist()),
+           str(dt), backend, str(dev),
+           None if panel_cache is None else id(panel_cache),
+           tuple(sorted(opts.items(), key=lambda kv: kv[0])))
+    cm = _RUNTIME_FACADES.get(key)
+    if cm is None:
+        cm = CodedMatmul(plan, backend, dtype=dt, device=dev, **opts)
+        if panel_cache is not None:
+            # the facade holds the reference, so id(panel_cache) stays
+            # valid for as long as this memo entry lives
+            cm.panel_cache = panel_cache
+        while len(_RUNTIME_FACADES) >= _RUNTIME_FACADES_MAX:
+            _RUNTIME_FACADES.pop(next(iter(_RUNTIME_FACADES)))
+        _RUNTIME_FACADES[key] = cm
+    return cm
+
+
+def coded_matmul(
+    A,
+    B,
+    plan: CodedMatmulPlan,
+    *,
+    erased: Optional[Sequence[int]] = None,
+    survivors: Optional[Sequence[int]] = None,
+    dtype=torch.float64,
+    fused: bool = False,
+    device=None,
+) -> torch.Tensor:
+    """DEPRECATED: use ``repro_torch.runtime.CodedMatmul`` instead.
+
+    Compute C = A^T B through the coded pipeline.  A: (v, r), B: (v, t).
+    ``erased`` lists worker ids treated as stragglers; alternatively pass an
+    explicit ``survivors`` set (decoding weights ALL listed survivors, so
+    order does not matter).  Exact for integer matrices within the plan's
+    numeric bounds.  ``fused=True`` selects the fused kernel backend,
+    ``fused=False`` the plain reference backend.  ``device`` defaults to
+    the card (``"cpu"`` runs the plain versions).
+    """
+    warnings.warn(
+        "coded_matmul is deprecated; use repro_torch.runtime.CodedMatmul "
+        "(plan facade with pluggable backends and pipeline caching)",
+        DeprecationWarning, stacklevel=2)
+    if erased is not None and survivors is not None:
+        raise ValueError("pass only one of erased/survivors")
+    cm = runtime_facade(plan, "fused" if fused else "reference", dtype,
+                        device=device)
+    return cm(A, B, erased=erased, survivors=survivors)
 
 
 def uncoded_matmul(A: torch.Tensor, B: torch.Tensor,

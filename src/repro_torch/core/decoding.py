@@ -27,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.schemes import Scheme
 from repro_torch.core.vandermonde import interpolate_masked, interpolate_solve
 
@@ -191,9 +192,14 @@ class DecodePanelCache:
         key = tuple(int(x != 0) for x in m)
         panel = self._panels.get(key)
         if panel is None:
-            panel = make_decode_panel(self.scheme, self.z_all, m, self.ridge)
+            with obs.span("decode.panel.build"):
+                panel = make_decode_panel(self.scheme, self.z_all, m,
+                                          self.ridge)
             self._panels[key] = panel
             self.builds += 1
+            obs.count("decode.panel_cache.miss", cache="panel")
+        else:
+            obs.count("decode.panel_cache.hit", cache="panel")
         return panel
 
     def extended(self, z_new: np.ndarray) -> "DecodePanelCache":
@@ -261,4 +267,7 @@ class DecodePanelCache:
         if stack is None:
             stack = np.stack([self.get(row).W for row in cm])
             self._partial_stacks[key] = stack
+            obs.count("decode.panel_cache.miss", cache="stack")
+        else:
+            obs.count("decode.panel_cache.hit", cache="stack")
         return stack

@@ -11,14 +11,17 @@ path on the card too.
 Every wrapper carries an integer ``launches`` count, raised by one where it
 launches its kernel and nowhere else, so a run can show that its main path
 went through the kernels.  The two scan wrappers take float32 only, as
-their TPU kernels do.
+their TPU kernels do.  Every wrapper also carries the observability hook
+:func:`_instrumented`, which does nothing while ``repro_torch.obs`` is off.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import ref
 from repro_torch.kernels.block_matmul import matmul_t_cuda
 from repro_torch.kernels.coded_decode import decode_cuda, decode_partial_cuda
@@ -29,6 +32,48 @@ from repro_torch.kernels.wkv_scan import wkv_scan_cuda
 
 __all__ = ["fused_worker", "decode", "decode_partial", "encode", "matmul_t",
            "wkv_scan", "mamba_scan", "launch_counts", "reset_launch_counts"]
+
+
+def _instrumented(op: str):
+    """Kernel timing hook: count every call, time every call.
+
+    While obs is off the wrapper adds one global check and nothing else:
+    no event, no synchronize, the same launch counts and results.  While
+    it is on, each call counts ``kernel.call{op, traced=0}`` (PyTorch runs
+    eagerly, so no call is traced) and records the span ``kernel.<op>`` on
+    lane ``kernels``:
+
+    * with a CUDA tensor among the arguments, the call is bracketed by a
+      start/stop CUDA event pair on ``torch.cuda.current_stream()`` and the
+      stop event is synchronized.  The span starts at the session clock at
+      launch and lasts the event-measured DEVICE time (real seconds, also
+      under a simulated ``SettableClock``);
+    * otherwise the plain call is bracketed by the session clock.
+    """
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            if not obs.enabled():
+                return fn(*args, **kwargs)
+            obs.count("kernel.call", op=op, traced=0)
+            if not any(isinstance(a, torch.Tensor) and a.is_cuda
+                       for a in args):
+                with obs.span(f"kernel.{op}", lane="kernels"):
+                    return fn(*args, **kwargs)
+            stream = torch.cuda.current_stream()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            t0 = obs.session().clock()
+            start.record(stream)
+            out = fn(*args, **kwargs)
+            stop.record(stream)
+            stop.synchronize()
+            obs.emit_span(f"kernel.{op}", t0,
+                          t0 + start.elapsed_time(stop) / 1e3,
+                          lane="kernels")
+            return out
+        return inner
+    return wrap
 
 
 def _common_dtype(*tensors: torch.Tensor) -> torch.dtype:
@@ -49,6 +94,7 @@ def _on_card(*tensors: torch.Tensor) -> bool:
                      f"device, got {sorted(kinds)}")
 
 
+@_instrumented("fused_worker")
 def fused_worker(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
                  a_blocks: torch.Tensor, b_blocks: torch.Tensor, *,
                  out_dtype=None) -> torch.Tensor:
@@ -73,6 +119,7 @@ def fused_worker(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
     return out if out_dtype is None else out.to(out_dtype)
 
 
+@_instrumented("decode")
 def decode(W: torch.Tensor, Y: torch.Tensor, s: float, *,
            extract: bool = True) -> torch.Tensor:
     """W: (mn, tau), Y: (tau, E) -> (mn, E) decoded + digit-extracted
@@ -88,6 +135,7 @@ def decode(W: torch.Tensor, Y: torch.Tensor, s: float, *,
     return out
 
 
+@_instrumented("decode_partial")
 def decode_partial(W_stack: torch.Tensor, Y: torch.Tensor, s: float, *,
                    extract: bool = True, bounds=None) -> torch.Tensor:
     """Per-chunk decode with fused digit extraction, one launch for all
@@ -111,6 +159,7 @@ def decode_partial(W_stack: torch.Tensor, Y: torch.Tensor, s: float, *,
     return out
 
 
+@_instrumented("encode")
 def encode(coeff: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     """Encode: coeff (K, P), blocks (P, E) -> (K, E) coded blocks, as in the
     reference package; or blocks (*grid, rows, cols) with prod(grid) = P,
@@ -135,6 +184,7 @@ def encode(coeff: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     return out.reshape(K, -1) if flat else out.reshape(K, *stack.shape[-2:])
 
 
+@_instrumented("matmul_t")
 def matmul_t(A: torch.Tensor, B: torch.Tensor, *, out_dtype=None,
              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One worker's product: A (v, r), B (v, t) -> A^T B (r, t).
@@ -161,6 +211,7 @@ def matmul_t(A: torch.Tensor, B: torch.Tensor, *, out_dtype=None,
     return out.copy_(res)
 
 
+@_instrumented("wkv_scan")
 def wkv_scan(w: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              r: torch.Tensor, u: torch.Tensor, *, chunk: int = 64) -> tuple:
     """RWKV-6 WKV scan from a zero state: w, k, r (B, S, H, dk) float32 (w
@@ -175,6 +226,7 @@ def wkv_scan(w: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+@_instrumented("mamba_scan")
 def mamba_scan(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor,
                Cm: torch.Tensor, A_log: torch.Tensor, D: torch.Tensor, *,
                chunk: int = 128) -> tuple:

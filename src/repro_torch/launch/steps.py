@@ -3,7 +3,7 @@
 The reference builds pure functions for ``jax.jit`` with explicit shardings;
 PyTorch runs eagerly on one device, so a step here is the model function
 with its config and cache size bound, run under ``torch.inference_mode``.
-Training steps come with the training slice (ROADMAP.md queue 1, item 11).
+Training steps come with the training slice (ROADMAP.md queue 1, item 8).
 """
 from __future__ import annotations
 

@@ -10,7 +10,7 @@ schedule, so it is not used.
 
 Decode attends one token to the whole ``S_max`` cache in float32, masked by
 position.  Sliding-window layers (``attn_local``) wait for their slice
-(ROADMAP.md queue 1, item 11).
+(ROADMAP.md queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -139,7 +139,7 @@ def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _no_positions(cos_sin) -> None:
     if cos_sin is not None and cos_sin[0] is not None:
         raise NotImplementedError(
-            "rotary positions are not ported yet (ROADMAP.md queue 1, item 11)")
+            "rotary positions are not ported yet (ROADMAP.md queue 1, item 8)")
 
 
 def attn_forward(params, x: torch.Tensor, cos_sin=None, *,
@@ -151,7 +151,7 @@ def attn_forward(params, x: torch.Tensor, cos_sin=None, *,
     if window is not None:
         raise NotImplementedError(
             "sliding-window attention (attn_local) is not ported yet "
-            "(ROADMAP.md queue 1, item 11)")
+            "(ROADMAP.md queue 1, item 8)")
     q, k, v = _project_qkv(params, x)
     o = mha_chunked(q.to(x.dtype), k.to(x.dtype), v, q_chunk=q_chunk,
                     kv_chunk=kv_chunk)
@@ -176,7 +176,7 @@ def attn_decode_step(params, x: torch.Tensor, cos_sin, cache_k: torch.Tensor,
     if window is not None:
         raise NotImplementedError(
             "sliding-window attention (attn_local) is not ported yet "
-            "(ROADMAP.md queue 1, item 11)")
+            "(ROADMAP.md queue 1, item 8)")
     B = x.shape[0]
     q, k_new, v_new = _project_qkv(params, x)
     S_c = cache_k.shape[1]

@@ -4,7 +4,7 @@ Pure-function style as in the reference package: ``init_*`` returns a dict of
 tensors, the apply functions take (params, x).  Every ``init_*`` takes an
 explicit ``torch.Generator`` and device.  Rotary and sinusoidal positions
 wait for the first ported architecture that uses them (ROADMAP.md queue 1,
-item 11).
+item 8).
 """
 from __future__ import annotations
 

@@ -16,7 +16,7 @@ Ported so far: mixers ``attn`` (no positions), ``mamba`` and ``rwkv``; FFNs
 ``mlp`` and ``rwkv_cmix``; token input.  ``moe``, ``attn_local``, rotary
 positions, the ``embeds`` input mode and ``train_loss`` raise
 ``NotImplementedError`` until their slices land (ROADMAP.md queue 1,
-item 11).
+item 8).
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ __all__ = ["ModelConfig", "Block", "LM", "init_params", "params_from_jax",
            "cache_shapes", "init_cache", "cache_from_jax", "cache_to_numpy",
            "prefill", "decode_step", "train_loss"]
 
-_ROADMAP = "ROADMAP.md queue 1, item 11"
+_ROADMAP = "ROADMAP.md queue 1, item 8"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,7 @@
 """Mixture-of-Experts configuration.
 
 Only the dataclass is ported so far: the routed FFN itself (routing, expert
-parallelism) is its own slice of the port (ROADMAP.md queue 1, item 11), and
+parallelism) is its own slice of the port (ROADMAP.md queue 1, item 8), and
 a config whose pattern holds a ``"moe"`` FFN raises ``NotImplementedError``
 in ``models.lm``.
 """

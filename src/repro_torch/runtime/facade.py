@@ -19,6 +19,9 @@ The facade owns:
   NEW erasure or progress patterns - reuse one pipeline.  PyTorch runs
   eagerly, so a "build" makes the pipeline closure; nothing compiles per
   pattern (the CUDA libraries are built once per process, at first use).
+  With ``repro_torch.obs`` on, the memo counts
+  ``runtime.executable.{hit,compile}{kind}`` and records a
+  ``runtime.executable.build`` span, under the reference's names.
 
 Usage::
 
@@ -35,6 +38,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.api import CodedMatmulPlan
 from repro_torch.core.numerics import complex_dtype, resolve_device, resolve_dtype
 from repro_torch.runtime.erasure import ErasurePattern
@@ -46,6 +50,11 @@ from repro_torch.runtime.executors import (
 from repro_torch.runtime.partial import PartialPattern
 
 __all__ = ["CodedMatmul", "CacheGroup", "plan_token"]
+
+
+def _kind_label(kind) -> str:
+    """Bounded-cardinality metric label for a pipeline kind."""
+    return kind if isinstance(kind, str) else str(kind[0])
 
 
 def plan_token(plan: CodedMatmulPlan):
@@ -189,6 +198,15 @@ class CodedMatmul:
             "panel_builds": self.panel_cache.builds,
         }
 
+    def executable_cache_size(self) -> int:
+        """Memoised pipeline closures (shared with sibling facades).
+
+        The reference counts jit-compiled specialisations; PyTorch compiles
+        nothing per call, so each memoised pipeline counts once.  New
+        erasure or progress patterns leave it unchanged.
+        """
+        return len(self._executables)
+
     # -- the call -----------------------------------------------------------
     def __call__(self, A, B, erasure: Any = None, *,
                  erased: Optional[Sequence[int]] = None,
@@ -232,8 +250,8 @@ class CodedMatmul:
             self.plan.K, erasure, erased=erased, survivors=survivors,
             mask=mask)
         A, B = self._operands(A, B)
-        data = self._binary_data(pattern)
-        return self._get_executable(A, B, pattern.kind)(A, B, *data)
+        fn = self._get_executable(A, B, pattern.kind)
+        return fn(A, B, *self._binary_data(pattern))
 
     # -- split-stage serving -------------------------------------------------
     def worker_stage(self, A, B) -> torch.Tensor:
@@ -291,8 +309,8 @@ class CodedMatmul:
         pattern = ErasurePattern.normalize(
             self.plan.K, erasure, erased=erased, survivors=survivors,
             mask=mask)
-        data = self._binary_data(pattern)
-        return self._get_decode_executable(Y, ("decode", r, t))(Y, *data)
+        fn = self._get_decode_executable(Y, ("decode", r, t))
+        return fn(Y, *self._binary_data(pattern))
 
     # -- helpers -------------------------------------------------------------
     def _operands(self, A, B) -> tuple:
@@ -336,13 +354,18 @@ class CodedMatmul:
 
     # -- pipeline construction ---------------------------------------------
     def _memo(self, key, build):
+        kind = _kind_label(key[-1])
         fn = self._executables.get(key)
         if fn is not None:
             self._stats["hits"] += 1
+            obs.count("runtime.executable.hit", kind=kind)
             return fn
-        fn = build()
+        with obs.span("runtime.executable.build", kind=kind,
+                      backend=self.backend):
+            fn = build()
         self._executables[key] = fn
         self._stats["builds"] += 1
+        obs.count("runtime.executable.compile", kind=kind)
         return fn
 
     def _get_executable(self, A, B, kind):

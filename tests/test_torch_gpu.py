@@ -12,7 +12,9 @@ import pytest
 import torch
 
 import dataclasses
+import time
 
+from repro_torch import obs
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import make_plan
 from repro_torch.core.partition import block_decompose
@@ -539,3 +541,117 @@ def test_smoke_model_with_kernels_matches_without(cuda, arch, dtype, tol):
     dec_off, _ = decode_step(params, cfg, off_cache, {"tokens": toks[:, 96:]}, 96)
     _close(dec_on, dec_off, tol)
     assert ops.launch_counts() == counts          # decode launches no kernel
+
+
+# -- observability on the card -------------------------------------------------
+
+@pytest.fixture
+def obs_off():
+    obs.disable()
+    yield
+    obs.disable()
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int64).cpu()
+
+
+def _obs_problem():
+    gen = torch.Generator().manual_seed(21)
+    A = torch.randint(0, 6, (256, 96), generator=gen).to("cuda", torch.float64)
+    B = torch.randint(0, 6, (256, 80), generator=gen).to("cuda", torch.float64)
+    plan = make_plan("bec", 2, 2, 2, K=10, L=256 * 25 + 1, points="equispaced")
+    return A, B, plan
+
+
+def test_obs_on_is_bit_identical_to_off(cuda, obs_off):
+    """One fused and one partial request, obs off and then on: the same
+    bits, and the same launches per request."""
+    A, B, plan = _obs_problem()
+    progress = np.r_[0.5, 0.75, 0.25, np.ones(7)]
+
+    def serve():
+        cm = CodedMatmul(plan, sub_tasks=4)
+        before = ops.launch_counts()
+        out = [cm(A, B, erased=[0, 2, 4, 6, 8, 9], sub_tasks=1),
+               cm(A, B, progress=progress)]
+        after = ops.launch_counts()
+        return out, {k: after[k] - before[k] for k in after}
+
+    off, launched_off = serve()
+    obs.enable(fresh=True)
+    on, launched_on = serve()
+    assert launched_on == launched_off == dict(_NONE, fused_worker=2, decode=1,
+                                               decode_partial=1)
+    for a, b in zip(off, on):
+        assert torch.equal(_bits(a), _bits(b))
+        torch.testing.assert_close(a.cpu(), (A.T @ B).cpu(), rtol=0, atol=0)
+    reg = obs.session().registry
+    assert reg.value("kernel.call", op="decode_partial", traced=0) == 1
+
+
+def _seven_calls_on_the_card():
+    gen = torch.Generator().manual_seed(22)
+
+    def t(*shape, dtype=torch.float64):
+        return torch.randn(shape, generator=gen, dtype=dtype).to("cuda")
+
+    def ints(*shape):
+        return torch.randint(-3, 4, shape, generator=gen).to("cuda", torch.float64)
+
+    ca, cb, a, b = t(4, 4), t(4, 2), t(4, 64, 40), t(2, 64, 24)
+    W, Y, Ws, Ys = ints(4, 10), ints(10, 128), ints(2, 4, 10), ints(2, 10, 64)
+    coeff, blocks = t(5, 3), t(3, 1024)
+    f32 = dict(dtype=torch.float32)
+    w = torch.exp(-torch.exp(t(1, 32, 2, 8, **f32)))
+    k, r, v, u = (t(1, 32, 2, 8, **f32), t(1, 32, 2, 8, **f32),
+                  t(1, 32, 2, 8, **f32), t(2, 8, **f32))
+    dt = torch.nn.functional.softplus(t(1, 32, 64, **f32))
+    x, Bs, Cs = t(1, 32, 64, **f32), t(1, 32, 4, **f32), t(1, 32, 4, **f32)
+    A_log, D = t(64, 4, **f32).abs() + 0.1, t(64, **f32)
+    return {
+        "fused_worker": lambda: ops.fused_worker(ca, cb, a, b),
+        "decode": lambda: ops.decode(W, Y, 64.0),
+        "decode_partial": lambda: ops.decode_partial(Ws, Ys, 64.0),
+        "encode": lambda: ops.encode(coeff, blocks),
+        "matmul_t": lambda: ops.matmul_t(a[0], b[0]),
+        "wkv_scan": lambda: ops.wkv_scan(w, k, v, r, u, chunk=8),
+        "mamba_scan": lambda: ops.mamba_scan(dt, x, Bs, Cs, A_log, D, chunk=8),
+    }
+
+
+def test_kernel_call_counter_equals_launches(cuda, obs_off):
+    """For every wrapper, ``kernel.call{op}`` equals the launch-count delta,
+    and each call leaves one event-timed ``kernel.<op>`` span."""
+    calls = _seven_calls_on_the_card()
+    for call in calls.values():          # builds the libraries first
+        call()
+    obs.enable(fresh=True)
+    ops.reset_launch_counts()
+    for _ in range(3):
+        for call in calls.values():
+            call()
+    counts = ops.launch_counts()
+    reg, rec = obs.session().registry, obs.session().recorder
+    for op in calls:
+        assert reg.value("kernel.call", op=op, traced=0) == counts[op] == 3, op
+        spans = rec.by_name(f"kernel.{op}")
+        assert len(spans) == 3 and all(s.lane == "kernels" for s in spans)
+        assert all(s.duration_s > 0 for s in spans), op
+
+
+def test_event_timed_spans_lie_inside_the_request_wall(cuda, obs_off):
+    A, B, plan = _obs_problem()
+    cm = CodedMatmul(plan)
+    cm(A, B, erased=[1])                 # builds, factors the first panel
+    obs.enable(fresh=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cm(A, B, erased=[1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = obs.session().recorder
+    spans = rec.by_name("kernel.fused_worker") + rec.by_name("kernel.decode")
+    assert len(spans) == 2
+    assert all(0 < s.duration_s < wall for s in spans)
+    assert sum(s.duration_s for s in spans) < wall

@@ -253,8 +253,8 @@ def test_cpu_path_launches_no_kernel(rng):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """The package, every module of it and the smoke script's imports pull
-    in no JAX and nothing of the JAX package."""
+    """The package, every module of it, the smoke script's imports and the
+    port's benches pull in no JAX and nothing of the JAX package."""
     code = """
 import importlib, pkgutil, sys
 import repro_torch
@@ -262,6 +262,8 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)
 sys.path.insert(0, {root!r})
 import chip_smoke
+import benchmarks.torch_obs_util, benchmarks.torch_table1_error
+import benchmarks.torch_fig1_latency, benchmarks.torch_tradeoff_sweep
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
