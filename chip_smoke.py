@@ -71,9 +71,24 @@ Phases, each raising on failure:
    6b jamba - the same for Jamba-1.5-Large at full width, cut to one
              pattern group (8 layers: 1 attention + 7 Mamba) with every FFN
              the dense MLP (the MoE layers cut), through the selective-scan
-             kernel (7 launches per prefill).
+             kernel (7 launches per prefill);
+9. control - the adaptive control plane (``repro_torch.control``): 9a
+             replays the 13 checked-in control golden traces
+             (``tests/golden``) on the fused and the staged kernels, each
+             with an empty ``Trace.diff`` and every step exact; 9b serves
+             ``configs/paper_matmul.py``'s 8000^2 geometry (K=10, float64,
+             entries in [-2, 2]) through ``AdaptiveServer`` on a bec/polycode
+             ``PlanLadder`` of fused kernels: heavy_tail (binary erasure),
+             crawler (``sub_tasks=4``) and the elastic pool_resize recipe
+             (shrink 10 -> 7 onto bec, grow to 9 with polycode back), every
+             C equal to A^T B, each step's launches as its path says, no
+             pipeline build outside a handoff; 9c repeats the heavy_tail run
+             at the main path's entries {0..15}, printing each step's
+             exactness beside its decode panel's gain (not gated); then the
+             control bench twin (``benchmarks/torch_control_bench.py``) runs
+             its ``--check`` gates on the fused kernels.
 
-Phases 7 and 8 run after phase 5b and before the LM phases.  Phase 3b holds the WKV and selective-scan kernels against their plain
+Phases 7, 8 and 9 run after phase 5b and before the LM phases.  Phase 3b holds the WKV and selective-scan kernels against their plain
 versions at the LM prefill's shapes, at ragged shapes and (the selective
 scan) at the Jamba initialisation's long-memory regime; phase 5b times them
 beside their bounds (the selective scan's also beside the MUFU time of its
@@ -101,10 +116,19 @@ import re  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from benchmarks import torch_fig1_latency, torch_table1_error, torch_tradeoff_sweep  # noqa: E402
+from benchmarks import (  # noqa: E402
+    torch_control_bench,
+    torch_fig1_latency,
+    torch_table1_error,
+    torch_tradeoff_sweep,
+)
+from benchmarks.torch_obs_util import CompileWatch  # noqa: E402
 from repro_torch import obs  # noqa: E402
+from repro_torch.chaos import Trace, make_scenario  # noqa: E402
+from repro_torch.chaos.golden import golden_names, replay_golden  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.paper_matmul import CONFIG as PAPER  # noqa: E402
+from repro_torch.control import AdaptiveServer, ExpectedLatencyPolicy, PlanLadder  # noqa: E402
 from repro_torch.core import bounds, make_plan  # noqa: E402
 from repro_torch.core.partition import block_decompose  # noqa: E402
 from repro_torch.kernels import _build, coded_decode, coded_fused, ops, ref  # noqa: E402
@@ -152,6 +176,11 @@ SCAN_BEFORE_MS = {"wkv_scan": 1.401, "mamba_scan": 0.945}
 SCAN_FLOOR_MS = {"wkv_scan": 0.70, "mamba_scan": 0.63}
 SMS = 132                    # H100 SXM streaming multiprocessors
 MUFU_EX2_PER_CLOCK = 16      # per SM, compute capability 9.0 (CUDA C Programming Guide)
+# Phase 9: the checked-in control golden traces, and the golden recipe's
+# constant per-rung overheads (units of one worker step), which keep the
+# rung sequence at 8000^2 deterministic (measured overheads carry noise).
+GOLDEN_DIR = Path(__file__).resolve().parent / "tests" / "golden"
+PAPER_OVERHEAD_S = {"bec": 2.0, "polycode": 0.1}
 KERNELS = ("fused_worker", "decode", "encode", "matmul_t", "decode_partial",
            "mamba_scan", "wkv_scan")
 
@@ -1129,6 +1158,203 @@ def paper_phase(smi: str) -> dict:
     return {"counts": counts}
 
 
+def launches_since(before: dict) -> dict:
+    after = ops.launch_counts()
+    return {k: after[k] - before[k] for k in after}
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def rec_total(name: str) -> int:
+    """A counter's total over all its label sets in the obs session."""
+    return int(obs.session().registry.total(name))
+
+
+def golden_replay_phase(counts: dict) -> None:
+    """9a: every control golden trace replayed through the kernels; the
+    diff against the checked-in file must be empty and every step exact."""
+    for backend in ("fused", "staged"):
+        for key in golden_names():
+            golden = Trace.load(GOLDEN_DIR / f"{key}.jsonl")
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            reports = replay_golden(key, golden, device="cuda", backend=backend)
+            torch.cuda.synchronize()
+            got = ops.launch_counts()
+            diff = golden.diff(reports)
+            check(diff == [], f"9a {backend} {key}: replay differs from the golden "
+                  f"file: {diff[:3]}")
+            check(all(r.exact for r in reports), f"9a {backend} {key}: inexact step")
+            check(got["fused_worker" if backend == "fused" else "matmul_t"] > 0,
+                  f"9a {backend} {key}: the worker kernel never launched: {got}")
+            for k, v in got.items():
+                counts[k] += v
+            print(f"9a {backend:<6} {key:<18} {len(reports):>2} steps, diff [], all exact, "
+                  f"rungs {sorted({r.rung for r in reports})}, "
+                  f"{time.perf_counter() - t0:.2f} s, launches {nonzero(got)}")
+
+
+def adaptive_run(label: str, ladder, A, B, scenario, steps: int, counts: dict, *,
+                 seed: int, sub_tasks: int = 1, universe=None, pool=None,
+                 join=None, gated: bool = True) -> list:
+    """Serve ``steps`` requests through an ``AdaptiveServer`` over ``ladder``
+    and print each step; returns the reports.  Gates every step's launches
+    and the pipeline builds (none outside an elastic handoff), and, when
+    ``gated``, its product (``check_exact``); otherwise prints the decode
+    panel's gain (max row sum of |W|) beside the step's exactness."""
+    policy = ExpectedLatencyPolicy(ladder, overhead_s=PAPER_OVERHEAD_S,
+                                   sub_tasks=sub_tasks)
+    feed = scenario.compile(universe or ladder.K, seed=seed)
+    server = AdaptiveServer(ladder, policy=policy, feed=feed, seed=seed,
+                            check_exact=True, sub_tasks=sub_tasks,
+                            universe=universe, pool=pool)
+    decode = "decode_partial" if sub_tasks > 1 else "decode"
+    rec = obs.session().recorder
+    watch = CompileWatch()
+    ops.reset_launch_counts()
+    for i in range(steps):
+        handoff = ""
+        if join is not None and i == join[0]:
+            rungs_before = ladder.rungs
+            server.grow(join[1])
+            handoff = f" grow {rungs_before} -> {ladder.rungs} (pool {len(server.pool)})"
+            watch.mark()  # the grown pool's pipelines build once, here
+        before = ops.launch_counts()
+        pool_before = None if server.pool is None else len(server.pool)
+        _, rep = server.step(A, B)
+        got = launches_since(before)
+        shrunk = pool_before is not None and len(rep.pool) < pool_before
+        # a shrink re-prewarms the survivor pool inside the step: one build
+        # and one timed call per rung it kept
+        extra = 2 * len(ladder.rungs) if shrunk else 0
+        want = dict.fromkeys(got, 0) | {"fused_worker": 1 + extra, decode: 1}
+        if shrunk:
+            want["decode"] += extra
+        check(rep.exact or not gated, f"{label} step {i}: C differs from A^T B")
+        check(got == want, f"{label} step {i} launched {got}, not {want}")
+        builds = watch.delta()
+        check(builds == 0 or shrunk, f"{label} step {i}: {builds} pipeline build(s) "
+              f"outside a handoff")
+        watch.mark()
+        begin = rec.by_name("control.begin_step")[-1].duration_s * 1e3
+        complete = rec.by_name("control.complete_step")[-1].duration_s * 1e3
+        what = (f"progress {[round(x, 2) for x in rep.progress]}" if rep.progress
+                else f"erased {list(rep.erased)}")
+        gain = ""
+        if not gated:
+            mask = np.ones(ladder.K)
+            mask[list(rep.erased)] = 0
+            W = ladder.facade(rep.rung).panel_cache.get(mask).W
+            gain = f", panel gain {float(np.abs(W).sum(1).max()):.1f}"
+        if shrunk:
+            handoff = f" shrink -> pool {len(rep.pool)}, rungs {ladder.rungs}, {builds} builds"
+        print(f"{label} step {i:>2}: {rep.rung:<8} switched {int(rep.switched)} {what} "
+              f"pool {len(rep.pool) if rep.pool else ladder.K} sim {rep.sim_latency_s:.4f} "
+              f"wall {rep.wall_ms:.2f} ms exact {rep.exact}{gain} begin {begin:.3f} ms "
+              f"complete {complete:.3f} ms launches {nonzero(got)}{handoff}")
+    for k, v in ops.launch_counts().items():
+        counts[k] += v
+    return server.reports
+
+
+def control_phase(seed: int, smi: str) -> dict:
+    """The adaptive control plane (``repro_torch.control``) on the card: the
+    golden traces through the kernels (9a), the paper's 8000^2 geometry
+    through ``AdaptiveServer`` (9b, gated), the main path's entry bound
+    reported (9c), and the control bench twin's gates on the fused kernels."""
+    phase("9 adaptive control plane")
+    start = time.perf_counter()
+    counts = dict.fromkeys(ops.launch_counts(), 0)
+    golden_replay_phase(counts)
+
+    obs.enable(fresh=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ints = lambda lo, hi, shape: torch.randint(  # noqa: E731
+        lo, hi + 1, shape, generator=gen, device="cuda", dtype=torch.float64)
+    v, r, t = PAPER.v, PAPER.r, PAPER.t
+    L = bounds.conservative_L(v, 2, 2)
+    A, B = ints(-2, 2, (v, r)), ints(-2, 2, (v, t))
+
+    def ladder(L, sub_tasks=1, **kw):
+        lad = PlanLadder(PAPER.p, PAPER.m, PAPER.n, K=PAPER.K, L=L, backend="fused",
+                         device="cuda", **kw)
+        info = lad.prewarm((v, r), (v, t), sub_tasks=sub_tasks)
+        print(f"ladder K={PAPER.K} L={L} s=2^{int(np.log2(lad.plan(lad.rungs[0]).s))}: "
+              + ", ".join(f"{x} tau {lad.tau(x)} feasible {lad.feasible(x)}"
+                          for x in lad.rungs)
+              + f"; prewarm step_overhead_s {info['overhead_s']} beside the policy's "
+              f"constants {PAPER_OVERHEAD_S} (on {smi})")
+        return lad
+
+    print(f"9b paper geometry: v=r=t={v}, grid p=m=n=2, K={PAPER.K}, float64, entries "
+          f"in [-2, 2], chebyshev points, fused kernels")
+    lad = ladder(L, sub_tasks=Q_SUB)
+    check(lad.rungs == ("bec", "polycode"), f"9b rungs {lad.rungs}")
+    runs = {"heavy_tail": adaptive_run("9b heavy_tail", lad, A, B, make_scenario("heavy_tail"),
+                                       10, counts, seed=seed),
+            "crawler Q=4": adaptive_run("9b crawler Q=4", lad, A, B, make_scenario("crawler"),
+                                        10, counts, seed=seed, sub_tasks=Q_SUB)}
+    scenario = make_scenario("pool_resize", num_departing=3, depart_step=4,
+                             num_arriving=2, join_step=12)
+    arriving = scenario.arriving_ids(12, seed)
+    pool = [i for i in range(12) if i not in set(arriving.tolist())]
+    el = ladder(L, include=["polycode"])
+    reps = adaptive_run("9b elastic", el, A, B, scenario, 16, counts, seed=seed,
+                        universe=12, pool=pool, join=(12, arriving))
+    runs["elastic"] = reps
+    sizes = [len(x.pool) for x in reps]
+    shrink = next((i for i, n in enumerate(sizes) if n < 10), None)
+    check(shrink is not None and sizes[shrink] == 7 and reps[shrink].rung == "bec"
+          and reps[0].rung == "polycode" and any(x.respecialize for x in reps),
+          f"9b elastic: no shrink 10 -> 7 onto bec: pools {sizes}, "
+          f"rungs {[x.rung for x in reps]}")
+    check(sizes[-1] == 9 and "polycode" in el.rungs and el.feasible("polycode"),
+          f"9b elastic: no grow to 9 with polycode back: pools {sizes}, rungs {el.rungs}")
+    rec = obs.session().recorder
+    print(f"9b control host time per step (control.* spans): begin_step median "
+          f"{np.median([x.duration_s for x in rec.by_name('control.begin_step')]) * 1e3:.3f}"
+          f" ms, complete_step median "
+          f"{np.median([x.duration_s for x in rec.by_name('control.complete_step')]) * 1e3:.3f}"
+          f" ms; counters switch {rec_total('control.switch')}, respecialize "
+          f"{rec_total('control.respecialize')}, pool shrink "
+          f"{rec_total('control.pool.shrink')}, grow {rec_total('control.pool.grow')}")
+    for name, reports in runs.items():
+        walls = [x.wall_ms for x in reports]
+        print(f"9b {name}: request wall first {walls[0]:.2f} ms, median of the rest "
+              f"{float(np.median(walls[1:])):.2f} ms, all exact, on {smi}")
+    del lad, el
+
+    print(f"9c main path's entry bound: entries in {{0..{ENTRY_MAX}}}, L={MAIN.L} "
+          f"(reported, not gated)")
+    A, B = ints(0, ENTRY_MAX, (v, r)), ints(0, ENTRY_MAX, (v, t))
+    lad = ladder(MAIN.L)
+    reports = adaptive_run("9c heavy_tail", lad, A, B, make_scenario("heavy_tail"), 10,
+                           counts, seed=seed, gated=False)
+    inexact = [(x.step, x.rung, list(x.erased)) for x in reports if not x.exact]
+    print(f"9c inexact steps (step, rung, erased): {inexact}")
+    obs.disable()
+    del A, B, lad
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = torch_control_bench.run("all", "fused", "cuda")
+    got = ops.launch_counts()
+    for line in torch_control_bench.rows_text(result):
+        print(f"bench {line}")
+    torch_control_bench.check(result)
+    obs.disable()
+    for k, n in got.items():
+        counts[k] += n
+    print(f"control bench (fused, cuda) check OK in {time.perf_counter() - t0:.1f} s, "
+          f"launches {nonzero(got)}")
+    print(f"phase 9: {time.perf_counter() - start:.1f} s, launches {nonzero(counts)}")
+    return {"counts": counts}
+
+
 def tensor_rate(name: str, flops: float, t: dict) -> None:
     """Print a kernel's achieved FP64 rate, its share of the tensor peak and
     whether it meets its floor."""
@@ -1168,6 +1394,7 @@ def main() -> None:
     del A, B, C_ref
     torch.cuda.empty_cache()
     paths["paper"] = paper_phase(dev["smi"])
+    paths["control"] = control_phase(args.seed, dev["smi"])
     lms = {"rwkv6_3b": rwkv_phase(args.seed), "jamba group": jamba_phase(args.seed)}
     for name, lm in lms.items():
         print(f"LM serving ({name}, {LM_BATCH}x{LM_PROMPT} prompt, {LM_GEN} tokens, bf16): "

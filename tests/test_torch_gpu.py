@@ -13,6 +13,7 @@ import torch
 
 import dataclasses
 import time
+from pathlib import Path
 
 from repro_torch import obs
 from repro_torch.configs import get_smoke_config
@@ -655,3 +656,55 @@ def test_event_timed_spans_lie_inside_the_request_wall(cuda, obs_off):
     assert len(spans) == 2
     assert all(0 < s.duration_s < wall for s in spans)
     assert sum(s.duration_s for s in spans) < wall
+
+
+# -- the adaptive control plane on the card ---------------------------------
+
+_GOLDEN_DIR = Path(__file__).parent / "golden"
+
+
+@pytest.mark.parametrize("key", ["heavy_tail", "crawler_partial",
+                                 "pool_resize_grow"])
+def test_golden_replay_on_the_fused_kernels(cuda, key):
+    """A checked-in golden trace replays through the fused kernels with an
+    empty diff: the backend moves no recorded field, every step exact."""
+    from repro_torch.chaos import Trace
+    from repro_torch.chaos.golden import replay_golden
+
+    golden = Trace.load(_GOLDEN_DIR / f"{key}.jsonl")
+    reports = replay_golden(key, golden, device=cuda, backend="fused")
+    assert golden.diff(reports) == []
+    assert all(r.exact for r in reports)
+    counts = ops.launch_counts()
+    assert counts["fused_worker"] > 0
+    assert counts["decode_partial" if key == "crawler_partial" else "decode"] > 0
+
+
+def test_batched_bucketed_step_launches_bucket_times(cuda):
+    """A batch of 5 pads to the bucket of 8: kernels 1 and 2 launch 8 times
+    each, and C equals the CPU reference backend's."""
+    from repro_torch.control import AdaptiveServer, ExpectedLatencyPolicy, PlanLadder
+
+    def serve(device, backend):
+        lad = PlanLadder(4, 2, 1, K=12, L=257, backend=backend, device=device)
+        lad.prewarm((16, 8), (16, 4), batch_sizes=(4, 8))
+        srv = AdaptiveServer(lad, policy=ExpectedLatencyPolicy(
+            lad, overhead_s={r: 0.0 for r in lad.rungs}),
+            feed=lambda s, r: np.r_[np.full(10, 1.0), 2.0, 2.0],
+            check_exact=True)
+        rng = np.random.default_rng(11)
+        A = torch.as_tensor(rng.integers(-4, 5, size=(5, 16, 8)),
+                            dtype=torch.float64, device=device)
+        B = torch.as_tensor(rng.integers(-4, 5, size=(16, 4)),
+                            dtype=torch.float64, device=device)
+        srv.run(2, lambda i: (A, B))        # warm the monitor
+        ops.reset_launch_counts()
+        C, rep = srv.step(A, B)
+        torch.cuda.synchronize()
+        return C, rep, ops.launch_counts()
+
+    C, rep, counts = serve(cuda, "fused")
+    C_ref, rep_ref, _ = serve("cpu", "reference")
+    assert counts == dict(_NONE, fused_worker=8, decode=8)
+    assert rep.exact and rep.erased == rep_ref.erased == (10, 11)
+    assert torch.equal(C.cpu(), C_ref)
