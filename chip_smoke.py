@@ -86,9 +86,29 @@ Phases, each raising on failure:
              at the main path's entries {0..15}, printing each step's
              exactness beside its decode panel's gain (not gated); then the
              control bench twin (``benchmarks/torch_control_bench.py``) runs
-             its ``--check`` gates on the fused kernels.
+             its ``--check`` gates on the fused kernels;
+10. serve  - the multi-tenant serve tier (``repro_torch.serve``) and the
+             serving CLI: 10a replays the golden serve trace
+             (``tests/golden/serve_heavy_tail.jsonl``) on the fused and the
+             staged kernels, diff empty, every batch exact and every product
+             bit-identical to a synchronous facade call; 10b serves the CLI's
+             tier geometry at v = 8000 (grid (4, 2, 1), K=12, A and B 8000 x
+             4000 float64, entries in [-4, 4], L = conservative_L(8000, 4, 4):
+             s = 2^18, bec infeasible) on fused kernels with buckets
+             (1, 2, 4, 8): DEFAULT_SPEC's three tenants under heavy_tail, 12
+             requests each, pipelined, then back to back (max_batch=1), then
+             sub_tasks=4 under crawler, on one ladder; no pipeline build after
+             prewarm, each batch launching ``bucket`` of the worker and the
+             decode kernel, every batch exact (the oracle on the card, outside
+             the wall) and every product bit-identical to a synchronous facade
+             call at its batch's rung and erasure; it prints each batch's wall
+             and panel gain, each run's wall and completions per second, the
+             begin_step host time, the serve.* spans, the peak memory and the
+             simulated tenant table; 10c calls ``coded_serve.main`` in its
+             modes (the tier at v = 8000, exact) and runs the serve bench
+             twin's ``--check`` gates on the fused kernels.
 
-Phases 7, 8 and 9 run after phase 5b and before the LM phases.  Phase 3b holds the WKV and selective-scan kernels against their plain
+Phases 7, 8, 9 and 10 run after phase 5b and before the LM phases.  Phase 3b holds the WKV and selective-scan kernels against their plain
 versions at the LM prefill's shapes, at ragged shapes and (the selective
 scan) at the Jamba initialisation's long-memory regime; phase 5b times them
 beside their bounds (the selective scan's also beside the MUFU time of its
@@ -100,6 +120,8 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -119,23 +141,40 @@ import torch  # noqa: E402
 from benchmarks import (  # noqa: E402
     torch_control_bench,
     torch_fig1_latency,
+    torch_serve_bench,
     torch_table1_error,
     torch_tradeoff_sweep,
 )
 from benchmarks.torch_obs_util import CompileWatch  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.chaos import Trace, make_scenario  # noqa: E402
-from repro_torch.chaos.golden import golden_names, replay_golden  # noqa: E402
+from repro_torch.chaos.golden import (  # noqa: E402
+    GOLDEN_GRID,
+    GOLDEN_K,
+    GOLDEN_L,
+    golden_names,
+    replay_golden,
+)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.paper_matmul import CONFIG as PAPER  # noqa: E402
 from repro_torch.control import AdaptiveServer, ExpectedLatencyPolicy, PlanLadder  # noqa: E402
 from repro_torch.core import bounds, make_plan  # noqa: E402
 from repro_torch.core.partition import block_decompose  # noqa: E402
 from repro_torch.kernels import _build, coded_decode, coded_fused, ops, ref  # noqa: E402
+from repro_torch.launch import coded_serve  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.obs import export, report  # noqa: E402
 from repro_torch.runtime import CodedMatmul, PartialPattern, chunk_bounds  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    DEFAULT_SPEC,
+    GOLDEN_SERVE_OVERHEAD_S,
+    ServeTier,
+    ServeTrace,
+    golden_serve_result,
+    parse_tenant_spec,
+)
+from repro_torch.serve.trace import golden_operands, with_golden_meta  # noqa: E402
 
 # Published H100 SXM peaks at 700 W (NVIDIA data sheet).
 PEAK_FP64_TENSOR = 67e12     # FLOP/s, FP64 on the tensor cores (DMMA)
@@ -181,6 +220,13 @@ MUFU_EX2_PER_CLOCK = 16      # per SM, compute capability 9.0 (CUDA C Programmin
 # rung sequence at 8000^2 deterministic (measured overheads carry noise).
 GOLDEN_DIR = Path(__file__).resolve().parent / "tests" / "golden"
 PAPER_OVERHEAD_S = {"bec": 2.0, "polycode": 0.1}
+# Phase 10: the serve CLI's tier geometry (``launch/coded_serve.py``) at the
+# paper's inner dimension v = 8000: grid (4, 2, 1), K = 12, r = t = v/2,
+# entries in [-4, 4] and L = conservative_L(v, 4, 4) (s = 2^18, bec
+# infeasible), DEFAULT_SPEC's three tenants, 12 requests each.
+TIER_GRID, TIER_K, TIER_ENTRY = (4, 2, 1), 12, 4
+TIER_BUCKETS = (1, 2, 4, 8)
+TIER_REQUESTS = 12
 KERNELS = ("fused_worker", "decode", "encode", "matmul_t", "decode_partial",
            "mamba_scan", "wkv_scan")
 
@@ -1355,6 +1401,270 @@ def control_phase(seed: int, smi: str) -> dict:
     return {"counts": counts}
 
 
+def golden_serve_phase(counts: dict) -> None:
+    """10a: the golden serve trace through the kernels; the diff against the
+    checked-in file must be empty, every batch exact, and every admitted
+    product bit-identical to a fresh synchronous facade call."""
+    golden = ServeTrace.load(GOLDEN_DIR / "serve_heavy_tail.jsonl")
+    make_A, B = golden_operands("cuda")
+    for backend in ("fused", "staged"):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = golden_serve_result(device="cuda", backend=backend)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = ops.launch_counts()
+        for k, v in got.items():
+            counts[k] += v
+        trace = with_golden_meta(ServeTrace.from_result(result))
+        diff = trace.diff(golden)
+        check(diff == [] and trace.meta == golden.meta,
+              f"10a {backend}: the serve trace differs from the golden file: {diff[:3]}")
+        check(all(b.report["exact"] for b in result.batches), f"10a {backend}: inexact batch")
+        cm = PlanLadder(*GOLDEN_GRID, K=GOLDEN_K, L=GOLDEN_L, backend=backend,
+                        device="cuda").facade("bec")
+        check(all(torch.equal(cm(make_A(rec), B), result.results[rec.rid])
+                  for rec in result.completed),
+              f"10a {backend}: a product differs from the synchronous facade's")
+        print(f"10a {backend:<6} serve_heavy_tail: {len(result.requests)} requests, "
+              f"{len(result.batches)} batches, diff [], meta equal, all exact, every product "
+              f"bit-identical to the facade, {seconds:.2f} s, launches {nonzero(got)}")
+
+
+class BatchProbe:
+    """The kernel launches and host-clock decision time of each batch a
+    ``ServeTier`` dispatches.  Every dispatch calls its class server's
+    ``begin_step`` once, just before its facade calls: the probe wraps it to
+    note the launch counts and time the decision."""
+
+    def __init__(self, tier):
+        self.marks = []
+        for server in tier.servers.values():
+            server.begin_step = self._timed(server.begin_step)
+
+    def _timed(self, begin):
+        def timed():
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            decision = begin()
+            self.marks.append((before, (time.perf_counter() - t0) * 1e3))
+            return decision
+        return timed
+
+    def launches(self) -> list:
+        """Each batch's launches, in dispatch order."""
+        snaps = [m[0] for m in self.marks] + [ops.launch_counts()]
+        return [{k: b[k] - a[k] for k in a} for a, b in zip(snaps, snaps[1:])]
+
+
+def panel_gain(ladder, rung: str, report: dict) -> float:
+    """The decode panel's gain (max row sum of |W|) for a batch's erasure, or
+    the largest over its chunks' panels for a progress vector."""
+    cache = ladder.facade(rung).panel_cache
+    if report["progress"] is not None:
+        masks = PartialPattern.from_progress(ladder.K, Q_SUB, report["progress"]).chunk_masks
+    else:
+        masks = [cm_mask(ladder.plan(rung), list(report["erased"]))]
+    return max(float(np.abs(cache.get(m).W).sum(1).max()) for m in masks)
+
+
+def tier_run(label: str, ladder, initial: str, scenario: str, seed: int, operands,
+             counts: dict, **kw) -> dict:
+    """One ``ServeTier`` run of DEFAULT_SPEC over ``ladder``: every batch exact,
+    launching ``bucket`` of the worker and the decode kernel, and every product
+    bit-identical to a synchronous facade call at its batch's rung and erasure."""
+    make_A, B = operands
+    classes, tenants = parse_tenant_spec(DEFAULT_SPEC)
+    ladder.switch(initial)  # the shared ladder starts each run on one rung
+    tier = ServeTier(ladder, classes=tuple(classes.values()),
+                     tenants=tuple(tenants.values()),
+                     feed=make_scenario(scenario).compile(ladder.K, seed=seed),
+                     overhead_s=GOLDEN_SERVE_OVERHEAD_S, seed=seed, check_exact=True,
+                     keep_results=True, **kw)
+    probe = BatchProbe(tier)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = tier.run(make_A, B, TIER_REQUESTS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    for k, v in ops.launch_counts().items():
+        counts[k] += v
+    walls = {rep.span_id: rep.wall_ms for server in tier.servers.values()
+             for rep in server.reports}
+    decode = "decode_partial" if kw.get("sub_tasks", 1) > 1 else "decode"
+    batch_walls = []
+    for b, got, (_, begin_ms) in zip(result.batches, probe.launches(), probe.marks):
+        wall = walls[b.report["span_id"]]
+        batch_walls.append(wall)
+        what = (f"progress {[round(x, 2) for x in b.report['progress']]}"
+                if b.report["progress"] is not None else f"erased {list(b.report['erased'])}")
+        print(f"10b {label} batch {b.index:>2}: {b.slo_class:<8} {b.rung:<14} size {b.size} "
+              f"bucket {b.bucket} {what} panel gain {panel_gain(ladder, b.rung, b.report):.1f} "
+              f"wall {wall:.2f} ms begin_step {begin_ms:.3f} ms exact {b.report['exact']} "
+              f"launches {nonzero(got)}")
+        want = dict.fromkeys(got, 0) | {"fused_worker": b.bucket, decode: b.bucket}
+        check(got == want, f"10b {label} batch {b.index} launched {got}, not {want}")
+        check(b.report["exact"], f"10b {label} batch {b.index}: C differs from A^T B")
+    check(len(probe.marks) == len(result.batches), f"10b {label}: batches and decisions differ")
+    for rec in result.completed:
+        b = result.batches[rec.batch_index]
+        cm = ladder.facade(b.rung)
+        if b.report["progress"] is not None:
+            C = cm(make_A(rec), B, progress=b.report["progress"], sub_tasks=Q_SUB)
+        else:
+            C = cm(make_A(rec), B, erased=list(b.report["erased"]))
+        check(torch.equal(C, result.results[rec.rid]), f"10b {label} request {rec.rid}: "
+              f"the product differs from the synchronous facade's")
+    done = len(result.completed)
+    print(f"10b {label}: {len(result.requests)} arrivals, {len(result.admitted)} admitted, "
+          f"{len(result.shed)} shed, {len(result.batches)} batches; run wall {wall_s:.3f} s "
+          f"({done / wall_s:.2f} completions/s), batch walls sum {sum(batch_walls):.1f} ms "
+          f"({done / (sum(batch_walls) * 1e-3):.2f} completions/s); simulated "
+          f"{result.throughput_rps():.4f} req/s; every product bit-identical to the facade")
+    return {"stats": result.tenant_stats(), "begin_ms": [m[1] for m in probe.marks]}
+
+
+def serve_tier_phase(seed: int, smi: str, counts: dict) -> None:
+    """10b: the serve CLI's tier geometry at v = 8000 on fused kernels: the
+    pipelined tier, the back-to-back baseline, and a sub_tasks=4 run, on one
+    ladder with no pipeline build after prewarm."""
+    v = PAPER.v
+    r = t = v // 2
+    L = bounds.conservative_L(v, TIER_ENTRY, TIER_ENTRY)
+    obs.enable(fresh=True)
+    torch.cuda.reset_peak_memory_stats()
+    ladder = PlanLadder(*TIER_GRID, K=TIER_K, L=L, backend="fused", device="cuda")
+    initial = ladder.active
+    t0 = time.perf_counter()
+    ladder.prewarm((v, r), (v, t), batch_sizes=TIER_BUCKETS, sub_tasks=Q_SUB, stages=True)
+    print(f"10b tier geometry: v={v} r=t={r}, grid {TIER_GRID}, K={TIER_K}, float64, "
+          f"entries in [-{TIER_ENTRY}, {TIER_ENTRY}], L={L} "
+          f"s=2^{int(np.log2(ladder.plan(initial).s))}, chebyshev points, fused kernels, "
+          f"buckets {TIER_BUCKETS}: "
+          + ", ".join(f"{x} tau {ladder.tau(x)} feasible {ladder.feasible(x)}"
+                      for x in ladder.rungs)
+          + f"; prewarm {time.perf_counter() - t0:.1f} s, {ladder.cache_info()['builds']} "
+          f"pipelines")
+    check([ladder.feasible(x) for x in ladder.rungs] == [False, True, True],
+          f"10b rungs {ladder.rungs}: bec must be the one infeasible rung")
+    watch = CompileWatch()
+    watch.mark()
+    rec = obs.session().recorder
+    kernels = ("fused_worker", "decode", "decode_partial")
+    spans_before = {op: len(rec.by_name(f"kernel.{op}")) for op in kernels}
+    operands = coded_serve.serve_tier_operands(seed, 3 * 64, ((v, r), (v, t)), "cuda")
+    runs = {}
+    for label, scenario, kw in (("tier", "heavy_tail", {}),
+                                ("baseline", "heavy_tail", dict(max_batch=1, pipelined=False)),
+                                ("sub_tasks=4", "crawler", dict(sub_tasks=Q_SUB))):
+        runs[label] = tier_run(label, ladder, initial, scenario, seed, operands, counts, **kw)
+    builds = watch.delta()
+    check(builds == 0, f"10b: {builds} pipeline build(s) after prewarm")
+    print(f"10b peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"no pipeline build after prewarm across the three runs")
+    begin = [x for run in runs.values() for x in run["begin_ms"]]
+    print(f"10b control.begin_step host time (probe, host clock): median "
+          f"{float(np.median(begin)):.3f} ms over {len(begin)} batches, max {max(begin):.3f} ms")
+    print("10b kernel device time per launch in the three runs and their facade checks "
+          "(kernel.* spans, CUDA events): " + ", ".join(
+              f"{op} median {np.median(d) * 1e3:.3f} ms ({len(d)} launches)"
+              for op in kernels
+              if (d := [x.duration_s for x in rec.by_name(f"kernel.{op}")[spans_before[op]:]])))
+    print("10b serve spans " + ", ".join(
+        f"{name} {len(rec.by_name(name))}"
+        for name in ("serve.dispatch", "serve.worker_stage", "serve.decode_stage"))
+        + f"; counters serve.admit {rec_total('serve.admit')}, serve.shed "
+        f"{rec_total('serve.shed')}, serve.batch {rec_total('serve.batch')}")
+    print(f"10b simulated tenant table (tier | baseline), on {smi}:")
+    for name, st in runs["tier"]["stats"].items():
+        sides = []
+        for side in ("tier", "baseline"):
+            x = runs[side]["stats"][name]
+            sides.append(f"p50 {x['p50_s']:.3f} s p_slo {x['p_slo_s']:.3f} s met "
+                         f"{x['slo_met']} shed {x['shed']} {x['shed_reasons']}")
+        print(f"  {name:<7} {st['slo_class']:<8} slo {st['slo_s']} s: {sides[0]} | {sides[1]}")
+    obs.disable()
+    del ladder, operands
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def cli(args: list, counts: dict) -> tuple:
+    """``coded_serve.main(args)`` on the card, its printed lines echoed."""
+    buf = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = coded_serve.main(args + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    for k, v in got.items():
+        counts[k] += v
+    text = buf.getvalue()
+    print(f"10c coded_serve {' '.join(args)}: {time.perf_counter() - t0:.1f} s, "
+          f"launches {nonzero(got)}")
+    for line in text.splitlines():
+        print(f"  | {line}")
+    return out, text
+
+
+def cli_phase(counts: dict) -> None:
+    """10c: the serving CLI's modes in-process on the card, then the serve
+    bench twin's gates on the fused kernels."""
+    out, text = cli(["--serve-tier", "--size", str(PAPER.v), "--scenario", "heavy_tail",
+                     "--requests", "4"], counts)
+    check("unchanged since prewarm" in text and out.batches
+          and all(b.report["exact"] for b in out.batches),
+          "10c --serve-tier at 8000: a batch is inexact or a pipeline was built")
+    # the CLI's ladder, rebuilt on the host for its decode panels' gains
+    panels = PlanLadder(*TIER_GRID, K=TIER_K, L=bounds.conservative_L(
+        PAPER.v, TIER_ENTRY, TIER_ENTRY), device="cpu")
+    print("10c --serve-tier at 8000, every batch exact: " + ", ".join(
+        f"{b.rung} size {b.size} erased {list(b.report['erased'])} gain "
+        f"{panel_gain(panels, b.rung, b.report):.1f}" for b in out.batches))
+    del out
+    for backend in ("fused", "staged"):
+        _, text = cli(["--backend", backend, "--requests", "6"], counts)
+        lines = [x for x in text.splitlines() if x.startswith("req ")]
+        check(len(lines) == 6 and all(x.endswith("exact") for x in lines)
+              and " 1 executable(s)" in text,
+              f"10c --backend {backend}: not every request exact on one pipeline")
+    for args in (["--adaptive", "--requests", "12", "--size", "64", "--batch", "6",
+                  "--slo-quantile", "0.99", "--slo-ms", "1800"],
+                 ["--adaptive", "--scenario", "crawler", "--sub-tasks", str(Q_SUB),
+                  "--size", "64"]):
+        reports, text = cli(args, counts)
+        check("unchanged since prewarm" in text and reports and all(x.exact for x in reports),
+              f"10c {' '.join(args)}: a step is inexact or a pipeline was built")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = torch_serve_bench.run(list(torch_serve_bench.CHECK_SCENARIOS), "fused", "cuda")
+    got = ops.launch_counts()
+    for line in torch_serve_bench.rows_text(result):
+        print(f"bench {line}")
+    torch_serve_bench.check(result)
+    obs.disable()
+    for k, n in got.items():
+        counts[k] += n
+    print(f"serve bench (fused, cuda) check OK in {time.perf_counter() - t0:.1f} s, "
+          f"launches {nonzero(got)}")
+
+
+def serve_phase(seed: int, smi: str) -> dict:
+    """The multi-tenant serve tier (``repro_torch.serve``) and the serving CLI
+    on the card: the golden serve trace (10a), the CLI's tier geometry at
+    v = 8000 (10b) and the CLI's modes with the bench twin (10c)."""
+    phase("10 serve tier and the coded_serve CLI")
+    start = time.perf_counter()
+    counts = dict.fromkeys(ops.launch_counts(), 0)
+    golden_serve_phase(counts)
+    serve_tier_phase(seed, smi, counts)
+    cli_phase(counts)
+    print(f"phase 10: {time.perf_counter() - start:.1f} s, launches {nonzero(counts)}")
+    return {"counts": counts}
+
+
 def tensor_rate(name: str, flops: float, t: dict) -> None:
     """Print a kernel's achieved FP64 rate, its share of the tensor peak and
     whether it meets its floor."""
@@ -1395,6 +1705,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     paths["paper"] = paper_phase(dev["smi"])
     paths["control"] = control_phase(args.seed, dev["smi"])
+    paths["serve"] = serve_phase(args.seed, dev["smi"])
     lms = {"rwkv6_3b": rwkv_phase(args.seed), "jamba group": jamba_phase(args.seed)}
     for name, lm in lms.items():
         print(f"LM serving ({name}, {LM_BATCH}x{LM_PROMPT} prompt, {LM_GEN} tokens, bf16): "

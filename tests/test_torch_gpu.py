@@ -708,3 +708,26 @@ def test_batched_bucketed_step_launches_bucket_times(cuda):
     assert counts == dict(_NONE, fused_worker=8, decode=8)
     assert rep.exact and rep.erased == rep_ref.erased == (10, 11)
     assert torch.equal(C.cpu(), C_ref)
+
+
+# -- the serve tier on the card ----------------------------------------------
+
+@pytest.mark.parametrize("backend", ["fused", "staged"])
+def test_golden_serve_trace_on_the_kernels(cuda, backend):
+    """The checked-in golden serve trace replays through the kernels with an
+    empty diff, every batch exact, and every kept product on the card equal
+    to the CPU reference backend's."""
+    from repro_torch.serve import ServeTrace, golden_serve_result
+    from repro_torch.serve.trace import with_golden_meta
+
+    golden = ServeTrace.load(_GOLDEN_DIR / "serve_heavy_tail.jsonl")
+    result = golden_serve_result(device=cuda, backend=backend)
+    trace = with_golden_meta(ServeTrace.from_result(result))
+    assert trace.diff(golden) == [] and trace.meta == golden.meta
+    assert all(b.report["exact"] for b in result.batches)
+    counts = ops.launch_counts()
+    assert counts["fused_worker" if backend == "fused" else "matmul_t"] > 0
+    plain = golden_serve_result(device="cpu").results
+    assert set(plain) == set(result.results)
+    for rid, C in result.results.items():
+        assert C.device.type == "cuda" and torch.equal(C.cpu(), plain[rid])

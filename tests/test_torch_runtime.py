@@ -264,7 +264,7 @@ sys.path.insert(0, {root!r})
 import chip_smoke
 import benchmarks.torch_obs_util, benchmarks.torch_table1_error
 import benchmarks.torch_fig1_latency, benchmarks.torch_tradeoff_sweep
-import benchmarks.torch_control_bench
+import benchmarks.torch_control_bench, benchmarks.torch_serve_bench
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
