@@ -27,9 +27,16 @@ Usage::
     python -m benchmarks.torch_control_bench --check --backend fused # the kernels
     python -m benchmarks.torch_control_bench --check --device cpu    # plain, on the CPU
     python -m benchmarks.torch_control_bench elastic_sweep --check --out rows.json
+    python -m benchmarks.torch_control_bench partial_sweep --backend mesh --check --device cpu
 
-``--backend`` is the ladder's backend (reference, fused, staged; ``mesh``
-is not ported).  The JSON rows go only to the path given by ``--out``.
+``--backend`` is the ladder's backend (reference, fused, staged, or mesh).
+``partial_sweep --backend mesh`` replays the strict-win scenarios
+(heavy_tail, pareto) on a (1, K) mesh of K = 12 ranks that
+``launch/mesh.py`` spawns, each rank serving through a ``MeshExecutor``
+(plain PyTorch worker products on the CPU, the CUDA kernels on the card),
+with rows under ``partial_sweep_mesh`` as in the reference; its ``--check``
+also holds the rows equal to ``BENCH_control.json``'s.  The JSON rows go
+only to the path given by ``--out``.
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ from repro_torch.control import (
     QuantileLatencyPolicy,
 )
 from repro_torch.core.simulator import LatencyModel
+from repro_torch.runtime import MeshExecutor
 
 # geometry shared by every rung of the ladder (paper Sec. IV family)
 P, M, N, K = 4, 2, 1, 12
@@ -85,6 +93,10 @@ PARTIAL_SUB_TASKS = 4
 PARTIAL_STEPS = 48
 PARTIAL_WARMUP = 6
 PARTIAL_SEED = 11
+# the mesh gate replays only the strict-win regimes (the reference's)
+PARTIAL_MESH_SCENARIOS = ("heavy_tail", "pareto")
+MESH_TIMEOUT_S = 600
+BENCH_FILE = Path(__file__).resolve().parents[1] / "BENCH_control.json"
 
 # -- elastic shrink/grow sweep ------------------------------------------------
 EL_GRID = (3, 2, 1)         # bec(tau=2) + polycode(tau=8); 3 prime, no tradeoff
@@ -108,20 +120,28 @@ FB_CONFIG = dict(gain=8.0, window=32, force_after=2, target_rate=0.01)
 BACKENDS = ("reference", "fused", "staged", "mesh")
 
 
-def ladder_kw(backend: str = "reference", device=None) -> dict:
-    """The ``PlanLadder`` keywords every sweep serves through.
+def ladder_kw(backend: str = "reference", device=None, mesh=None) -> dict:
+    """The ``PlanLadder`` keywords every sweep serves through; on "mesh",
+    this rank's ``MeshExecutor`` over ``mesh`` (plain worker products and
+    decode on a CPU mesh, the kernels on a card, as the reference uses
+    plain ones off the TPU).
 
     Raises:
-        NotImplementedError: for ``backend="mesh"`` (not ported).
-        ValueError: for an unknown backend.
+        ValueError: for an unknown backend, or "mesh" without a mesh.
     """
-    if backend == "mesh":
-        raise NotImplementedError(
-            "--backend mesh: the coded on-mesh runtime is not ported yet "
-            "(ROADMAP.md queue 1 item 6); use reference, fused or staged")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; options {BACKENDS}")
+    if backend == "mesh":
+        if mesh is None:
+            raise ValueError("the mesh backend needs the rank's mesh")
+        return {"backend": MeshExecutor(mesh, use_kernels=mesh.device_type != "cpu"),
+                "device": device, "mesh": mesh}
     return {"backend": backend, "device": device}
+
+
+def _backend_name(lad: dict) -> str:
+    backend = lad["backend"]
+    return backend if isinstance(backend, str) else backend.name
 
 
 def _operands(seed: int, device, a_shape=(V, R)):
@@ -342,15 +362,34 @@ def _run_partial(name: str, seed: int, lad: dict) -> dict:
     binary, binary_reports, ladder, (A, B) = _serve_partial(traces, 1, seed,
                                                             lad)
     partial, _, _, _ = _serve_partial(traces, PARTIAL_SUB_TASKS, seed, lad)
-    return {"scenario": name, "seed": seed, "backend": lad["backend"],
+    return {"scenario": name, "seed": seed, "backend": _backend_name(lad),
             "binary": binary, "partial": partial,
             "q1_bit_identical": _q1_parity(ladder, A, B, binary_reports)}
 
 
 def _run_partial_sweep(lad: dict) -> list:
-    """Binary vs partial over the partial-regime scenarios."""
-    return [_run_partial(name, seed=PARTIAL_SEED, lad=lad)
-            for name in PARTIAL_SCENARIOS]
+    """Binary vs partial over the backend's partial-regime scenarios."""
+    names = (PARTIAL_MESH_SCENARIOS if _backend_name(lad) == "mesh"
+             else PARTIAL_SCENARIOS)
+    return [_run_partial(name, seed=PARTIAL_SEED, lad=lad) for name in names]
+
+
+def _mesh_partial_rank(mesh, device) -> list:
+    """One rank's partial sweep on the mesh backend (every rank runs it)."""
+    return _run_partial_sweep(ladder_kw("mesh", device, mesh))
+
+
+def _run_mesh_partial_sweep(device) -> list:
+    """The partial sweep on a (1, K) mesh of spawned ranks: rank 0's rows,
+    after checking every rank made the same decisions."""
+    from repro_torch.launch.mesh import spawn_mesh
+
+    outs = spawn_mesh(_mesh_partial_rank, data=1, model=K, device=device,
+                      args=(device,), timeout_s=MESH_TIMEOUT_S)
+    rows = outs[0].result
+    if any(out.result != rows for out in outs):
+        raise RuntimeError("mesh ranks diverged in the partial sweep")
+    return rows
 
 
 def _run_feedback(enabled: bool, seed: int, lad: dict) -> dict:
@@ -482,8 +521,14 @@ def _run_exhausted(seed: int, lad: dict) -> dict:
 
 def run(sweep: str = "all", backend: str = "reference", device=None) -> dict:
     """Run ``sweep`` ("all", "partial_sweep" or "elastic_sweep") on the
-    ladder ``backend`` and ``device``; returns the rows with their config."""
-    lad = ladder_kw(backend, device)
+    ladder ``backend`` and ``device``; returns the rows with their config
+    (on "mesh", under the ``partial_sweep_mesh`` key).
+
+    Raises:
+        ValueError: for "mesh" with another sweep than partial_sweep.
+    """
+    if backend == "mesh" and sweep != "partial_sweep":
+        raise ValueError("--backend mesh only applies to the partial_sweep sweep")
     partial_config = {
         "scenarios": list(PARTIAL_SCENARIOS), "sub_tasks": PARTIAL_SUB_TASKS,
         "steps": PARTIAL_STEPS, "warmup": PARTIAL_WARMUP,
@@ -494,6 +539,11 @@ def run(sweep: str = "all", backend: str = "reference", device=None) -> dict:
         "depart_step": EL_DEPART, "join_step": EL_JOIN, "seed": EL_SEED,
         "overhead_s": EL_OVERHEAD, "include": ["polycode"],
     }
+    if backend == "mesh":
+        cfg = dict(partial_config, scenarios=list(PARTIAL_MESH_SCENARIOS))
+        return {"config": {"partial_sweep_mesh": cfg},
+                "partial_sweep_mesh": _run_mesh_partial_sweep(device)}
+    lad = ladder_kw(backend, device)
     if sweep == "partial_sweep":
         return {"config": {"partial_sweep": partial_config},
                 "partial_sweep": _run_partial_sweep(lad)}
@@ -592,6 +642,15 @@ def check_partial(rows: list) -> None:
         row = by_name[name]
         assert row["partial"]["p99_s"] < 0.95 * row["binary"]["p99_s"], (
             f"partial did not STRICTLY beat binary p99 under {name}: {row}")
+
+
+def check_mesh(rows: list) -> None:
+    """The partial sweep's gates on the mesh rows, which must also equal
+    the reference's ``partial_sweep_mesh`` rows in ``BENCH_control.json``."""
+    check_partial(rows)
+    want = json.loads(BENCH_FILE.read_text())["partial_sweep_mesh"]
+    assert rows == want, (
+        f"mesh partial-sweep rows differ from {BENCH_FILE.name}: {rows} vs {want}")
 
 
 def check_feedback(rows: list) -> None:
@@ -710,7 +769,8 @@ def rows_text(result: dict) -> list:
             f"violations {row['violations']:2d}/{row['steps']} p50 "
             f"{row['p50_s']:5.2f} s  p99 {row['p99_s']:5.2f} s (rungs "
             f"{row['rungs']})")
-    for row in result.get("partial_sweep", ()):
+    for row in (*result.get("partial_sweep", ()),
+                *result.get("partial_sweep_mesh", ())):
         b, p = row["binary"], row["partial"]
         lines.append(
             f"partial [{row['backend']}] {row['scenario']:<12} binary p99 "
@@ -746,8 +806,8 @@ def main(argv=None) -> dict:
                          "binary-vs-partial or the elastic sweep")
     ap.add_argument("--backend", default="reference", choices=BACKENDS,
                     help="the ladder's backend: reference (plain PyTorch), "
-                         "fused or staged (the CUDA kernels on the card); "
-                         "mesh is not ported")
+                         "fused or staged (the CUDA kernels on the card), or "
+                         "mesh (partial_sweep only: K ranks, one worker each)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain versions)")
@@ -766,8 +826,13 @@ def main(argv=None) -> dict:
         out.write_text(json.dumps(result, indent=2) + "\n")
         print(f"wrote {out}")
     if args.check:
-        {"all": check, "partial_sweep": lambda r: check_partial(r["partial_sweep"]),
-         "elastic_sweep": lambda r: check_elastic(r["elastic_sweep"])}[args.sweep](result)
+        if args.backend == "mesh":
+            check_mesh(result["partial_sweep_mesh"])
+        else:
+            {"all": check,
+             "partial_sweep": lambda r: check_partial(r["partial_sweep"]),
+             "elastic_sweep": lambda r: check_elastic(r["elastic_sweep"])
+             }[args.sweep](result)
         print(f"control bench check ({args.sweep}, {args.backend}): OK")
     return result
 

@@ -30,7 +30,9 @@ Usage::
     python -m benchmarks.torch_serve_bench --scenario crawler --out rows.json
 
 ``--backend`` is the ladder's backend (reference, fused, staged; ``mesh``
-is not ported).  The JSON rows go only to the path given by ``--out``.
+is refused: the tier's split worker/decode stages do not run on mesh, and
+the reference's bench offers no mesh).  The JSON rows go only to the path
+given by ``--out``.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ from benchmarks.torch_control_bench import BACKENDS, ladder_kw
 from benchmarks.torch_obs_util import CompileWatch, assert_no_recompiles
 from repro_torch.chaos import make_scenario, scenario_names
 from repro_torch.control import PlanLadder
+from repro_torch.launch.coded_serve import MESH_SERVE_TIER as MESH_REFUSED
 from repro_torch.serve import ServeTier, parse_tenant_spec
 
 # ladder geometry shared with control_bench (paper Sec. IV family)
@@ -167,7 +170,13 @@ def _run_scenario(ladder, scenario: str) -> dict:
 
 def run(scenarios=None, backend: str = "reference", device=None) -> dict:
     """The bench rows for ``scenarios`` (default: the full chaos catalog)
-    on a ladder of ``backend`` on ``device`` (default the CUDA card)."""
+    on a ladder of ``backend`` on ``device`` (default the CUDA card).
+
+    Raises:
+        NotImplementedError: for ``backend="mesh"``.
+    """
+    if backend == "mesh":
+        raise NotImplementedError(MESH_REFUSED)
     names = tuple(scenarios) if scenarios else scenario_names()
     # the watch reads the runtime's own build counter; mark() after
     # prewarm makes every later build a recorded rebuild.
@@ -263,7 +272,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--backend", default="reference", choices=BACKENDS,
                     help="the ladder's backend: reference (plain PyTorch), "
                          "fused or staged (the CUDA kernels on the card); "
-                         "mesh is not ported")
+                         "mesh is refused (the tier's split stages do not "
+                         "run on mesh)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain versions)")

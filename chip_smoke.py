@@ -106,10 +106,27 @@ Phases, each raising on failure:
              begin_step host time, the serve.* spans, the peak memory and the
              simulated tenant table; 10c calls ``coded_serve.main`` in its
              modes (the tier at v = 8000, exact) and runs the serve bench
-             twin's ``--check`` gates on the fused kernels.
+             twin's ``--check`` gates on the fused kernels;
+11. mesh   - the mesh backend: ``launch/mesh.py::spawn_mesh`` starts a
+             (1, 10) mesh, ten ranks sharing the one card over gloo (the
+             worker products staged through pinned host memory), each rank
+             one coded worker of the main path's geometry with A and B made
+             from the seed by the card's generator; four fused binary
+             requests (phase 4's erasures), four partial Q=4 requests
+             (phase 4c's progress vectors) and one staged request through
+             ``CodedMatmul(plan, "mesh")``.  Every rank's C must equal A^T B
+             and be bit-identical to the local fused facade's C (digests
+             from the parent), each request must launch on every rank
+             kernels 1 and 2 (or 3), or 4 twice, 5 and 2, and each kind
+             build one pipeline; rank 0 prints each request's wall (host
+             clock between two barriers, ended by a synchronize) split into
+             the product and decode (CUDA events) and the gather (host
+             clock), and every rank's peak memory.  The ranks' launches join
+             the ``kernels`` line.
 
-Phases 7, 8, 9 and 10 run after phase 5b and before the LM phases.  Phase 3b holds the WKV and selective-scan kernels against their plain
-versions at the LM prefill's shapes, at ragged shapes and (the selective
+Phases 7-11 run after phase 5b and before the LM phases.  Phase 3b holds
+the WKV and selective-scan kernels against their plain versions at the LM
+prefill's shapes, at ragged shapes and (the selective
 scan) at the Jamba initialisation's long-memory regime; phase 5b times them
 beside their bounds (the selective scan's also beside the MUFU time of its
 one-op exponentials), the previous design's times and their floors.  Each
@@ -162,6 +179,7 @@ from repro_torch.core import bounds, make_plan  # noqa: E402
 from repro_torch.core.partition import block_decompose  # noqa: E402
 from repro_torch.kernels import _build, coded_decode, coded_fused, ops, ref  # noqa: E402
 from repro_torch.launch import coded_serve  # noqa: E402
+from repro_torch.launch.mesh import spawn_mesh  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.obs import export, report  # noqa: E402
@@ -227,6 +245,11 @@ PAPER_OVERHEAD_S = {"bec": 2.0, "polycode": 0.1}
 TIER_GRID, TIER_K, TIER_ENTRY = (4, 2, 1), 12, 4
 TIER_BUCKETS = (1, 2, 4, 8)
 TIER_REQUESTS = 12
+# Phase 11: a (1, K) mesh of K = 10 ranks sharing the one card (gloo; NCCL
+# refuses two ranks of a communicator on one GPU), operands from their own
+# seed; the outer deadline of the spawned ranks.
+MESH_SEED = 11
+MESH_TIMEOUT_S = 300
 KERNELS = ("fused_worker", "decode", "encode", "matmul_t", "decode_partial",
            "mamba_scan", "wkv_scan")
 
@@ -1665,6 +1688,142 @@ def serve_phase(seed: int, smi: str) -> dict:
     return {"counts": counts}
 
 
+def bit_digest(x: torch.Tensor) -> tuple:
+    """Two wrap-around int64 sums over the bits of ``x``: equal digests mean
+    equal bits (with overwhelming probability; -0.0 differs from 0.0), and
+    the sums do not depend on the order the card adds in."""
+    bits = x.contiguous().view(torch.int64)
+    return int(bits.sum()), int((bits * bits).sum())
+
+
+def mesh_operands(seed: int) -> tuple:
+    """Phase 11's A and B (the main path's geometry and entries) from the
+    card's own generator, the same on every rank of the one card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + MESH_SEED)
+    A = torch.randint(0, ENTRY_MAX + 1, (V, R), generator=gen, device="cuda",
+                      dtype=torch.float64)
+    B = torch.randint(0, ENTRY_MAX + 1, (V, T), generator=gen, device="cuda",
+                      dtype=torch.float64)
+    return A, B
+
+
+def mesh_requests(cm, staged, A, B) -> list:
+    """Phase 11's requests ``[(kind, name, call, launches per request)]``:
+    fused binary under phase 4's erasures and fused partial under phase
+    4c's progress vectors on ``cm``, then one binary request on ``staged``."""
+    return ([("fused", f"erased={e}", lambda e=e: cm(A, B, erased=e),
+              {"fused_worker": 1, "decode": 1}) for e in ERASURES]
+            + [("partial", f"progress={c}/{Q_SUB}",
+                lambda c=c: cm(A, B, progress=np.asarray(c) / Q_SUB, sub_tasks=Q_SUB),
+                {"fused_worker": 1, "decode_partial": 1}) for c in PROGRESS]
+            + [("staged", f"erased={ERASURES[0]}",
+                lambda: staged(A, B, erased=ERASURES[0]),
+                {"encode": 2, "matmul_t": 1, "decode": 1})])
+
+
+def span_ms(spans, *names) -> float:
+    return sum(x.duration_s for x in spans if x.name in names) * 1e3
+
+
+def mesh_rank(mesh, seed: int, digests: dict) -> dict:
+    """Phase 11 on one rank (every rank runs it): the requests through
+    ``CodedMatmul(plan, "mesh")``, each C checked on the rank against A^T B
+    and against the digest of the local fused facade's C; the launches of
+    each request and the pipeline builds gated.  Obs is on, so each kernel
+    call carries its CUDA-event span and the gather its host-clock span."""
+    import torch.distributed as dist
+
+    A, B = mesh_operands(seed)
+    C_ref = A.T @ B
+    plan = make_plan("bec", MAIN.p, MAIN.m, MAIN.n, K=MAIN.K, L=MAIN.L,
+                     points=MAIN.points)
+    cm = CodedMatmul(plan, "mesh", mesh=mesh)
+    rank = dist.get_rank()
+    rec = obs.enable(fresh=True).recorder
+    rows, kinds, card_used = [], set(), None
+    staged = cm.with_backend("mesh", fused=False)      # the same caches
+    for i, (kind, name, call, want) in enumerate(mesh_requests(cm, staged, A, B)):
+        builds = cm.cache_info()["builds"]
+        before, n_spans = ops.launch_counts(), len(rec.spans)
+        dist.barrier()
+        t0 = time.perf_counter()
+        C = call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        dist.barrier()
+        after = ops.launch_counts()
+        steps = {k: after[k] - before[k] for k in after}
+        check(steps == dict.fromkeys(after, 0) | want,
+              f"11 rank {rank} {kind} {name}: launched {steps}, not {want}")
+        check(torch.equal(C, C_ref), f"11 rank {rank} {kind} {name}: max |C - A^T B| = "
+              f"{float((C - C_ref).abs().max())}")
+        check(bit_digest(C) == digests[(kind, name)],
+              f"11 rank {rank} {kind} {name}: C is not bit-identical to the local fused C")
+        grew = cm.cache_info()["builds"] - builds
+        check(grew == (kind not in kinds), f"11 rank {rank} {kind} {name}: {grew} builds")
+        kinds.add(kind)
+        spans = rec.spans[n_spans:]
+        rows.append(dict(kind=kind, name=name, wall_ms=wall,
+                         product_ms=span_ms(spans, "kernel.fused_worker", "kernel.encode",
+                                            "kernel.matmul_t"),
+                         gather_ms=span_ms(spans, "mesh.all_gather"),
+                         decode_ms=span_ms(spans, "kernel.decode", "kernel.decode_partial"),
+                         launches={k: v for k, v in steps.items() if v}))
+        del C
+        if card_used is None:
+            free, total = torch.cuda.mem_get_info()
+            card_used = (total - free) / 2**30
+    obs.disable()
+    return {"rows": rows, "transport": cm._executor.transport,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "card_used_gib": card_used, "cache": cm.cache_info()}
+
+
+def mesh_phase(seed: int, smi: str) -> dict:
+    """11: ten ranks on the one card, one coded worker each, over gloo."""
+    phase("11 mesh: ten ranks on one card")
+    start = time.perf_counter()
+    A, B = mesh_operands(seed)
+    C_ref = A.T @ B
+    plan = make_plan("bec", MAIN.p, MAIN.m, MAIN.n, K=MAIN.K, L=MAIN.L,
+                     points=MAIN.points)
+    local = CodedMatmul(plan)
+    digests = {}
+    # every request, the staged one too, is held against the local fused C
+    for kind, name, call, _ in mesh_requests(local, local, A, B):
+        C = call()
+        check(torch.equal(C, C_ref), f"11 local fused {name}: inexact")
+        digests[(kind, name)] = bit_digest(C)
+        del C
+    del A, B, C_ref, local
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"local fused facade: {len(digests)} patterns exact, digests taken; spawning "
+          f"{MAIN.K} ranks on {torch.cuda.device_count()} card(s)", flush=True)
+    outs = spawn_mesh(mesh_rank, data=1, model=MAIN.K, device="cuda",
+                      args=(seed, digests), timeout_s=MESH_TIMEOUT_S)
+    check(len(outs) == MAIN.K, f"11: {len(outs)} ranks answered")
+    first = outs[0].result
+    print(f"mesh (1, {MAIN.K}) over {first['transport']}: every rank's C exact and "
+          f"bit-identical to the local fused C; pipeline cache {first['cache']}")
+    for i, row in enumerate(first["rows"]):
+        rest = row["wall_ms"] - row["product_ms"] - row["gather_ms"] - row["decode_ms"]
+        print(f"11 rank 0 {row['kind']} request {i} {row['name']}: wall {row['wall_ms']:.2f} "
+              f"ms = product {row['product_ms']:.2f} + gather {row['gather_ms']:.2f} + "
+              f"decode {row['decode_ms']:.3f} + other {rest:.2f} ms; launches "
+              f"{row['launches']}; on {smi}")
+    for kind in ("fused", "partial", "staged"):
+        walls = [r["wall_ms"] for r in first["rows"] if r["kind"] == kind]
+        print(f"11 {kind} walls (rank 0): {[round(w, 2) for w in walls]} ms")
+    print(f"11 peak device memory per rank (GiB): "
+          f"{[round(o.result['peak_gib'], 3) for o in outs]}; the card's used memory "
+          f"after the first request (rank 0's view) {first['card_used_gib']:.2f} GiB")
+    counts = {k: sum(o.launches[k] for o in outs) for k in outs[0].launches}
+    print(f"phase 11: {time.perf_counter() - start:.1f} s, launches over the "
+          f"{MAIN.K} ranks {nonzero(counts)}")
+    return {"counts": counts}
+
+
 def tensor_rate(name: str, flops: float, t: dict) -> None:
     """Print a kernel's achieved FP64 rate, its share of the tensor peak and
     whether it meets its floor."""
@@ -1706,6 +1865,9 @@ def main() -> None:
     paths["paper"] = paper_phase(dev["smi"])
     paths["control"] = control_phase(args.seed, dev["smi"])
     paths["serve"] = serve_phase(args.seed, dev["smi"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["mesh"] = mesh_phase(args.seed, dev["smi"])
     lms = {"rwkv6_3b": rwkv_phase(args.seed), "jamba group": jamba_phase(args.seed)}
     for name, lm in lms.items():
         print(f"LM serving ({name}, {LM_BATCH}x{LM_PROMPT} prompt, {LM_GEN} tokens, bf16): "

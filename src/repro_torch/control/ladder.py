@@ -29,6 +29,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.core import bounds as bounds_mod
@@ -51,19 +52,24 @@ class PlanLadder:
     Rungs whose recovery threshold exceeds ``K`` are dropped at
     construction (they could never decode).  ``rungs`` lists the survivors
     in ascending-tau order; ``active`` starts at the lowest threshold.
-    ``device`` defaults to the CUDA card (``resolve_device``); the CPU runs
-    only when the caller asks for it.
+    ``device`` defaults to the CUDA card (``resolve_device``), or with a
+    ``mesh`` to the rank's device; the CPU runs only when the caller asks
+    for it.  ``mesh`` goes to every facade the ladder builds (the "mesh"
+    backend, one worker per rank): its "model" axis must hold K ranks, so a
+    respecialisation to another K meets the facade's "mesh axis" refusal
+    at its first call.
     """
 
     def __init__(self, p: int, m: int, n: int, K: int, L: int, *,
                  backend: str = "reference", dtype=torch.float64,
-                 points: str = "chebyshev", device=None,
+                 points: str = "chebyshev", device=None, mesh=None,
                  include: Optional[Sequence[str]] = None):
         self.grid = (p, m, n)
         self.K = K
         self.L = L
         self.dtype = resolve_dtype(dtype)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, mesh)
+        self._mesh = mesh
         self.group = CacheGroup()
         self.switch_count = 0
         self.step_overhead_s: dict = {}
@@ -105,7 +111,8 @@ class PlanLadder:
 
     def _facade(self, plan: CodedMatmulPlan) -> CodedMatmul:
         return CodedMatmul(plan, self._backend, dtype=self.dtype,
-                           device=self.device, cache_group=self.group)
+                           device=self.device, mesh=self._mesh,
+                           cache_group=self.group)
 
     # -- rung accessors -----------------------------------------------------
     @property
@@ -325,7 +332,8 @@ class PlanLadder:
         ``switch()``es never rebuild.  The timed warm repetition per rung
         (host clock, ended by a synchronize of the card) is stored in
         ``step_overhead_s`` - the measured per-rung decode/step cost the
-        latency policies add to their order-statistic estimates.
+        latency policies add to their order-statistic estimates (on a mesh,
+        rank 0's measurement, broadcast to every rank).
 
         Args:
             a_shape/b_shape: unbatched operand shapes ``(v, r)`` / ``(v, t)``.
@@ -384,6 +392,12 @@ class PlanLadder:
                             cm.decode_stage(cm.worker_stage(a, B), rt,
                                             erased=[])
                     self.synchronize()
+        if self._mesh is not None:
+            # every rank makes the same call, so every rank must price the
+            # rungs alike: rank 0's measurement for all
+            box = [self.step_overhead_s]
+            dist.broadcast_object_list(box, src=0)
+            self.step_overhead_s = box[0]
         info = self.cache_info()
         info["overhead_s"] = dict(self.step_overhead_s)
         info["batch_buckets"] = self._buckets

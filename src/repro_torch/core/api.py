@@ -245,14 +245,16 @@ def runtime_facade(plan: CodedMatmulPlan, backend: str = "fused",
     equal plans share one facade - and therefore one decode-panel cache and
     one pipeline memo - across shim calls.  The key also holds the dtype,
     the backend, the device (``None`` resolves to the card, as every entry
-    point does) and a caller-supplied ``panel_cache`` by identity: callers
+    point does, or on mesh to the rank's device), the facade keywords in
+    ``opts`` (the mesh, axis and kernel flags) and a caller-supplied
+    ``panel_cache`` by identity: callers
     with their own caches get their own facades instead of clobbering the
     shared one.  The memo is FIFO-bounded so long-lived processes churning
     through many distinct plans cannot pin pipelines without limit.
     """
     from repro_torch.runtime import CodedMatmul
 
-    dev = resolve_device(device)
+    dev = resolve_device(device, opts.get("mesh"))
     dt = resolve_dtype(dtype)
     key = (plan.scheme, plan.K, plan.s,
            tuple(np.asarray(plan.z_points).ravel().tolist()),

@@ -4,7 +4,8 @@ The paper's decode requires float64 on the master (Table I uses s up to
 2^36, far beyond float32's 24-bit mantissa).  PyTorch has float64 without
 any global switch, so the policy is explicit: every entry point takes a
 ``dtype`` (default ``torch.float64``; ``torch.float32`` allowed) and a
-``device`` (default the CUDA card; the CPU only when the caller asks).
+``device`` (default the CUDA card, or on a mesh the rank's own device; the
+CPU only when the caller asks).
 """
 from __future__ import annotations
 
@@ -49,13 +50,20 @@ def complex_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.complex128 if dtype == torch.float64 else torch.complex64
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None, mesh=None) -> torch.device:
     """The device an entry point runs on: the CUDA card unless asked.
+
+    With no ``device`` and a ``mesh`` (a ``DeviceMesh``), a rank computes on
+    its own device: the CPU for a CPU mesh, else its current CUDA device.
 
     Raises:
         RuntimeError: when no device is given and no CUDA card is present
             (entry points never fall back to the CPU on their own).
     """
+    if device is None and mesh is not None:
+        if mesh.device_type == "cpu":
+            return torch.device("cpu")
+        return torch.device(mesh.device_type, torch.cuda.current_device())
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

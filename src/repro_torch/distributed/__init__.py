@@ -1,8 +1,19 @@
-"""Distribution: the elastic pool policy the control plane hands off to.
+"""Distribution: the elastic pool policy, the coded on-mesh layer and
+integer-grid gradient compression.
 
-Only ``elastic.py`` is ported so far (numpy only); the mesh sharding and the
-coded on-mesh runtime of the reference's ``distributed/`` are not.
+The reference's ``sharding.py`` and ``param_sharding.py`` (logical axis
+rules mapping LM parameters onto mesh axes) belong with the sharded LM
+paths and are not ported here.
 """
+from repro_torch.distributed.coded import CodedLinearPlan, coded_matmul_mesh
+from repro_torch.distributed.compression import (
+    compressed_psum,
+    dequantize_tree,
+    error_feedback_update,
+    quantize_tree,
+)
 from repro_torch.distributed.elastic import CodedElasticPolicy, plan_shrink
 
-__all__ = ["CodedElasticPolicy", "plan_shrink"]
+__all__ = ["CodedElasticPolicy", "plan_shrink", "CodedLinearPlan",
+           "coded_matmul_mesh", "quantize_tree", "dequantize_tree",
+           "compressed_psum", "error_feedback_update"]

@@ -13,8 +13,7 @@ Large jobs lose nodes.  Two recovery tiers here:
    mode (``control/driver.py``) executes the coded half of the handoff by
    re-lowering its plan ladder onto the survivor pool.
 
-The rest of the reference's ``distributed/`` (mesh sharding, the coded
-on-mesh runtime) is not ported yet; this module is numpy only.
+This module is numpy only; the coded on-mesh layer is ``coded.py``.
 """
 from __future__ import annotations
 

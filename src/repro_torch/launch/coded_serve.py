@@ -54,13 +54,20 @@ layer (``repro_torch.obs``) for the run and write its Prometheus text dump
 and Chrome-trace/Perfetto span JSON.  Render a terminal summary with
 ``python -m repro_torch.obs.report --metrics PATH [--perfetto PATH]``.
 
+``--backend mesh`` serves the static and ``--adaptive`` modes with one
+worker per rank (``launch/mesh.py``): the mesh is (1, K), K = 4 (static) or
+12 (adaptive).  The CLI starts the K ranks itself, or under ``torchrun``
+joins the launcher's group and takes a (WORLD_SIZE / K, K) mesh.  Every rank
+runs the same loop on the same seeded draws; only rank 0 prints (spawned
+ranks hand their printed lines to the parent).
+
 Two departures from the JAX package's CLI:
 
-* ``--backend mesh`` raises ``NotImplementedError`` in every mode: the
-  coded on-mesh runtime is not ported yet (ROADMAP.md queue 1 item 6).
-  The reference's ``--serve-tier`` and ``--elastic`` modes print a message
-  and serve on the reference executor instead; the port switches no
-  backend on its own.
+* ``--elastic`` and ``--serve-tier`` refuse ``--backend mesh`` with the
+  reference's reason (a mesh's K is fixed by its ranks; the tier's split
+  worker/decode stages run fused on mesh).  The reference prints that
+  reason and serves on the reference executor instead; the port raises
+  ``NotImplementedError`` and switches no backend on its own.
 * The serve tier's operands.  The reference draws a pool of
   ``len(tenants) * 64`` operands up front, ``192 v r`` integers on the host
   (49 GB at ``--size 8000``).  The port makes request ``rid``'s operand on
@@ -82,6 +89,10 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.coded_serve --serve-tier \\
       --scenario heavy_tail --requests 12 --seed 11 \\
       --record /tmp/serve.jsonl --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.coded_serve --backend mesh \\
+      --requests 6 --size 64 --device cpu          # 4 CPU ranks over gloo
+  PYTHONPATH=src torchrun --nproc-per-node 12 -m \\
+      repro_torch.launch.coded_serve --backend mesh --adaptive   # a card a rank
 """
 from __future__ import annotations
 
@@ -97,9 +108,18 @@ from repro_torch.core.numerics import resolve_device
 __all__ = ["main", "run_static", "run_adaptive", "run_elastic",
            "run_serve_tier", "serve_tier_operands"]
 
-MESH_NOT_PORTED = (
-    "--backend mesh: the coded on-mesh runtime is not ported yet "
-    "(ROADMAP.md queue 1 item 6); use reference, fused or staged")
+# the worker counts of the static plan and of the adaptive ladder, which
+# are the mesh's "model" sizes under --backend mesh
+STATIC_K, ADAPTIVE_K = 4, 12
+# outer deadline of the ranks a mesh run spawns (None: none; a stalled
+# rank still fails the others after the process group's 60 s timeout)
+MESH_TIMEOUT_S = None
+MESH_ELASTIC = (
+    "--elastic does not drive the mesh backend yet (a mesh's K is fixed by "
+    "its ranks); serve the elastic pool on reference, fused or staged")
+MESH_SERVE_TIER = (
+    "--serve-tier does not drive the mesh backend (the split worker/decode "
+    "stages run fused on mesh); serve the tier on reference, fused or staged")
 
 
 def _exact(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor) -> bool:
@@ -239,8 +259,52 @@ def main(argv=None):
                      "decoding is driven by the monitor's progress plans)")
         runner = run_static
     if args.backend == "mesh":
-        raise NotImplementedError(MESH_NOT_PORTED)
+        if runner is run_elastic:
+            raise NotImplementedError(MESH_ELASTIC)
+        if runner is run_serve_tier:
+            raise NotImplementedError(MESH_SERVE_TIER)
+        return _serve_on_mesh(runner, args)
     return _with_obs(runner, args)
+
+
+def _serve_on_mesh(runner, args):
+    """``runner`` on a (data, K) mesh: spawned here as (1, K), or joined
+    under torchrun.  Returns rank 0's result."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    K = STATIC_K if runner is run_static else ADAPTIVE_K
+    device = resolve_device(args.device)
+    if mesh_mod.in_torchrun():
+        mesh = mesh_mod.join_mesh(model=K, device=device)
+        return _mesh_rank(mesh, runner, args, capture=False)[0]
+    outs = mesh_mod.spawn_mesh(_mesh_rank, data=1, model=K, device=device,
+                               args=(runner, args, True),
+                               timeout_s=MESH_TIMEOUT_S)
+    result, text = outs[0].result
+    print(text, end="")
+    return result
+
+
+def _mesh_rank(mesh, runner, args, capture: bool) -> tuple:
+    """One rank's run: ``(result, printed text)``.  Rank 0 prints (into
+    the returned text when ``capture``) and writes the exports; the other
+    ranks' lines are dropped."""
+    import contextlib
+    import copy
+    import io
+
+    import torch.distributed as dist
+
+    buf = io.StringIO()
+    rank = dist.get_rank()
+    if rank:
+        args = copy.copy(args)
+        args.metrics_out = args.perfetto_out = args.record = None
+    sink = (contextlib.redirect_stdout(buf) if rank or capture
+            else contextlib.nullcontext())
+    with sink:
+        result = _with_obs(lambda a: runner(a, mesh=mesh), args)
+    return result, "" if rank else buf.getvalue()
 
 
 def _with_obs(runner, args):
@@ -268,16 +332,17 @@ def _with_obs(runner, args):
     return result
 
 
-def run_static(args):
+def run_static(args, mesh=None):
     from repro_torch.core import make_plan
     from repro_torch.runtime import CodedMatmul
 
     dev = resolve_device(args.device)
     rng = np.random.default_rng(args.seed)
     v, r, t = args.size, args.size // 2, args.size // 2
-    plan = make_plan("bec", 2, 2, 1, K=4, L=v * 4 * 4 + 1,
+    plan = make_plan("bec", 2, 2, 1, K=STATIC_K, L=v * 4 * 4 + 1,
                      points="chebyshev")
-    cm = CodedMatmul(plan, args.backend, dtype=torch.float64, device=dev)
+    cm = CodedMatmul(plan, args.backend, dtype=torch.float64, device=dev,
+                     mesh=mesh)
 
     def ints(shape):
         return torch.as_tensor(rng.integers(-4, 5, size=shape),
@@ -314,7 +379,7 @@ def run_static(args):
     return lat
 
 
-def run_adaptive(args):
+def run_adaptive(args, mesh=None):
     from repro_torch.control import (
         AdaptiveServer,
         ExpectedLatencyPolicy,
@@ -325,12 +390,12 @@ def run_adaptive(args):
 
     dev = resolve_device(args.device)
     rng = np.random.default_rng(args.seed)
-    p, m, n, K = 4, 2, 1, 12
+    p, m, n, K = 4, 2, 1, ADAPTIVE_K
     v = max(args.size - args.size % p, p)
     r, t = (v // 2) - (v // 2) % m, (v // 2) - (v // 2) % n
     backend = args.backend
     ladder = PlanLadder(p, m, n, K=K, L=conservative_L(v, 4, 4),
-                        backend=backend, device=dev)
+                        backend=backend, device=dev, mesh=mesh)
     # batched requests vary in size: prewarm power-of-two buckets so
     # round-up padding keeps every size rebuild-free.
     buckets = ()

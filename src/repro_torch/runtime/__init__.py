@@ -1,7 +1,8 @@
 """Runtime: the unified coded-matmul executor API.
 
-``CodedMatmul`` is the single entry point for every ported backend
-("fused" and "staged": the CUDA kernels; "reference": plain PyTorch);
+``CodedMatmul`` is the single entry point for every backend ("fused" and
+"staged": the CUDA kernels; "reference": plain PyTorch; "mesh": one rank
+per worker over ``torch.distributed``);
 ``ErasurePattern`` normalises every erasure convention and
 ``PartialPattern`` its fractional generalisation (per-worker sub-task
 progress); executors are pluggable via ``with_backend``.
@@ -18,6 +19,7 @@ from repro_torch.runtime.executors import (
     Executor,
     FusedKernelExecutor,
     LocalExecutor,
+    MeshExecutor,
     ReferenceExecutor,
     StagedKernelExecutor,
     resolve_executor,
@@ -38,6 +40,7 @@ __all__ = [
     "ReferenceExecutor",
     "StagedKernelExecutor",
     "FusedKernelExecutor",
+    "MeshExecutor",
     "resolve_executor",
     "BACKENDS",
 ]

@@ -10,6 +10,10 @@ is HOW the worker products (and the decode) are computed:
              them, then the decode CUDA kernel
   fused      the fused encode+product CUDA kernel for all K workers, then
              the decode CUDA kernel with fused digit extraction
+  mesh       one rank per worker along a ``DeviceMesh`` dimension: each
+             rank computes its own worker product, erases it by its mask
+             entry, all-gathers the K products over ``torch.distributed``
+             and decodes the replicated C (``launch/mesh.py`` starts ranks)
 
 Executors expose ``make_pipeline(plan, kind, dtype)`` returning the
 function the ``CodedMatmul`` facade memoises:
@@ -25,16 +29,19 @@ Partial-straggler kinds carry the sub-task count Q (``runtime/partial.py``):
 each worker's output rows split into Q chunks and chunk c erases with its own
 (K,) availability row and decodes with its own panel.  The erasure or
 progress pattern is DATA (masks and panels), so one pipeline serves every
-pattern of its kind.  The reference package's "mesh" backend and its
-"traced" kinds (a jax tracer as mask) are not ported: PyTorch has no
-tracers, and a mask tensor is read to the host.
+pattern of its kind.  The reference package's "traced" kinds (a jax
+tracer as mask, decoded by an in-body normal-equation solve) are not
+ported, on any backend: PyTorch has no tracers, and a mask tensor is read
+to the host, so every mask reaches the pipeline with its host-LU panel.
 """
 from __future__ import annotations
 
 from typing import Callable, Protocol, runtime_checkable
 
 import torch
+import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch.core.api import (
     CodedMatmulPlan,
     _coeffs,
@@ -43,6 +50,7 @@ from repro_torch.core.api import (
     worker_products,
 )
 from repro_torch.core.decoding import decode_with_weights
+from repro_torch.core.numerics import resolve_device
 from repro_torch.core.partition import block_decompose, block_recompose, unpad
 from repro_torch.kernels import ops as kops
 from repro_torch.runtime.partial import chunk_bounds
@@ -53,17 +61,11 @@ __all__ = [
     "ReferenceExecutor",
     "StagedKernelExecutor",
     "FusedKernelExecutor",
+    "MeshExecutor",
     "resolve_executor",
     "local_backend_names",
     "BACKENDS",
-    "NOT_PORTED",
 ]
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet; the ported "
-        f"backends are {sorted(BACKENDS)}")
 
 
 @runtime_checkable
@@ -148,12 +150,7 @@ class LocalExecutor:
 
             def fn(A, B, chunk_masks, W_stack):
                 Y = products(A, B)
-                bounds = chunk_bounds(Y.shape[1], Q)
-                # per-chunk ERASE, in place: chunk c keeps the workers whose
-                # completed prefix covers it.
-                for c in range(Q):
-                    Y[:, bounds[c]:bounds[c + 1], :].mul_(
-                        chunk_masks[c].to(Y.dtype)[:, None, None])
+                bounds = _erase_chunks(Y, chunk_masks, Q)
                 return finish(self.decode_partial(plan, W_stack, Y, bounds),
                               A.shape[1], B.shape[1])
 
@@ -172,6 +169,17 @@ class LocalExecutor:
         raise ValueError(
             f"unknown pipeline kind {kind!r}; the kinds are 'concrete', "
             f"('partial', Q), 'products' and ('decode', r, t)")
+
+
+def _erase_chunks(Y: torch.Tensor, chunk_masks: torch.Tensor, Q: int) -> list:
+    """Per-chunk ERASE of (K, br, bt) products, in place: chunk c keeps the
+    workers whose completed prefix covers it.  Returns the Q + 1 row
+    bounds."""
+    bounds = chunk_bounds(Y.shape[1], Q)
+    for c in range(Q):
+        Y[:, bounds[c]:bounds[c + 1], :].mul_(
+            chunk_masks[c].to(Y.dtype)[:, None, None])
+    return bounds
 
 
 class ReferenceExecutor(LocalExecutor):
@@ -253,36 +261,231 @@ class FusedKernelExecutor(_KernelDecodeExecutor):
         return fused_worker_products(plan, a_blocks, b_blocks)
 
 
+# ---------------------------------------------------------------------------
+# Mesh backend: one rank per worker, the pipeline run by every rank.
+# ---------------------------------------------------------------------------
+
+
+class MeshExecutor:
+    """One worker per rank along a mesh dimension; erasure is a runtime mask.
+
+    The reference runs one single-controller ``shard_map`` program over the
+    mesh.  PyTorch has no single controller: every rank of ``mesh`` (a
+    ``torch.distributed.device_mesh.DeviceMesh``) runs the same facade call
+    on the same operands, so worker k is the rank whose coordinate on
+    ``axis`` is k.  Each rank computes its own worker product (stages 1+2),
+    erases it by its mask entry (binary kinds), all-gathers the K products
+    on the axis's process group and decodes the replicated C, as every
+    device of the reference keeps its C.  With ``use_kernels`` the product
+    is the fused encode+product kernel at K = 1 (``fused``) or the encode
+    kernel twice and the block-matmul kernel; the decode is the decode
+    kernel (binary) or the per-chunk decode kernel (partial), where the
+    reference's body decodes with a plain einsum and digit extraction (the
+    same function).  Without ``use_kernels`` every stage is plain PyTorch.
+
+    The transport of the gather follows the group's backend: NCCL gathers
+    device tensors; gloo gathers host tensors, so on a card (ranks sharing
+    one card, where NCCL refuses two ranks of a communicator) each rank
+    stages its product and the gathered Y through pinned host memory,
+    while the products and the decode stay on the card.  With obs on the
+    gather records the span ``mesh.all_gather``.
+    """
+
+    name = "mesh"
+
+    def __init__(self, mesh, *, axis: str = "model", use_kernels: bool = True,
+                 fused: bool = True):
+        if mesh is None:
+            raise ValueError("MeshExecutor requires a mesh (backend='mesh')")
+        self.mesh = mesh
+        self.axis = axis
+        self.use_kernels = use_kernels
+        self.fused = fused
+        self._decoder = (_KernelDecodeExecutor() if use_kernels
+                         else ReferenceExecutor())
+        self._host_buffers: dict = {}
+
+    def cache_token(self):
+        """Pipeline-memo identity: name + mesh + axis + kernel flags."""
+        return (self.name, self.mesh, self.axis, self.use_kernels, self.fused)
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's device (``resolve_device(None, mesh)``)."""
+        return resolve_device(None, self.mesh)
+
+    @property
+    def transport(self) -> str:
+        """How the worker products travel, from the axis group's backend."""
+        backend = dist.get_backend(self.mesh.get_group(self.axis))
+        if self.mesh.device_type == "cpu":
+            return f"{backend}, host tensors"
+        if backend == "nccl":
+            return "nccl, device tensors"
+        return f"{backend}, staged through pinned host memory"
+
+    def _axis_size(self) -> int:
+        names = self.mesh.mesh_dim_names or ()
+        if self.axis not in names:
+            raise ValueError(f"mesh axis {self.axis!r} is not a dimension of "
+                             f"the mesh {tuple(names)}")
+        return int(self.mesh.shape[names.index(self.axis)])
+
+    def make_pipeline(self, plan: CodedMatmulPlan, kind, dtype) -> Callable:
+        """This rank's part of the mesh pipeline for ``kind`` (the local
+        pipelines' signatures): ``"concrete"`` or ``("partial", Q)``.
+
+        Raises:
+            NotImplementedError: for split-stage kinds ("products" /
+                ("decode", r, t)): encode, worker products and decode run
+                fused in one pipeline per rank, leaving no seam to pipeline
+                across.
+            ValueError: for an unknown kind, a mesh axis whose size is not
+                the plan's K, or a complex (unit-circle) plan.
+        """
+        is_stage = (kind == "products"
+                    or (isinstance(kind, tuple) and kind
+                        and kind[0] == "decode"))
+        if is_stage:
+            raise NotImplementedError(
+                f"mesh backend does not support split-stage serving (kind "
+                f"{kind!r}): encode, worker products, and decode run fused "
+                f"inside one pipeline on every rank, so there is no seam to "
+                f"pipeline across. Split worker/decode stages are supported "
+                f"by the local backends: {local_backend_names()}.")
+        if kind != "concrete" and (
+                not isinstance(kind, tuple) or len(kind) != 2
+                or kind[0] != "partial"):
+            raise ValueError(f"unknown mesh pipeline kind {kind!r}")
+        K = self._axis_size()
+        if K != plan.K:
+            raise ValueError(
+                f"plan built for K={plan.K}, mesh axis {self.axis!r} has {K}")
+        if plan.is_complex:
+            raise ValueError(
+                "mesh backend does not support complex (unit-circle) plans; "
+                "use chebyshev/equispaced points or a local backend")
+        g = plan.scheme.grid
+        k = self.mesh.get_local_rank(self.axis)
+        # worker k's (1, P) coefficient rows, once per pipeline
+        ca = torch.as_tensor(plan.coeff_a.reshape(K, -1)[k:k + 1], dtype=dtype,
+                             device=self.device)
+        cb = torch.as_tensor(plan.coeff_b.reshape(K, -1)[k:k + 1], dtype=dtype,
+                             device=self.device)
+
+        def product(A, B):
+            a_blocks = block_decompose(A.to(dtype), g.p, g.m)
+            b_blocks = block_decompose(B.to(dtype), g.p, g.n)
+            return self._local_product(ca, cb, a_blocks, b_blocks)
+
+        def finish(C_blocks, r, t):
+            return unpad(block_recompose(C_blocks), (r, t)).to(dtype)
+
+        if kind == "concrete":
+
+            def fn(A, B, mask, W):
+                y = product(A, B)
+                # stage 3 ERASE on the rank, before the gather
+                y.mul_(mask[k].to(y.dtype))
+                Y = self._all_gather(y, K)
+                return finish(self._decoder.decode(plan, W, Y),
+                              A.shape[1], B.shape[1])
+
+            return fn
+
+        Q = kind[1]
+
+        def fn(A, B, chunk_masks, W_stack):
+            # gather the UNMASKED products: a slow worker's finished
+            # prefix still contributes, chunk by chunk
+            Y = self._all_gather(product(A, B), K)
+            bounds = _erase_chunks(Y, chunk_masks, Q)
+            return finish(self._decoder.decode_partial(plan, W_stack, Y, bounds),
+                          A.shape[1], B.shape[1])
+
+        return fn
+
+    def _local_product(self, ca, cb, a_blocks, b_blocks) -> torch.Tensor:
+        """Stages 1+2 on this rank: worker k's coded blocks, multiplied.
+
+        ca (1, p*m), cb (1, p*n); a_blocks (p, m, bv, br), b_blocks (p, n,
+        bv, bt) replicated -> the (br, bt) product this rank contributes.
+        """
+        if self.use_kernels and self.fused:
+            return kops.fused_worker(ca, cb, a_blocks, b_blocks)[0]
+        if self.use_kernels:
+            return kops.matmul_t(kops.encode(ca, a_blocks)[0],
+                                 kops.encode(cb, b_blocks)[0])
+        a_tilde = torch.einsum("pm,pmvr->vr", ca.reshape(a_blocks.shape[:2]),
+                               a_blocks)
+        b_tilde = torch.einsum("pn,pnvt->vt", cb.reshape(b_blocks.shape[:2]),
+                               b_blocks)
+        return a_tilde.T @ b_tilde
+
+    def _all_gather(self, y: torch.Tensor, K: int) -> torch.Tensor:
+        """(br, bt) on every rank -> (K, br, bt), row k from the axis's
+        rank k, on this rank's device."""
+        group = self.mesh.get_group(self.axis)
+        y = y.contiguous()
+        Y = y.new_empty((K, *y.shape))
+        with obs.span("mesh.all_gather", lane="mesh"):
+            if dist.get_backend(group) == "nccl":
+                dist.all_gather_into_tensor(Y, y, group=group)
+            elif y.is_cuda:
+                host_y, host_Y = self._host_staging(y, K)
+                host_y.copy_(y)
+                dist.all_gather(list(host_Y.unbind(0)), host_y, group=group)
+                Y.copy_(host_Y)
+            else:
+                dist.all_gather(list(Y.unbind(0)), y, group=group)
+        return Y
+
+    def _host_staging(self, y: torch.Tensor, K: int) -> tuple:
+        """Pinned host buffers for one product and the gathered K, kept
+        per shape and dtype across calls."""
+        key = (tuple(y.shape), y.dtype)
+        bufs = self._host_buffers.get(key)
+        if bufs is None:
+            bufs = (torch.empty(y.shape, dtype=y.dtype, pin_memory=True),
+                    torch.empty((K, *y.shape), dtype=y.dtype, pin_memory=True))
+            self._host_buffers[key] = bufs
+        return bufs
+
+
 BACKENDS = {
     "reference": ReferenceExecutor,
     "staged": StagedKernelExecutor,
     "fused": FusedKernelExecutor,
+    "mesh": MeshExecutor,
 }
 
-# Backends of the reference package that later slices of the port add.
-NOT_PORTED = ("mesh",)
+# The split-stage (products / decode) seam only exists on local backends;
+# computed once from the registry so error messages cannot drift from it.
+_LOCAL_BACKEND_NAMES = ", ".join(sorted(
+    name for name, cls in BACKENDS.items() if issubclass(cls, LocalExecutor)))
 
 
 def local_backend_names() -> str:
     """Comma-joined names of the local (split-stage capable) backends."""
-    return ", ".join(sorted(BACKENDS))
+    return _LOCAL_BACKEND_NAMES
 
 
-def resolve_executor(backend) -> Executor:
+def resolve_executor(backend, *, mesh=None, axis: str = "model",
+                     use_kernels: bool = True, fused: bool = True) -> Executor:
     """Executor instance from a backend name (or passthrough instance).
 
     Raises:
-        NotImplementedError: for a backend that is not ported yet.
-        ValueError: for an unknown backend name.
+        ValueError: for an unknown backend name, or "mesh" without a mesh.
         TypeError: for an object that is not an ``Executor``.
     """
     if not isinstance(backend, str):
         if not isinstance(backend, Executor):
             raise TypeError(f"not an Executor: {type(backend).__name__}")
         return backend
-    if backend in NOT_PORTED:
-        raise _not_ported(f"the {backend!r} backend")
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}; options: {sorted(BACKENDS)}")
+    if backend == "mesh":
+        return MeshExecutor(mesh, axis=axis, use_kernels=use_kernels,
+                            fused=fused)
     return BACKENDS[backend]()

@@ -29,6 +29,7 @@ Usage::
     C  = cm(A, B, erased=[3])                   # or survivors=/mask=
     C1 = cm(A, B, progress=prog, sub_tasks=4)   # partial stragglers
     C2 = cm.with_backend("staged")(A, B)        # same caches, new backend
+    C3 = CodedMatmul(plan, "mesh", mesh=mesh)(A, B)   # on every rank
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ from repro_torch.core.numerics import complex_dtype, resolve_device, resolve_dty
 from repro_torch.runtime.erasure import ErasurePattern
 from repro_torch.runtime.executors import (
     Executor,
+    MeshExecutor,
     local_backend_names,
     resolve_executor,
 )
@@ -143,16 +145,21 @@ class CodedMatmul:
     per serving step).
 
     Backends: "fused" (default) | "staged" (the CUDA kernels on the card,
-    their plain versions on the CPU) | "reference" (plain PyTorch).
-    ``device`` defaults to the CUDA card; without one, construction raises
-    unless the caller passes ``device="cpu"``.  ``dtype`` is float64
-    (default) or float32.  ``sub_tasks`` (Q) splits every worker's output
-    rows into Q partial-straggler chunks.  All backends are bit-identical
-    for integer inputs within the plan's bounds.
+    their plain versions on the CPU) | "reference" (plain PyTorch) |
+    "mesh" (pass ``mesh=``, a ``DeviceMesh``: one worker per rank along
+    ``axis``, every rank making the same call; ``use_kernels`` and
+    ``fused`` choose its worker product).  ``device`` defaults to the CUDA
+    card (on mesh, to the rank's device: the CPU for a CPU mesh); without
+    one, construction raises unless the caller passes ``device="cpu"``.
+    ``dtype`` is float64 (default) or float32.  ``sub_tasks`` (Q) splits
+    every worker's output rows into Q partial-straggler chunks.  All
+    backends are bit-identical for integer inputs within the plan's bounds.
     """
 
     def __init__(self, plan: CodedMatmulPlan, backend="fused", *,
-                 dtype=torch.float64, device=None, panel_ridge: float = 0.0,
+                 dtype=torch.float64, device=None, mesh=None,
+                 axis: str = "model", use_kernels: bool = True,
+                 fused: bool = True, panel_ridge: float = 0.0,
                  cache_group: Optional[CacheGroup] = None,
                  sub_tasks: int = 1, _shared=None):
         if sub_tasks < 1:
@@ -160,9 +167,17 @@ class CodedMatmul:
         self.sub_tasks = int(sub_tasks)
         self.plan = plan
         self.dtype = resolve_dtype(dtype)
-        self.device = resolve_device(device)
+        self._mesh = mesh
+        self._axis = axis
+        self._use_kernels = use_kernels
+        self._fused = fused
         self._plan_token = plan_token(plan)
-        self._executor: Executor = resolve_executor(backend)
+        self._executor: Executor = resolve_executor(
+            backend, mesh=mesh, axis=axis, use_kernels=use_kernels,
+            fused=fused)
+        if device is None and isinstance(self._executor, MeshExecutor):
+            device = self._executor.device
+        self.device = resolve_device(device)
         if cache_group is not None and _shared is not None:
             raise ValueError("pass cache_group or _shared, not both")
         if cache_group is not None:
@@ -182,10 +197,17 @@ class CodedMatmul:
         """Name of the executor serving this facade's calls."""
         return self._executor.name
 
-    def with_backend(self, backend) -> "CodedMatmul":
-        """A sibling facade on another backend, SHARING panel + pipeline caches."""
+    def with_backend(self, backend, *, mesh=None, axis: Optional[str] = None,
+                     use_kernels: Optional[bool] = None,
+                     fused: Optional[bool] = None) -> "CodedMatmul":
+        """A sibling facade on another backend, SHARING panel + pipeline
+        caches; the mesh keywords default to this facade's."""
         return CodedMatmul(
             self.plan, backend, dtype=self.dtype, device=self.device,
+            mesh=self._mesh if mesh is None else mesh,
+            axis=self._axis if axis is None else axis,
+            use_kernels=self._use_kernels if use_kernels is None else use_kernels,
+            fused=self._fused if fused is None else fused,
             sub_tasks=self.sub_tasks,
             _shared=(self.panel_cache, self._executables, self._stats))
 

@@ -5,9 +5,10 @@ holds it against the JAX package's CLI (``repro.launch.coded_serve``) on
 the same flags: the static modes print ``exact`` for each request with the
 reference's erasure draws; ``--serve-tier --record`` writes the reference's
 records; the adaptive and elastic modes give the reference's step reports;
-``--record``/``--replay`` round-trips; the obs exports are readable; every
-``--backend mesh`` mode raises ``NotImplementedError``; and the
-reference's argument errors are raised the same way.
+``--record``/``--replay`` round-trips; the obs exports are readable;
+``--backend mesh`` serves the static and adaptive modes exactly on CPU
+ranks and refuses the elastic and tier modes with the reference's reason;
+and the reference's argument errors are raised the same way.
 
 Prewarm measures each rung's step on the host clock, and the CLI's
 policies (and the tier's decode stage) price rungs by that measurement, so
@@ -210,9 +211,25 @@ class TestMeshAndArgumentErrors:
     @pytest.mark.parametrize("mode", [[], ["--adaptive"],
                                       ["--adaptive", "--elastic"],
                                       ["--serve-tier"]])
-    def test_mesh_backend_raises_in_every_mode(self, mode):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            port(["--backend", "mesh"] + mode)
+    def test_mesh_backend_raises_in_every_mode(self, mode, monkeypatch, capsys):
+        """The static and adaptive modes serve exactly on CPU ranks (K = 4
+        and 12); the elastic and tier modes refuse mesh with the
+        reference's reason."""
+        monkeypatch.setattr(coded_serve, "MESH_TIMEOUT_S", 120)
+        argv = ["--backend", "mesh", "--requests", "3", "--size", "32"] + mode
+        if "--elastic" in mode or "--serve-tier" in mode:
+            reason = ("--elastic does not drive the mesh backend" if "--elastic" in mode
+                      else "split worker/decode stages run fused on mesh")
+            with pytest.raises(NotImplementedError, match=reason):
+                port(argv)
+            return
+        result = port(argv)
+        lines = _request_lines(capsys.readouterr().out)
+        assert len(lines) == len(result) == 3
+        assert all(line.endswith("exact") or " exact" in line for line in lines)
+        assert not any("CHECK FAILED" in line for line in lines)
+        if mode:
+            assert all(rep.exact for rep in result)
 
     @pytest.mark.parametrize("argv", [
         ["--feedback"],

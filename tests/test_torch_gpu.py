@@ -731,3 +731,49 @@ def test_golden_serve_trace_on_the_kernels(cuda, backend):
     assert set(plain) == set(result.results)
     for rid, C in result.results.items():
         assert C.device.type == "cuda" and torch.equal(C.cpu(), plain[rid])
+
+
+# -- the mesh backend on the card --------------------------------------------
+
+_MESH_PLAN = dict(kind="bec", p=2, m=2, n=1, K=4, L=256 * 8 * 8 + 1, points="chebyshev")
+_MESH_ERASED = ([], [1], [0, 3])
+
+
+def _mesh_operands():
+    rng = np.random.default_rng(0)
+    return (torch.as_tensor(rng.integers(0, 9, size=(256, 192)), dtype=torch.float64),
+            torch.as_tensor(rng.integers(0, 9, size=(256, 160)), dtype=torch.float64))
+
+
+def _mesh_rank(mesh):
+    """One rank of the 4-rank mesh: its C per erasure set (fused, then one
+    staged request and one partial), on the card, copied to the host."""
+    A, B = (x.cuda() for x in _mesh_operands())
+    cm = CodedMatmul(make_plan(**_MESH_PLAN), "mesh", mesh=mesh)
+    out = {tuple(e): cm(A, B, erased=e).cpu() for e in _MESH_ERASED}
+    out["staged"] = cm.with_backend("mesh", fused=False)(A, B, erased=[1]).cpu()
+    out["partial"] = cm(A, B, progress=np.r_[0.5, 0.5, 1, 1], sub_tasks=2).cpu()
+    return out, str(cm.device), cm._executor.transport
+
+
+def test_mesh_four_ranks_on_one_card(cuda):
+    """Four ranks sharing the card (gloo, Y staged through pinned host
+    memory): every rank's C exact and bit-identical to the local fused
+    facade's, each rank launching its own kernels."""
+    from repro_torch.launch.mesh import spawn_mesh
+
+    outs = spawn_mesh(_mesh_rank, data=1, model=4, device="cuda", timeout_s=300)
+    A, B = (x.cuda() for x in _mesh_operands())
+    local = CodedMatmul(make_plan(**_MESH_PLAN))
+    want = {tuple(e): local(A, B, erased=e).cpu() for e in _MESH_ERASED}
+    want["staged"] = want[(1,)]
+    want["partial"] = local(A, B, progress=np.r_[0.5, 0.5, 1, 1], sub_tasks=2).cpu()
+    exact = (A.T @ B).cpu()
+    for out in outs:
+        Cs, device, transport = out.result
+        assert device.startswith("cuda") and transport.endswith("pinned host memory")
+        for key, C in Cs.items():
+            assert torch.equal(C, exact), key
+            assert torch.equal(C.view(torch.int64), want[key].view(torch.int64)), key
+        assert out.launches == dict(_NONE, fused_worker=4, decode=4, encode=2,
+                                    matmul_t=1, decode_partial=1)

@@ -182,13 +182,13 @@ def test_default_device_is_the_card(rng):
 
 @pytest.mark.parametrize("call", ["mesh", "decode_stage_partial", "unknown_kind"])
 def test_unported_paths_raise(rng, call):
-    """What the port still refuses: the mesh backend, split-stage decode of
-    partial specs (as the reference package refuses it), and pipeline kinds
-    it does not know."""
+    """What the port refuses, as the reference package does: the mesh
+    backend without a mesh, split-stage decode of partial specs, and
+    pipeline kinds it does not know."""
     A, B, _, plan = _problem(rng, "bec", 2, 2, 2, 1)
     cm = CodedMatmul(plan, device="cpu")
     if call == "mesh":
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(ValueError, match="requires a mesh"):
             CodedMatmul(plan, call, device="cpu")
     elif call == "decode_stage_partial":
         with pytest.raises(NotImplementedError, match="per-chunk panel"):
