@@ -46,8 +46,11 @@ from benchmarks.torch_control_bench import BACKENDS, ladder_kw
 from benchmarks.torch_obs_util import CompileWatch, assert_no_recompiles
 from repro_torch.chaos import make_scenario, scenario_names
 from repro_torch.control import PlanLadder
-from repro_torch.launch.coded_serve import MESH_SERVE_TIER as MESH_REFUSED
 from repro_torch.serve import ServeTier, parse_tenant_spec
+
+MESH_REFUSED = (
+    "--serve-tier does not drive the mesh backend (the split worker/decode "
+    "stages run fused on mesh); serve the tier on reference, fused or staged")
 
 # ladder geometry shared with control_bench (paper Sec. IV family)
 P, M, N, K = 4, 2, 1, 12

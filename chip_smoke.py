@@ -16,7 +16,9 @@ Phases, each raising on failure:
              kernels' registers and spills are printed, and the selective
              scan's SASS must hold MUFU.EX2 (its one-op exponentials); the
              per-chunk decode's (kernel 3) registers and spills are printed,
-             and its float64 bulk-copy instances must hold UBLKCP;
+             and its float64 bulk-copy instances must hold UBLKCP; so are
+             the registers and spills of the bf16/f16 instances of kernels
+             1, 4 and 5;
 3. kernels - each kernel against its plain PyTorch version on the card, at a
              ragged small shape and at the main path's shapes; kernels 1 and
              5 also with K=1 and with a row stride that is (16-byte copies)
@@ -124,6 +126,30 @@ Phases, each raising on failure:
              clock), and every rank's peak memory.  The ranks' launches join
              the ``kernels`` line.
 
+Phase 3h holds the bf16 and f16 instances of kernels 1, 4 and 5 against
+their plain versions (FP32 sums, each result rounded once to its output
+dtype) at a ragged shape and at the main path's (K=10, P=Q=4, 4000^2
+blocks), with a 16-byte aligned row stride (16-byte copies) and an odd one
+(2-byte loads): integer inputs in [-4, 4] exactly (also with float32
+output), random normal ones within 2e-2 of the largest value.  Phase 4h
+drives the worker stage at the paper's geometry in bf16 and in f16
+through the public ``ops`` entry points (normal coefficients and operands
+from the seed):
+``ops.fused_worker`` once, ``ops.encode`` twice and ``ops.matmul_t`` once
+per worker, counts set to 0 just before each dtype and read just after;
+those launches are the half entries' in the ``kernels`` line.  Phase 5h
+times each half kernel, its plain version and one PyTorch call (cuBLAS's
+reduced-precision reductions off) beside its bound at the bf16/f16 tensor
+peak and the HBM rate.  Phase 6c serves ``granite_3_8b``, ``qwen3_0_6b``
+and ``qwen2_0_5b`` whole (bf16 weights from the seed, rotary positions,
+the traffic of phase 6, no kernel on their path), gated on prefill(1024)
++ decode against prefill(1025) and finite logits, printing prefill and
+decode times, tokens/s, parameters and peak memory; Granite is freed
+before phase 6d runs ``examples/torch_serve_lm.py`` on the card: the smoke
+Qwen3 served, then its coded lm_head on a (2, 4) mesh of eight ranks
+sharing the card (100% argmax agreement, zero drift, every rank launching
+kernels 1 and 2 twice; the ranks' launches join the ``kernels`` line).
+
 Phases 7-11 run after phase 5b and before the LM phases.  Phase 3b holds
 the WKV and selective-scan kernels against their plain versions at the LM
 prefill's shapes, at ragged shapes and (the selective
@@ -147,6 +173,7 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+sys.path.insert(1, str(Path(__file__).resolve().parent / "examples"))
 
 import dataclasses  # noqa: E402
 import gc  # noqa: E402
@@ -193,11 +220,13 @@ from repro_torch.serve import (  # noqa: E402
     parse_tenant_spec,
 )
 from repro_torch.serve.trace import golden_operands, with_golden_meta  # noqa: E402
+import torch_serve_lm  # noqa: E402  (examples/torch_serve_lm.py)
 
 # Published H100 SXM peaks at 700 W (NVIDIA data sheet).
 PEAK_FP64_TENSOR = 67e12     # FLOP/s, FP64 on the tensor cores (DMMA)
 PEAK_FP64_VECTOR = 34e12     # FLOP/s, FP64 outside the tensor cores
 PEAK_FP32 = 67e12            # FLOP/s, FP32 outside the tensor cores
+PEAK_BF16_TENSOR = 989.4e12  # FLOP/s, dense bf16 and f16 on the tensor cores
 PEAK_HBM = 3.35e12           # bytes/s
 
 # The paper's geometry (configs/paper_matmul.py) at entry bound 15, which is
@@ -216,6 +245,14 @@ Q_SUB = 4
 PROGRESS = ([4, 1, 4, 0, 0, 1, 3, 4, 1, 4], [3, 3, 2, 2, 1, 2, 3, 0, 2, 3],
             [4, 0, 2, 1, 2, 0, 2, 4, 2, 0], [3, 3, 3, 3, 3, 3, 0, 3, 3, 3])
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+# bf16 / f16 kernels 1, 4 and 5 (FP32 sums, each result rounded once to its
+# output dtype) against their plain versions: random normal inputs within
+# 2e-2 of the largest value (tests/test_kernels.py's bf16 bound), integer
+# inputs in [-4, 4] exactly (every partial sum an integer below 2^24).
+HALF = (torch.bfloat16, torch.float16)
+HALF_TOL = 2e-2
+HALF_NAME = {torch.bfloat16: "bf16", torch.float16: "f16"}
+HALF_KERNELS = ("fused_worker", "encode", "matmul_t")
 # Floors for the tensor-core kernels 5 and 1: twice as fast as the FMA
 # kernels they replaced (8.986 and 202.12 ms on an H100 80GB HBM3 at
 # 700 W), printed beside the phase-5 times
@@ -252,6 +289,8 @@ MESH_SEED = 11
 MESH_TIMEOUT_S = 300
 KERNELS = ("fused_worker", "decode", "encode", "matmul_t", "decode_partial",
            "mamba_scan", "wkv_scan")
+# the dense-attention configs served whole in phase 6c, largest first
+DENSE_ARCHS = ("granite_3_8b", "qwen3_0_6b", "qwen2_0_5b")
 
 # LM serving traffic (phases 6, 6b): 4 prompts of 1024 tokens, 16 greedy
 # tokens each; the scan kernels are held at the prefill's shapes.
@@ -322,6 +361,9 @@ def device_phase() -> dict:
     print(f"clocks.max.sm {clock} MHz")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 / f16 library calls reduce in float32, as the kernels do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     return {"name": name, "smi": smi.splitlines()[0], "sm_clock_hz": float(clock) * 1e6}
 
 
@@ -340,14 +382,19 @@ def build_phase() -> None:
                         ("block_matmul", "repro_matmul_t_f64")):
         counts = {}
         for section in _build.sass(name).split("Function : ")[1:]:
-            m = re.search(r"\d([a-z_]+_kernel)I([df])Li(\d+)E", section.split("\n", 1)[0])
-            if m and m.group(2) == "d":
-                counts[f"{m.group(1)}<double, {m.group(3)}>"] = section.count("DMMA")
+            kernel = kernel_name(section.split("\n", 1)[0])
+            if "<double" in kernel:
+                counts[kernel] = section.count("DMMA")
         print(f"{entry}: DMMA instructions per float64 kernel {counts}")
         check(len(counts) == 2 and all(counts.values()),
               f"{entry}: a float64 kernel without DMMA instructions: {counts}")
     for name in ("wkv_scan", "mamba_scan"):
         print(f"{name}: {ptxas_summary(logs[name]) or 'built before this run'}")
+    # the bf16 / f16 instances of kernels 1, 4 and 5
+    for name in ("coded_fused", "coded_encode", "block_matmul"):
+        half = [k for k in ptxas_summary(logs[name]).split("; ")
+                if "<bf16" in k or "<half" in k]
+        print(f"{name} bf16/f16 instances: {'; '.join(half) or 'built before this run'}")
     # the selective scan's exponentials must be one MUFU op each
     ex2 = {kernel_name(section.split("\n", 1)[0]): section.count("MUFU.EX2")
            for section in _build.sass("mamba_scan").split("Function : ")[1:]}
@@ -364,15 +411,26 @@ def build_phase() -> None:
           f"coded_decode: a float64 bulk instance without UBLKCP: {blk}")
 
 
+_TYPES = {"d": "double", "f": "float", "6__half": "half", "13__nv_bfloat16": "bf16"}
+
+
 def kernel_name(mangled: str) -> str:
-    """The "name<template args>" of a mangled kernel template instance: a
-    leading float type, then bools (kernel 3's copy form) and ints."""
+    """The "name<template args>" of a mangled kernel template instance:
+    element types (double, float, half, bf16), bools (kernel 3's copy form)
+    and ints, read from the start of the template arguments."""
     m = re.search(r"\d+([a-z_]+_kernel)I(\S+)", mangled)
     if not m:
         return mangled.strip()
-    args = [{"d": "double", "f": "float"}[m.group(2)[0]]] if m.group(2)[0] in "df" else []
-    args += [("bulk" if b == "1" else "element") if b else i
-             for b, i in re.findall(r"Lb([01])E|Li(\d+)E", m.group(2))]
+    args, rest = [], m.group(2)
+    token = re.compile(r"d|f|6__half|13__nv_bfloat16|S\d*_|Lb([01])E|Li(\d+)E")
+    while (t := token.match(rest)):
+        if t.group(1) is not None:
+            args.append("bulk" if t.group(1) == "1" else "element")
+        elif t.group(2) is not None:
+            args.append(t.group(2))
+        else:   # a type, or a substitution naming the type before it
+            args.append(_TYPES.get(t.group(0), args[-1] if args else "?"))
+        rest = rest[t.end():]
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
@@ -568,6 +626,207 @@ def kernels_phase(plan, A, B, gen) -> dict:
     return errs
 
 
+def half_shapes() -> tuple:
+    """(label, K, P, Q, v, r, t): a ragged small shape and the main path's
+    (K=10 workers, P=Q=4 blocks of 4000 x 4000)."""
+    g = MAIN
+    return (("ragged", 3, 5, 3, 129, 257, 65),
+            ("main", g.K, g.p * g.m, g.p * g.n, V // g.p, R // g.m, T // g.n))
+
+
+def half_check(label: str, out: torch.Tensor, exp: torch.Tensor, data: str) -> float:
+    """A bf16/f16 kernel against its plain version on the same inputs:
+    integer inputs exactly (bits; an overflow to inf in f16 must be the
+    same inf), random ones within HALF_TOL of the largest value.  Returns
+    the max abs error (0 where both are the same inf)."""
+    torch.cuda.synchronize()
+    check(out.shape == exp.shape and out.dtype == exp.dtype,
+          f"{label}: {out.dtype} {tuple(out.shape)} against {exp.dtype} {tuple(exp.shape)}")
+    diff = torch.where(out == exp, 0.0, (out.float() - exp.float()).abs())
+    err = float(diff.max()) if out.numel() else 0.0
+    rel = err / (float(exp.float().abs().max()) + 1e-30) if out.numel() else 0.0
+    print(f"{label}: max abs err {err:.3e}, rel {rel:.3e}")
+    if data == "integer":
+        check(torch.equal(out, exp), f"{label} differs by {err}")
+    else:
+        check(rel < HALF_TOL, f"{label} rel err {rel}")
+    return err
+
+
+def half_kernels_phase(gen) -> dict:
+    """3h: the bf16 and f16 instances of kernels 1, 4 and 5 against their
+    plain versions at a ragged shape and at the main path's, with a row
+    stride that is 16-byte aligned (16-byte copies) and one that is not
+    (plain 2-byte loads), integer inputs in [-4, 4] exactly (kernels 1 and
+    5 also with float32 output) and random normal ones to HALF_TOL.
+    Returns the main shape's max abs error (random inputs) per entry."""
+    phase("3h bf16/f16 kernels 1, 4 and 5 against their plain versions")
+    errs = {}
+    for dtype in HALF:
+        tag = HALF_NAME[dtype]
+
+        def make(data, *shape):
+            if data == "integer":
+                return torch.randint(-4, 5, shape, generator=gen, device="cuda").to(dtype)
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        for label, K, P, Q, v, r, t in half_shapes():
+            for stride in ("aligned", "odd"):
+                for data in ("random", "integer"):
+                    ca, cb = make(data, K, P), make(data, K, Q)
+                    a = with_row_stride(make(data, P, v, r), stride)
+                    b = with_row_stride(make(data, Q, v, t), stride)
+                    width = copy_width(a, b)
+                    check(width == (16 if stride == "aligned" else 2),
+                          f"{tag} {stride} rows take {width}-byte copies")
+                    name = f"{tag} {label} ({K}, {P}, {Q}, {v}, {r}, {t}) {stride} rows " \
+                           f"({width}-byte copies) {data}"
+                    found = {
+                        "fused_worker": half_check(
+                            f"fused_worker {name}", ops.fused_worker(ca, cb, a, b),
+                            ref.fused_worker_ref(ca, cb, a, b), data),
+                        "encode": half_check(
+                            f"encode {name}", ops.encode(ca, a),
+                            ref.encode_ref(ca, a.reshape(P, -1)).reshape(K, v, r), data),
+                        "matmul_t": half_check(
+                            f"matmul_t {name}", ops.matmul_t(a[0], b[0]),
+                            ref.matmul_t_ref(a[0], b[0]), data)}
+                    if data == "integer":   # the float32 sums themselves
+                        f32 = torch.float32
+                        half_check(f"fused_worker {name} out float32",
+                                   ops.fused_worker(ca, cb, a, b, out_dtype=f32),
+                                   ref.fused_worker_ref(ca, cb, a, b, f32), data)
+                        half_check(f"matmul_t {name} out float32",
+                                   ops.matmul_t(a[0], b[0], out_dtype=f32),
+                                   ref.matmul_t_ref(a[0], b[0], f32), data)
+                    elif label == "main":
+                        for kernel, err in found.items():
+                            key = f"{kernel}_{tag}"
+                            errs[key] = max(err, errs.get(key, 0.0))
+                    del ca, cb, a, b
+    torch.cuda.empty_cache()
+    return errs
+
+
+def half_operands(plan, dtype, seed: int) -> tuple:
+    """The half-precision worker stage's operands at the plan's geometry:
+    coefficient tables (K, P), (K, Q) and A, B (8000 x 8000) standard normal
+    from the seed in ``dtype``, A and B as strided block views.  (The plan's
+    own coefficients carry powers of the digit base s = 2^22, beyond f16's
+    range: exact coded products are float64 work.)"""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = plan.scheme.grid
+    ca = torch.randn((plan.K, g.p * g.m), generator=gen, device="cuda").to(dtype)
+    cb = torch.randn((plan.K, g.p * g.n), generator=gen, device="cuda").to(dtype)
+    A = torch.randn((V, R), generator=gen, device="cuda").to(dtype)
+    B = torch.randn((V, T), generator=gen, device="cuda").to(dtype)
+    return ca, cb, block_decompose(A, g.p, g.m), block_decompose(B, g.p, g.n)
+
+
+def half_path_phase(plan, seed: int) -> dict:
+    """4h: the worker stage at the paper's geometry in bf16 and f16 through
+    the public ``ops`` entry points, fused (kernel 1) and staged (kernel 4
+    twice, kernel 5 once per worker), counts set to 0 just before each
+    dtype's run and read just after it."""
+    phase("4h bf16/f16 worker stage through ops (fused and staged)")
+    K = plan.K
+    out = {}
+    for dtype in HALF:
+        tag = HALF_NAME[dtype]
+        ca, cb, a4, b4 = half_operands(plan, dtype, seed)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Y = ops.fused_worker(ca, cb, a4, b4)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        at, bt = ops.encode(ca, a4), ops.encode(cb, b4)
+        Ys = torch.stack([ops.matmul_t(at[k], bt[k]) for k in range(K)])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = ops.launch_counts()
+        want = dict.fromkeys(counts, 0) | {"fused_worker": 1, "encode": 2, "matmul_t": K}
+        check(counts == want, f"4h {tag} launched {counts}, not {want}")
+        exp = ref.fused_worker_ref(ca, cb, a4, b4)
+        finite = bool(torch.isfinite(Y).all()) and bool(torch.isfinite(Ys).all())
+        _, rel_f = rel_err(Y.float(), exp.float())
+        _, rel_s = rel_err(Ys.float(), exp.float())
+        same = same_bits(Y, Ys)
+        print(f"4h {tag} worker stage (K={K}, {tuple(a4.shape)} blocks, "
+              f"{copy_width(a4, b4)}-byte copies): fused {(t1 - t0) * 1e3:.2f} ms wall, "
+              f"staged {(t2 - t1) * 1e3:.2f} ms wall; Y {tuple(Y.shape)} {Y.dtype}, finite "
+              f"{finite}; rel err against the plain version: fused {rel_f:.3e}, staged "
+              f"{rel_s:.3e} (bound {HALF_TOL}); fused and staged bit-identical {same}; "
+              f"launches {nonzero(counts)}")
+        check(finite and Y.shape == (K, R // plan.scheme.grid.m, T // plan.scheme.grid.n),
+              f"4h {tag}: Y {tuple(Y.shape)} not finite")
+        check(rel_f < HALF_TOL and rel_s < HALF_TOL,
+              f"4h {tag}: worker stage rel err {rel_f}, {rel_s}")
+        out[tag] = {"counts": counts}
+        del ca, cb, a4, b4, Y, at, bt, Ys, exp
+        torch.cuda.empty_cache()
+    return out
+
+
+def half_times_phase(plan, seed: int, smi: str) -> dict:
+    """5h: each bf16/f16 kernel, its plain version and one PyTorch call
+    computing the same function (cuBLAS's reduced-precision reductions
+    off), CUDA-event means at the main path's shapes, beside the least time
+    the card could take at its bf16/f16 tensor peak and HBM rate."""
+    phase("5h bf16/f16 kernel times")
+    K = plan.K
+    g = plan.scheme.grid
+    out = {}
+    for dtype in HALF:
+        tag = HALF_NAME[dtype]
+        ca, cb, a4, b4 = half_operands(plan, dtype, seed)
+        P, Q = ca.shape[1], cb.shape[1]
+        v, r, t = a4.shape[-2], a4.shape[-1], b4.shape[-1]
+        ca3, cb3 = ca.reshape(K, g.p, g.m), cb.reshape(K, g.p, g.n)
+
+        def bound(flops, nbytes):
+            t_ops, t_bytes = flops / PEAK_BF16_TENSOR, nbytes / PEAK_HBM
+            return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+                    "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+        def library_fused():
+            at = torch.einsum("kpm,pmvr->kvr", ca3, a4)
+            bt = torch.einsum("kpn,pnvt->kvt", cb3, b4)
+            return torch.bmm(at.transpose(1, 2), bt)
+
+        fused = dict(ms=time_ms(lambda: ops.fused_worker(ca, cb, a4, b4), 3),
+                     plain_ms=time_ms(lambda: ref.fused_worker_ref(ca, cb, a4, b4), 3),
+                     library_ms=time_ms(library_fused, 3))
+        flops = 2 * K * r * t * v + 2 * K * (P * v * r + Q * v * t)
+        fused |= bound(flops, 2 * (P * v * r + Q * v * t + K * r * t + K * (P + Q)))
+        stack = a4.reshape(P, -1)
+        E = v * r
+        enc = dict(ms=time_ms(lambda: ops.encode(ca, a4), 20),
+                   plain_ms=time_ms(lambda: ref.encode_ref(ca, stack), 20),
+                   library_ms=time_ms(lambda: torch.matmul(ca, stack), 20))
+        enc |= bound(2 * K * P * E, 2 * (P * E + K * E + K * P))
+        del stack
+        at, bt = ops.encode(ca, a4), ops.encode(cb, b4)
+        a1, b1 = at[0], bt[0]
+        mm = dict(ms=time_ms(lambda: ops.matmul_t(a1, b1), 5),
+                  plain_ms=time_ms(lambda: ref.matmul_t_ref(a1, b1), 5),
+                  library_ms=time_ms(lambda: a1.T @ b1, 5))
+        mm |= bound(2 * v * r * t, 2 * (v * r + v * t + r * t))
+        for kernel, row, flop in (("fused_worker", fused, flops), ("encode", enc, 2 * K * P * E),
+                                  ("matmul_t", mm, 2 * v * r * t)):
+            rate = flop / (row["ms"] * 1e-3)
+            print(f"{kernel}_{tag}: kernel {row['ms']:.4f} ms ({rate / 1e12:.2f} TFLOP/s, "
+                  f"{rate / PEAK_BF16_TENSOR:.1%} of the {tag} tensor peak, "
+                  f"{rate / PEAK_FP32:.1%} of the FP32 CUDA-core peak), bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {row['bound_ms'] / row['ms']:.1%} "
+                  f"of it), plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.4f} ms; "
+                  f"on {smi}")
+            out[f"{kernel}_{tag}"] = row
+        del ca, cb, a4, b4, at, bt, a1, b1
+        torch.cuda.empty_cache()
+    return out
+
+
 def wkv_inputs(gen, B, S, H, dk, dv=None):
     """Random f32 WKV inputs made as tests/test_kernels.py makes them:
     w = exp(-exp(N(0, 1))) in (0, 1), k, v, r, u standard normal."""
@@ -694,12 +953,16 @@ def lm_rel(out: torch.Tensor, exp: torch.Tensor) -> float:
     return float((out - exp).abs().max()) / (float(exp.abs().max()) + 1e-30)
 
 
-def lm_phase(label: str, cfg, kernel: str, n_scan: int, seed: int) -> dict:
+def lm_phase(label: str, cfg, kernel, n_scan: int, seed: int, smi: str) -> dict:
     """Serve ``cfg`` on the card: random weights from the seed, 4 prompts of
-    1024 tokens, 16 greedy tokens; then the kernel-vs-plain and
-    decode-vs-prefill checks.  ``kernel`` names the scan wrapper the
-    prefill must launch ``n_scan`` times."""
+    1024 tokens, 16 greedy tokens; then the decode-vs-prefill and
+    kernel-vs-plain checks.  ``kernel`` names the scan wrapper the prefill
+    must launch ``n_scan`` times; with ``kernel=None`` (attention-only
+    models) nothing may launch and there is no kernel to hold."""
     plain_cfg = dataclasses.replace(cfg, rwkv_kernel=False, mamba_kernel=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, seed=seed)
     torch.cuda.synchronize()
@@ -726,29 +989,44 @@ def lm_phase(label: str, cfg, kernel: str, n_scan: int, seed: int) -> dict:
     ops.reset_launch_counts()
     tokens, stats = generate(cfg, params, prompts, LM_GEN)
     counts = ops.launch_counts()
-    want = dict.fromkeys(counts, 0) | {kernel: n_scan}
+    want = dict.fromkeys(counts, 0) | ({kernel: n_scan} if kernel else {})
     check(counts == want, f"{label} serving launched {counts}, not {want}")
     check(tokens.shape == (LM_BATCH, LM_GEN) and bool(((tokens >= 0)
                                                        & (tokens < cfg.vocab)).all()),
           f"{label}: generated tokens {tuple(tokens.shape)} out of range")
     dec_ms = stats["decode_s"] * 1e3 / stats["decode_steps"]
     tok_s = LM_BATCH * stats["decode_steps"] / stats["decode_s"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{label} serve: prefill {stats['prefill_s'] * 1e3:.2f} ms "
           f"({LM_BATCH}x{LM_PROMPT} tokens), decode {dec_ms:.2f} ms per step "
-          f"({tok_s:.1f} tokens/s at batch {LM_BATCH}); launches {counts}; "
-          f"first tokens {tokens[0, :8].tolist()}")
+          f"({tok_s:.1f} tokens/s at batch {LM_BATCH}); {n_params / 1e9:.3f} B parameters; "
+          f"peak device memory {peak:.2f} GiB; launches {counts}; "
+          f"first tokens {tokens[0, :8].tolist()}; on {smi}")
 
     # prefill(1024) + one decode step against prefill(1025), in bf16
+    scan = {kernel: n_scan} if kernel else {}
     (logits_k, cache_k), steps = counted(
         lambda: prefill(params, cfg, {"tokens": prompts}, S_max=LM_PROMPT + 1))
-    check(steps == {kernel: n_scan}, f"{label} prefill launched {steps}")
+    check(steps == scan, f"{label} prefill launched {steps}")
     (dec, _), steps = counted(lambda: decode_step(params, cfg, cache_k,
                                                   {"tokens": toks[:, LM_PROMPT:]}, LM_PROMPT))
     check(not steps, f"{label} decode step launched {steps}")
     (full, _), steps = counted(lambda: prefill(params, cfg, {"tokens": toks}))
-    check(steps == {kernel: n_scan}, f"{label} prefill({LM_PROMPT + 1}) launched {steps}")
+    check(steps == scan, f"{label} prefill({LM_PROMPT + 1}) launched {steps}")
     rel_df = lm_rel(dec, full)
-    del cache_k, full
+    del cache_k
+    if kernel is None:
+        finite = all(bool(torch.isfinite(x).all()) for x in (logits_k, dec, full))
+        print(f"{label} checks: prefill({LM_PROMPT}) + decode vs prefill({LM_PROMPT + 1}) "
+              f"rel {rel_df:.3e} (bound {LM_TOL}); logits finite {finite}")
+        check(finite, f"{label}: logits not finite")
+        check(rel_df <= LM_TOL, f"{label}: decode vs prefill({LM_PROMPT + 1}) rel {rel_df}")
+        del params, logits_k, dec, full
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"counts": counts, "prefill_ms": stats["prefill_s"] * 1e3,
+                "decode_ms": dec_ms, "tok_s": tok_s, "params": n_params, "peak_gib": peak}
+    del full
     # the kernel against the plain chunked path on the same weights: in bf16,
     # and in float32 with the weights upcast in place (exactly)
     (logits_p, _), steps = counted(lambda: prefill(params, plain_cfg, {"tokens": prompts}))
@@ -779,10 +1057,10 @@ def lm_phase(label: str, cfg, kernel: str, n_scan: int, seed: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"counts": counts, "prefill_ms": stats["prefill_s"] * 1e3,
-            "decode_ms": dec_ms, "tok_s": tok_s}
+            "decode_ms": dec_ms, "tok_s": tok_s, "params": n_params, "peak_gib": peak}
 
 
-def rwkv_phase(seed: int) -> dict:
+def rwkv_phase(seed: int, smi: str) -> dict:
     phase("6 RWKV-6 3B serve (whole)")
     cfg = dataclasses.replace(get_config("rwkv6_3b"), rwkv_kernel=True)
     heads = cfg.d_model // cfg.rwkv_head_dim
@@ -790,10 +1068,10 @@ def rwkv_phase(seed: int) -> dict:
           f"vocab {cfg.vocab}, {heads} wkv heads of {cfg.rwkv_head_dim} padded to "
           f"{-(-heads // cfg.tp_pad) * cfg.tp_pad} (tp_pad {cfg.tp_pad}); nothing cut; "
           f"rwkv_kernel=True")
-    return lm_phase("rwkv6_3b", cfg, "wkv_scan", cfg.n_layers, seed)
+    return lm_phase("rwkv6_3b", cfg, "wkv_scan", cfg.n_layers, seed, smi)
 
 
-def jamba_phase(seed: int) -> dict:
+def jamba_phase(seed: int, smi: str) -> dict:
     phase("6b Jamba-1.5-Large, one pattern group at full width")
     full = get_config("jamba_1_5_large_398b")
     cfg = dataclasses.replace(full, n_layers=len(full.pattern), moe=None,
@@ -809,7 +1087,42 @@ def jamba_phase(seed: int) -> dict:
     print(f"cut: FFN 'moe' at pattern positions {moe_pos} -> the dense 'mlp' "
           f"(swiglu, d_ff {cfg.d_ff}); moe {full.moe} -> None")
     n_mamba = sum(m == "mamba" for m, _ in cfg.pattern) * cfg.n_groups
-    return lm_phase("jamba group", cfg, "mamba_scan", n_mamba, seed)
+    return lm_phase("jamba group", cfg, "mamba_scan", n_mamba, seed, smi)
+
+
+def dense_phase(seed: int, smi: str) -> dict:
+    """6c: the dense-attention configs whole (rotary positions, GQA; no
+    kernel on the LM path), largest first."""
+    phase("6c dense-attention configs served whole")
+    out = {}
+    for arch in DENSE_ARCHS:
+        cfg = get_config(arch)
+        print(f"config {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads of {cfg.d_head}, d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab}, rope theta {cfg.rope_theta:g}, qk_norm "
+              f"{cfg.qk_norm}, qkv_bias {cfg.qkv_bias}, tied head {cfg.tie_embeddings}; "
+              f"nothing cut")
+        out[arch] = lm_phase(arch, cfg, None, 0, seed, smi)
+    return out
+
+
+def serve_lm_twin_phase() -> dict:
+    """6d: ``examples/torch_serve_lm.py`` on the card: the smoke Qwen3 served,
+    then the coded lm_head on a (2, 4) mesh of ranks sharing the card, each
+    rank launching kernels 1 and 2 for both erasure patterns."""
+    phase("6d examples/torch_serve_lm.py on the card")
+    start = time.perf_counter()
+    result = torch_serve_lm.main([])
+    head = result["head"]
+    check(head["agree"] == 1.0 and head["drift"] == 0.0,
+          f"6d: argmax agreement {head['agree']}, drift {head['drift']}")
+    for rank, out in enumerate(result["outs"]):
+        want = dict.fromkeys(out.launches, 0) | {"fused_worker": 2, "decode": 2}
+        check(out.launches == want, f"6d rank {rank} launched {out.launches}, not {want}")
+    counts = {k: sum(o.launches[k] for o in result["outs"]) for k in KERNELS}
+    print(f"phase 6d: {time.perf_counter() - start:.1f} s, launches over the "
+          f"{len(result['outs'])} ranks {nonzero(counts)}")
+    return {"counts": counts}
 
 
 def drive(label: str, requests, C_ref, cm, per_request: dict) -> dict:
@@ -1849,12 +2162,15 @@ def main() -> None:
                      points=MAIN.points)
     errs = kernels_phase(plan, A, B, gen)
     errs |= scan_kernels_phase(gen)
+    errs |= half_kernels_phase(gen)
     C_ref = A.T @ B  # exact: every partial sum is an integer below 2^53
     paths = {"fused": main_phase(plan, A, B, C_ref),
              "staged": staged_phase(plan, A, B, C_ref),
              "partial": partial_phase(plan, A, B, C_ref)}
+    half_paths = half_path_phase(plan, args.seed)
     times = times_phase(plan, A, B, dev["smi"])
     times |= scan_times_phase(gen, dev)
+    times |= half_times_phase(plan, args.seed, dev["smi"])
     for name, path in paths.items():
         wall = path["walls"]
         print(f"request wall time ({name}, 8000^2, float64): first {wall[0]:.2f} ms, "
@@ -1868,11 +2184,15 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     paths["mesh"] = mesh_phase(args.seed, dev["smi"])
-    lms = {"rwkv6_3b": rwkv_phase(args.seed), "jamba group": jamba_phase(args.seed)}
+    lms = {"rwkv6_3b": rwkv_phase(args.seed, dev["smi"]),
+           "jamba group": jamba_phase(args.seed, dev["smi"])}
+    lms |= dense_phase(args.seed, dev["smi"])
     for name, lm in lms.items():
         print(f"LM serving ({name}, {LM_BATCH}x{LM_PROMPT} prompt, {LM_GEN} tokens, bf16): "
               f"prefill {lm['prefill_ms']:.2f} ms, decode {lm['decode_ms']:.2f} ms per step, "
-              f"{lm['tok_s']:.1f} tokens/s on {dev['smi']}")
+              f"{lm['tok_s']:.1f} tokens/s, {lm['params'] / 1e9:.3f} B parameters, peak "
+              f"{lm['peak_gib']:.2f} GiB on {dev['smi']}")
+    paths["serve_lm twin"] = serve_lm_twin_phase()
 
     csrc = "src/repro_torch/kernels/csrc"
     source = {"fused_worker": (f"{csrc}/coded_fused.cu", "src/repro/kernels/coded_fused.py:105"),
@@ -1889,6 +2209,12 @@ def main() -> None:
                     replaces=source[name][1], launches=launches[name],
                     max_abs_err=errs[name], **times[name])
                for name in KERNELS]
+    # the bf16 / f16 instances of kernels 1, 4 and 5, launched by phase 4h
+    kernels += [dict(name=f"{name}_{tag}", route="cuda", source=source[name][0],
+                     replaces=source[name][1],
+                     launches=half_paths[tag]["counts"][name],
+                     max_abs_err=errs[f"{name}_{tag}"], **times[f"{name}_{tag}"])
+                for tag in HALF_NAME.values() for name in HALF_KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["name"],

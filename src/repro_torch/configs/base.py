@@ -32,7 +32,8 @@ ARCH_IDS = (
     "qwen2_vl_72b",
     "paper_matmul",
 )
-PORTED_ARCHS = ("jamba_1_5_large_398b", "rwkv6_3b", "paper_matmul")
+PORTED_ARCHS = ("jamba_1_5_large_398b", "qwen3_0_6b", "qwen2_0_5b",
+                "granite_3_8b", "rwkv6_3b", "paper_matmul")
 
 
 def _module(arch: str):

@@ -10,7 +10,9 @@ for about K/8 operations per byte read.  The kernel keeps the (K, P) panel
 in shared memory, streams the blocks with coalesced loads and writes the
 contiguous (K, rows, cols) coded stack.  The blocks may be the strided views
 ``block_decompose`` returns: the kernel takes one element offset per block
-and the row stride, so nothing is copied into a (P, E) stack first.
+and the row stride, so nothing is copied into a (P, E) stack first.  bf16
+and f16 are summed in FP32 and written in the coefficient dtype, rounded to
+nearest even, as the reference's ``out_shape`` is the coefficient dtype.
 
 :func:`encode_ref` (from ``ref``) is the plain version; the wrapper
 ``ops.encode`` runs it for CPU tensors and launches the kernel for CUDA
@@ -24,7 +26,12 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.coded_fused import _block_offsets, _unit_column_stride
+from repro_torch.kernels.coded_fused import (
+    DTYPES,
+    _block_offsets,
+    _unit_column_stride,
+    _unsupported,
+)
 from repro_torch.kernels.ref import encode_ref
 
 __all__ = ["encode_cuda", "encode_ref", "MAX_BLOCKS", "MAX_PANEL_BYTES"]
@@ -33,7 +40,8 @@ MAX_BLOCKS = 64              # kMaxBlocks in csrc/coded_encode.cu
 MAX_PANEL_BYTES = 48 * 1024  # the (K, P) panel lives in shared memory
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SYMBOLS = {torch.float64: "repro_encode_f64", torch.float32: "repro_encode_f32"}
+_SYMBOLS = {torch.float64: "repro_encode_f64", torch.float32: "repro_encode_f32",
+            torch.bfloat16: "repro_encode_bf16", torch.float16: "repro_encode_f16"}
 
 
 def _function(dtype: torch.dtype):
@@ -45,8 +53,9 @@ def _function(dtype: torch.dtype):
 
 def encode_cuda(coeff: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     """Launch the kernel: coeff (K, P) and blocks (*grid, rows, cols) with
-    prod(grid) = P, CUDA tensors of one real dtype (float64 or float32)
-    -> the contiguous (K, rows, cols) coded stack.
+    prod(grid) = P, CUDA tensors of one real dtype (float64, float32,
+    bfloat16 or float16) -> the contiguous (K, rows, cols) coded stack in
+    that dtype (bf16/f16 summed in FP32).
 
     The blocks may be strided views; only the last dimension must be
     unit-stride, else it is made contiguous.
@@ -54,13 +63,12 @@ def encode_cuda(coeff: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     Raises:
         ValueError: on mismatched shapes, devices or dtypes, more than
             ``MAX_BLOCKS`` blocks, or a panel larger than ``MAX_PANEL_BYTES``.
-        NotImplementedError: for dtypes other than float64 / float32.
+        NotImplementedError: for other dtypes.
         RuntimeError: if the launch fails.
     """
     dtype = coeff.dtype
-    if dtype not in _SYMBOLS:
-        raise NotImplementedError(
-            f"the encode CUDA kernel takes float64 or float32, not {dtype}")
+    if dtype not in DTYPES:
+        raise _unsupported(dtype, "encode")
     if blocks.dtype != dtype or blocks.device != coeff.device \
             or coeff.device.type != "cuda":
         raise ValueError("encode_cuda needs CUDA tensors of one dtype")

@@ -14,7 +14,11 @@ compute-bound, with the raw-tile reads from L2 behind.  The kernel is the
 FP64 tensor-core main loop of ``csrc/dmma_gemm.cuh`` (a 128x128 output
 tile per block, mma.sync m16n8k8, a 2-stage cp.async ring of raw tiles)
 with the encode fused in shared memory, the worker on the grid's fastest
-axis; FP32 runs the same ring with CUDA-core FMAs.
+axis; FP32 runs the same ring with CUDA-core FMAs.  In bf16 and f16 each
+coded tile is the FP32 sum of its raw tiles rounded once to the input
+type, the products run on the tensor cores (mma.sync m16n8k16) with FP32
+accumulators, and the result is written in the input type (or float32),
+rounded to nearest even.
 
 :func:`fused_worker_ref` (from ``ref``) is the plain version; the wrapper
 ``ops.fused_worker`` runs it for CPU tensors and launches the kernel for
@@ -31,19 +35,44 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import fused_worker_ref
 
-__all__ = ["fused_worker_cuda", "fused_worker_ref", "copy_bytes", "MAX_BLOCKS"]
+__all__ = ["fused_worker_cuda", "fused_worker_ref", "copy_bytes", "MAX_BLOCKS",
+           "DTYPES"]
 
 MAX_BLOCKS = 64  # kMaxBlocks in csrc/coded_fused.cu
+_HALF = (torch.bfloat16, torch.float16)
+DTYPES = (torch.float64, torch.float32, *_HALF)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_SYMBOLS = {torch.float64: "repro_fused_worker_f64",
-            torch.float32: "repro_fused_worker_f32"}
+# (input dtype, output dtype) -> entry point of csrc/coded_fused.cu
+_SYMBOLS = {(torch.float64, torch.float64): "repro_fused_worker_f64",
+            (torch.float32, torch.float32): "repro_fused_worker_f32",
+            (torch.bfloat16, torch.bfloat16): "repro_fused_worker_bf16",
+            (torch.bfloat16, torch.float32): "repro_fused_worker_bf16_out_f32",
+            (torch.float16, torch.float16): "repro_fused_worker_f16",
+            (torch.float16, torch.float32): "repro_fused_worker_f16_out_f32"}
 
 
-def _function(dtype: torch.dtype):
-    fn = getattr(_build.load("coded_fused"), _SYMBOLS[dtype])
+def _kernel_out_dtype(dtype: torch.dtype, out_dtype) -> torch.dtype:
+    """The dtype a product kernel (1 or 5) writes for inputs of ``dtype``
+    when the caller asks for ``out_dtype``: the input dtype, or float32 for
+    bf16/f16 inputs whose caller wants anything wider or other than the
+    input dtype (the wrapper then converts the FP32 sums once, as the
+    reference casts its f32 accumulator)."""
+    if dtype in _HALF and out_dtype not in (None, dtype):
+        return torch.float32
+    return dtype
+
+
+def _unsupported(dtype: torch.dtype, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"the {what} CUDA kernel takes float64, float32, bfloat16 or "
+        f"float16, not {dtype}")
+
+
+def _function(dtype: torch.dtype, out_dtype: torch.dtype):
+    fn = getattr(_build.load("coded_fused"), _SYMBOLS[dtype, out_dtype])
     fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _I, _P]
     fn.restype = _I
     return fn
@@ -80,10 +109,12 @@ def _unit_column_stride(x: torch.Tensor) -> torch.Tensor:
 
 
 def fused_worker_cuda(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
-                      a_blocks: torch.Tensor, b_blocks: torch.Tensor) -> torch.Tensor:
+                      a_blocks: torch.Tensor, b_blocks: torch.Tensor,
+                      out_dtype=None) -> torch.Tensor:
     """Launch the kernel: coeff_a (K, P), coeff_b (K, Q), a_blocks
     (*grid_a, v, r), b_blocks (*grid_b, v, t), all CUDA tensors of one real
-    dtype (float64 or float32) -> (K, r, t).
+    dtype (float64, float32, bfloat16 or float16) -> (K, r, t) in
+    ``out_dtype`` (default: the input dtype).  bf16/f16 accumulate in FP32.
 
     The blocks may be strided views (e.g. from ``block_decompose``); only
     the last dimension must be unit-stride, else it is made contiguous.
@@ -91,14 +122,13 @@ def fused_worker_cuda(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
     Raises:
         ValueError: on mismatched shapes, devices or dtypes, or more than
             ``MAX_BLOCKS`` blocks per operand.
-        NotImplementedError: for dtypes other than float64 / float32.
+        NotImplementedError: for other dtypes.
         RuntimeError: if the launch fails.
     """
     tensors = (coeff_a, coeff_b, a_blocks, b_blocks)
     dtype = coeff_a.dtype
-    if dtype not in _SYMBOLS:
-        raise NotImplementedError(
-            f"the fused CUDA kernel takes float64 or float32, not {dtype}")
+    if dtype not in DTYPES:
+        raise _unsupported(dtype, "fused")
     if any(x.dtype != dtype or x.device != coeff_a.device for x in tensors):
         raise ValueError("fused_worker_cuda needs one dtype and one device")
     if coeff_a.device.type != "cuda":
@@ -114,9 +144,10 @@ def fused_worker_cuda(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
     if P > MAX_BLOCKS or Q > MAX_BLOCKS:
         raise ValueError(f"the fused kernel takes at most {MAX_BLOCKS} blocks "
                          f"per operand, got P={P}, Q={Q}")
-    out = torch.empty((K, r, t), dtype=dtype, device=coeff_a.device)
+    written = _kernel_out_dtype(dtype, out_dtype)
+    out = torch.empty((K, r, t), dtype=written, device=coeff_a.device)
     if out.numel() == 0:
-        return out
+        return out.to(out_dtype or dtype)
     ca = coeff_a.contiguous()
     cb = coeff_b.contiguous()
     a = _unit_column_stride(a_blocks)
@@ -126,10 +157,10 @@ def fused_worker_cuda(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
     width = copy_bytes(a.element_size(), (a.data_ptr(), a_off, a_sv),
                        (b.data_ptr(), b_off, b_sv))
     stream = torch.cuda.current_stream(coeff_a.device).cuda_stream
-    err = _function(dtype)(
+    err = _function(dtype, written)(
         ca.data_ptr(), cb.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
         ctypes.addressof(a_off), ctypes.addressof(b_off), K, P, Q, v, r, t,
         a_sv, b_sv, width, stream)
     if err != 0:
         raise RuntimeError(f"fused_worker kernel launch failed: cudaError {err}")
-    return out
+    return out.to(out_dtype or dtype)

@@ -7,14 +7,18 @@
 //
 // What bounds it: FP64 (or FP32) operations, 2*r*t*v of them (1.28e11 at the
 // paper's 8000^2 geometry, per worker) against 0.38 GB of operands, so the
-// FP64 tensor cores set the floor (1.9 ms at 67 TFLOP/s).  The design is the
+// FP64 tensor cores set the floor (1.9 ms at 67 TFLOP/s); in bf16/f16 the
+// 16-bit tensor cores (0.13 ms at 989 TFLOP/s).  The design is the
 // main loop of dmma_gemm.cuh with plain operand loads: one block per 128x128
 // output tile walks v 16 rows at a time through a 4-stage cp.async ring (one
 // barrier per step; the stage refilled is the one the previous step read),
 // and multiplies each stage on the FP64 tensor cores (mma.sync m16n8k8,
-// FP64 accumulators; FP32 on CUDA-core FMAs, never TF32).  The transposed LHS
-// needs no transpose: a (16 x 128) tile of A is 16 row segments of A, copied
-// contraction-first as the fragments read it.  Every edge is zero-filled by
+// FP64 accumulators; FP32 on CUDA-core FMAs, never TF32).  bf16 / f16 run
+// on the tensor cores (mma.sync m16n8k16 fed by ldmatrix.trans, FP32
+// accumulators, the output rounded to nearest even), at a pitch of 136; a
+// one-element copy of a 2-byte type is a plain load.  The
+// transposed LHS needs no transpose: a (16 x 128) tile of A is 16 row
+// segments of A, copied contraction-first as the fragments read it.  Every edge is zero-filled by
 // the copies, not padded (4000 fits no power of two).
 
 #include <cuda_runtime.h>
@@ -32,18 +36,18 @@ constexpr int kStages = 4;  // depth of the copy ring
 
 template <typename T>
 constexpr size_t smem_bytes() {
-  return 2ull * kStages * kBK * kPitch * sizeof(T);
+  return 2ull * kStages * kBK * kPitchOf<T> * sizeof(T);
 }
 
-template <typename T, int kVec>
+template <typename T, typename Out, int kVec>
 __global__ void __launch_bounds__(kThreads, 1)
 matmul_t_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                T* __restrict__ out, long long v, long long r, long long t,
+                Out* __restrict__ out, long long v, long long r, long long t,
                 long long lda, long long ldb) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kStage = kBK * kPitch;
-  T* a_s = reinterpret_cast<T*>(smem);  // [kStages][kBK][kPitch]
-  T* b_s = a_s + kStages * kStage;      // [kStages][kBK][kPitch]
+  constexpr int kStage = kBK * kPitchOf<T>;
+  T* a_s = reinterpret_cast<T*>(smem);  // [kStages][kBK][kPitchOf<T>]
+  T* b_s = a_s + kStages * kStage;      // [kStages][kBK][kPitchOf<T>]
 
   const int tid = threadIdx.x;
   const long long r0 = static_cast<long long>(blockIdx.y) * kBM;
@@ -76,10 +80,13 @@ matmul_t_kernel(const T* __restrict__ A, const T* __restrict__ B,
   acc.store(out, r0, t0, r, t);
 }
 
-template <typename T>
-int launch(const T* A, const T* B, T* out, long long v, long long r,
+template <typename T, typename Out>
+int launch(const void* A_, const void* B_, void* out_, long long v, long long r,
            long long t, long long lda, long long ldb, int copy_bytes,
            void* stream) {
+  const T* A = static_cast<const T*>(A_);
+  const T* B = static_cast<const T*>(B_);
+  Out* out = static_cast<Out*>(out_);
   if (r < 1 || t < 1 || v < 0 || (r + kBM - 1) / kBM > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -92,11 +99,11 @@ int launch(const T* A, const T* B, T* out, long long v, long long r,
                              static_cast<std::uintptr_t>(lda * sizeof(T)) |
                              static_cast<std::uintptr_t>(ldb * sizeof(T))) % 16;
     if (misaligned) return static_cast<int>(cudaErrorMisalignedAddress);
-    return launch_kernel(matmul_t_kernel<T, 16 / sizeof(T)>, grid, bytes, stream,
+    return launch_kernel(matmul_t_kernel<T, Out, 16 / sizeof(T)>, grid, bytes, stream,
                          A, B, out, v, r, t, lda, ldb);
   }
   if (copy_bytes == static_cast<int>(sizeof(T))) {
-    return launch_kernel(matmul_t_kernel<T, 1>, grid, bytes, stream, A, B, out,
+    return launch_kernel(matmul_t_kernel<T, Out, 1>, grid, bytes, stream, A, B, out,
                          v, r, t, lda, ldb);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -107,17 +114,18 @@ int launch(const T* A, const T* B, T* out, long long v, long long r,
 // A (v, r) with row stride lda, B (v, t) with row stride ldb, both with unit
 // column stride; out (r, t) contiguous.  copy_bytes is 16 (every pointer and
 // row stride a 16-byte multiple) or the element size.  Returns the
-// cudaError_t of the launch.
-extern "C" int repro_matmul_t_f64(const double* A, const double* B,
-                                  double* out, long long v, long long r,
-                                  long long t, long long lda, long long ldb,
-                                  int copy_bytes, void* stream) {
-  return launch<double>(A, B, out, v, r, t, lda, ldb, copy_bytes, stream);
-}
+// cudaError_t of the launch.  The _bf16 / _f16 entries accumulate in FP32
+// and write their input type; the _out_f32 ones write the FP32 sums.
+#define REPRO_MATMUL_T(NAME, T, OUT)                                               \
+  extern "C" int NAME(const void* A, const void* B, void* out, long long v,         \
+                      long long r, long long t, long long lda, long long ldb,       \
+                      int copy_bytes, void* stream) {                               \
+    return launch<T, OUT>(A, B, out, v, r, t, lda, ldb, copy_bytes, stream);        \
+  }
 
-extern "C" int repro_matmul_t_f32(const float* A, const float* B, float* out,
-                                  long long v, long long r, long long t,
-                                  long long lda, long long ldb, int copy_bytes,
-                                  void* stream) {
-  return launch<float>(A, B, out, v, r, t, lda, ldb, copy_bytes, stream);
-}
+REPRO_MATMUL_T(repro_matmul_t_f64, double, double)
+REPRO_MATMUL_T(repro_matmul_t_f32, float, float)
+REPRO_MATMUL_T(repro_matmul_t_bf16, __nv_bfloat16, __nv_bfloat16)
+REPRO_MATMUL_T(repro_matmul_t_bf16_out_f32, __nv_bfloat16, float)
+REPRO_MATMUL_T(repro_matmul_t_f16, __half, __half)
+REPRO_MATMUL_T(repro_matmul_t_f16_out_f32, __half, float)

@@ -7,6 +7,10 @@
 //
 // a skinny (K, P) @ (P, E) product with tiny K and P and huge E = rows * cols.
 //
+// bf16 / f16 blocks are summed in FP32 (the panel kept in the input type in
+// shared memory, each value widened as it is used) and written in the
+// coefficient type, rounded to nearest even.
+//
 // What bounds it: device-memory bytes.  It reads each raw element once and
 // writes K coded elements for 2*K*P operations, about K/8 operations per byte
 // read, far below the card's balance.  The design keeps the (K, P) panel in
@@ -21,7 +25,11 @@
 
 #include <cuda_runtime.h>
 
+#include "accum.cuh"
+
 namespace {
+
+using accum::acc_t;
 
 constexpr int kThreads = 256;
 constexpr int kOutRows = 16;     // coded outputs held in registers per pass
@@ -40,6 +48,7 @@ __global__ void __launch_bounds__(kThreads)
 encode_kernel(const T* __restrict__ coeff, const T* __restrict__ blocks,
               T* __restrict__ out, BlockOffsets offsets, int K, int P,
               long long rows, long long cols, long long row_stride) {
+  using Acc = acc_t<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* c_s = reinterpret_cast<T*>(smem_raw);                         // (K, P)
   for (int i = threadIdx.x; i < K * P; i += blockDim.x) c_s[i] = coeff[i];
@@ -55,27 +64,27 @@ encode_kernel(const T* __restrict__ coeff, const T* __restrict__ blocks,
       const T* src = blocks + row * row_stride + col;
       T* dst = out + row * cols + col;
       for (int k0 = 0; k0 < K; k0 += kOutRows) {
-        T acc[kOutRows];
+        Acc acc[kOutRows];
 #pragma unroll
-        for (int u = 0; u < kOutRows; ++u) acc[u] = T(0);
+        for (int u = 0; u < kOutRows; ++u) acc[u] = Acc(0);
         for (int p0 = 0; p0 < P; p0 += kLoads) {
-          T x[kLoads];
+          Acc x[kLoads];
 #pragma unroll
           for (int j = 0; j < kLoads; ++j) {
-            x[j] = p0 + j < P ? src[off_s[p0 + j]] : T(0);
+            x[j] = p0 + j < P ? accum::widen(src[off_s[p0 + j]]) : Acc(0);
           }
 #pragma unroll
           for (int j = 0; j < kLoads; ++j) {
             if (p0 + j >= P) break;
 #pragma unroll
             for (int u = 0; u < kOutRows; ++u) {
-              if (k0 + u < K) acc[u] += c_s[(k0 + u) * P + p0 + j] * x[j];
+              if (k0 + u < K) acc[u] += accum::widen(c_s[(k0 + u) * P + p0 + j]) * x[j];
             }
           }
         }
 #pragma unroll
         for (int u = 0; u < kOutRows; ++u) {
-          if (k0 + u < K) dst[(k0 + u) * plane] = acc[u];
+          if (k0 + u < K) dst[(k0 + u) * plane] = accum::Cast<T>::from(acc[u]);
         }
       }
     }
@@ -83,9 +92,12 @@ encode_kernel(const T* __restrict__ coeff, const T* __restrict__ blocks,
 }
 
 template <typename T>
-int launch(const T* coeff, const T* blocks, T* out, const long long* offsets,
+int launch(const void* coeff_, const void* blocks_, void* out_, const long long* offsets,
            int K, int P, long long rows, long long cols, long long row_stride,
            void* stream) {
+  const T* coeff = static_cast<const T*>(coeff_);
+  const T* blocks = static_cast<const T*>(blocks_);
+  T* out = static_cast<T*>(out_);
   const size_t smem = static_cast<size_t>(K) * P * sizeof(T);
   if (K < 1 || P < 1 || P > kMaxBlocks || rows < 1 || cols < 1 ||
       smem > kMaxPanelBytes) {
@@ -107,19 +119,17 @@ int launch(const T* coeff, const T* blocks, T* out, const long long* offsets,
 // coeff (K, P) contiguous; block p starts at blocks + offsets[p] (in elements)
 // with row stride row_stride and unit column stride; out (K, rows, cols)
 // contiguous.  offsets is a HOST array of P entries (P <= 64).  Returns the
-// cudaError_t of the launch.
-extern "C" int repro_encode_f64(const double* coeff, const double* blocks,
-                                double* out, const long long* offsets, int K,
-                                int P, long long rows, long long cols,
-                                long long row_stride, void* stream) {
-  return launch<double>(coeff, blocks, out, offsets, K, P, rows, cols,
-                        row_stride, stream);
-}
+// cudaError_t of the launch.  The _bf16 / _f16 entries sum in FP32 and
+// write the coefficient type, rounded to nearest even.
+#define REPRO_ENCODE(NAME, T)                                                      \
+  extern "C" int NAME(const void* coeff, const void* blocks, void* out,            \
+                      const long long* offsets, int K, int P, long long rows,      \
+                      long long cols, long long row_stride, void* stream) {        \
+    return launch<T>(coeff, blocks, out, offsets, K, P, rows, cols, row_stride,    \
+                     stream);                                                      \
+  }
 
-extern "C" int repro_encode_f32(const float* coeff, const float* blocks,
-                                float* out, const long long* offsets, int K,
-                                int P, long long rows, long long cols,
-                                long long row_stride, void* stream) {
-  return launch<float>(coeff, blocks, out, offsets, K, P, rows, cols,
-                       row_stride, stream);
-}
+REPRO_ENCODE(repro_encode_f64, double)
+REPRO_ENCODE(repro_encode_f32, float)
+REPRO_ENCODE(repro_encode_bf16, __nv_bfloat16)
+REPRO_ENCODE(repro_encode_f16, __half)

@@ -10,6 +10,11 @@
 // coefficient row (also in shared memory), so the coded operands never reach
 // device memory.
 //
+// bf16 / f16 inputs accumulate in FP32 and write the input type (or FP32):
+// each coded tile is the FP32 sum of its raw tiles, rounded once to the input
+// type before the product (on the bf16/f16 tensor cores), as
+// ref.fused_worker_ref states.
+//
 // What bounds it: FP64 (or FP32) operations, 2*K*r*t*v of them (1.28e12 at
 // the paper's 8000^2 geometry, 19 ms at the FP64 tensor peak), and behind
 // them the raw-tile traffic: a block reads P + Q raw tiles for every coded
@@ -20,8 +25,9 @@
 //
 // Design: the main loop of dmma_gemm.cuh (128x128 output tile, 8 warps,
 // FP64 on the tensor cores with mma.sync m16n8k8, FP32 on CUDA-core FMAs,
-// never TF32) with the encode fused in.  A block owns one (worker, output
-// tile) and walks v 8 rows at a time.  Each step's raw tiles - up to kGroup
+// never TF32; bf16/f16 on the tensor cores with mma.sync m16n8k16 and FP32
+// accumulators) with the encode fused in.  A block owns one (worker, output
+// tile) and walks v 8 rows at a time (16 for bf16/f16).  Each step's raw tiles - up to kGroup
 // blocks of each operand - arrive through a 2-stage cp.async ring; all
 // threads form the coded tiles shared-to-shared (16-byte vectors,
 // coefficients broadcast from shared memory) into one of two coded pairs,
@@ -39,93 +45,126 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "dmma_gemm.cuh"
 
 namespace {
 
 using namespace dmma_gemm;
+using accum::acc_t;
 
 constexpr int kMaxBlocks = 64;  // largest P or Q the kernel takes
-constexpr int kBK = 8;          // contraction rows per ring stage
 constexpr int kGroup = 4;       // raw blocks of each operand per stage
 constexpr int kStages = 2;      // depth of the copy ring
-constexpr int kTile = kBK * kPitch;
+
+// Contraction rows per ring stage: 8, or 16 for 2-byte elements, whose
+// 16-byte copies cover a 128-wide row in 16 pieces (8 rows would leave half
+// the threads without a copy) and whose MMA steps are 16 deep.
+template <typename T>
+constexpr int kBKOf = sizeof(T) == 2 ? 16 : 8;
+// A raw or coded tile [kBK][kPitchOf<T>] of T; for bf16/f16 also a tile of
+// FP32 partial sums [kBK][kPitch], which carries a coded tile's sum across
+// groups of raw blocks (P or Q above kGroup) until its one rounding.
+template <typename T>
+constexpr int kTile = kBKOf<T> * kPitchOf<T>;
+template <typename T>
+constexpr int kPartialTile = std::is_same_v<acc_t<T>, T> ? 0 : kBKOf<T> * kPitch;
 
 struct BlockOffsets {
   long long v[kMaxBlocks];
 };
 
-// Offsets, coefficients, the raw-tile ring and two coded pairs.
+// Offsets, coefficients, the raw-tile ring, two coded pairs and (bf16/f16)
+// their partial sums.
 template <typename T>
 constexpr size_t smem_bytes() {
-  return 2ull * kMaxBlocks * (sizeof(long long) + sizeof(T)) +
-         (2ull * kGroup * kStages + 4) * kTile * sizeof(T);
+  return 2ull * kMaxBlocks * (sizeof(long long) + sizeof(acc_t<T>)) +
+         (2ull * kGroup * kStages + 4) * kTile<T> * sizeof(T) +
+         4ull * kPartialTile<T> * sizeof(acc_t<T>);
 }
+static_assert(smem_bytes<__nv_bfloat16>() <= 232448, "the opt-in shared-memory limit");
 
+// coded (+)= sum_{j < n} coef[j] * raw[j], over one coded tile, 16 bytes of
+// raw elements a thread at a time; `first` starts the sum from zero.
+// float64/float32 sum in the coded tile itself.  bf16/f16 sum in FP32: in
+// registers within a group, in `partial` across groups, and the group that
+// ends the sum (`round`) writes it to the coded tile rounded once to T, as
+// ref.fused_worker_ref forms it.
 template <typename T>
-struct Pack;  // 16 bytes of T
-template <>
-struct Pack<double> {
-  using type = double2;
-  static constexpr int n = 2;
-};
-template <>
-struct Pack<float> {
-  using type = float4;
-  static constexpr int n = 4;
-};
-
-// coded (+)= sum_{j < n} coef[j] * raw[j], over one [kBK][kPitch] tile;
-// `first` starts the sum from zero.
-template <typename T>
-__device__ __forceinline__ void encode(T* coded, const T* raw, const T* coef,
-                                       int n, bool first, int tid) {
-  using V = typename Pack<T>::type;
-  constexpr int kN = Pack<T>::n;
+__device__ __forceinline__ void encode(T* coded, acc_t<T>* partial, const T* raw,
+                                       const acc_t<T>* coef, int n, bool first,
+                                       bool round, int tid) {
+  using Acc = acc_t<T>;
+  constexpr bool kWide = !std::is_same_v<Acc, T>;
+  constexpr int kN = 16 / sizeof(T);               // raw elements per thread
+  constexpr int kAccVecs = kN * sizeof(Acc) / 16;  // 16-byte pieces of their sums
   constexpr int kPerRow = kBM / kN;
-  static_assert(kBK * kPerRow % kThreads == 0, "whole packs per thread");
+  static_assert(kBKOf<T> * kPerRow % kThreads == 0, "whole packs per thread");
 #pragma unroll
-  for (int i = 0; i < kBK * kPerRow / kThreads; ++i) {
+  for (int i = 0; i < kBKOf<T> * kPerRow / kThreads; ++i) {
     const int c = tid + i * kThreads;
-    const int at = (c / kPerRow) * kPitch + (c % kPerRow) * kN;
+    const int row = c / kPerRow;
+    const int col = (c % kPerRow) * kN;
+    const int at = row * kPitchOf<T> + col;
+    uint4* sums;
+    if constexpr (kWide) {
+      sums = reinterpret_cast<uint4*>(partial + row * kPitch + col);
+    } else {
+      sums = reinterpret_cast<uint4*>(coded + at);
+    }
     union {
-      V v;
+      uint4 v[kAccVecs];
+      Acc e[kN];
+    } acc;
+    union {
+      uint4 v;
       T e[kN];
-    } acc, x;
+    } x;
     if (first) {
 #pragma unroll
-      for (int l = 0; l < kN; ++l) acc.e[l] = T(0);
+      for (int l = 0; l < kN; ++l) acc.e[l] = Acc(0);
     } else {
-      acc.v = *reinterpret_cast<const V*>(coded + at);
+#pragma unroll
+      for (int u = 0; u < kAccVecs; ++u) acc.v[u] = sums[u];
     }
 #pragma unroll
     for (int j = 0; j < kGroup; ++j) {
       if (j < n) {
-        const T w = coef[j];
-        x.v = *reinterpret_cast<const V*>(raw + j * kTile + at);
+        const Acc w = coef[j];
+        x.v = *reinterpret_cast<const uint4*>(raw + j * kTile<T> + at);
 #pragma unroll
-        for (int l = 0; l < kN; ++l) acc.e[l] += w * x.e[l];
+        for (int l = 0; l < kN; ++l) acc.e[l] += w * accum::widen(x.e[l]);
       }
     }
-    *reinterpret_cast<V*>(coded + at) = acc.v;
+    if (kWide && round) {
+#pragma unroll
+      for (int l = 0; l < kN; ++l) x.e[l] = accum::Cast<T>::from(acc.e[l]);
+      *reinterpret_cast<uint4*>(coded + at) = x.v;
+    } else {
+#pragma unroll
+      for (int u = 0; u < kAccVecs; ++u) sums[u] = acc.v[u];
+    }
   }
 }
 
-template <typename T, int kVec>
+template <typename T, typename Out, int kVec>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_worker_kernel(const T* __restrict__ ca, const T* __restrict__ cb,
                     const T* __restrict__ a, const T* __restrict__ b,
-                    T* __restrict__ out, BlockOffsets a_off, BlockOffsets b_off,
+                    Out* __restrict__ out, BlockOffsets a_off, BlockOffsets b_off,
                     int K, int P, int Q, long long v, long long r, long long t,
                     long long a_sv, long long b_sv) {
+  using Acc = acc_t<T>;
+  constexpr int kBK = kBKOf<T>;
   extern __shared__ __align__(16) unsigned char smem[];
   long long* aoff_s = reinterpret_cast<long long*>(smem);
   long long* boff_s = aoff_s + kMaxBlocks;
-  T* ca_s = reinterpret_cast<T*>(boff_s + kMaxBlocks);
-  T* cb_s = ca_s + kMaxBlocks;
-  T* raw_s = cb_s + kMaxBlocks;  // [kStages][2 * kGroup][kBK][kPitch]: A, then B
-  T* coded_s = raw_s + kStages * 2 * kGroup * kTile;  // [2][A, B][kBK][kPitch]
+  Acc* ca_s = reinterpret_cast<Acc*>(boff_s + kMaxBlocks);
+  Acc* cb_s = ca_s + kMaxBlocks;
+  T* raw_s = reinterpret_cast<T*>(cb_s + kMaxBlocks);  // [kStages][2 * kGroup][tile]: A, then B
+  T* coded_s = raw_s + kStages * 2 * kGroup * kTile<T>;  // [2][A, B][tile]
+  Acc* partial_s = reinterpret_cast<Acc*>(coded_s + 4 * kTile<T>);  // [2][A, B][partial tile]
 
   const int tid = threadIdx.x;
   const long long k = blockIdx.x % K;  // worker on the fastest axis
@@ -134,11 +173,11 @@ fused_worker_kernel(const T* __restrict__ ca, const T* __restrict__ cb,
   const long long r0 = (tile / tiles_t) * kBM;
   const long long t0 = (tile % tiles_t) * kBN;
   if (tid < P) {
-    ca_s[tid] = ca[k * P + tid];
+    ca_s[tid] = accum::widen(ca[k * P + tid]);
     aoff_s[tid] = a_off.v[tid];
   }
   if (tid < Q) {
-    cb_s[tid] = cb[k * Q + tid];
+    cb_s[tid] = accum::widen(cb[k * Q + tid]);
     boff_s[tid] = b_off.v[tid];
   }
   __syncthreads();
@@ -148,7 +187,7 @@ fused_worker_kernel(const T* __restrict__ ca, const T* __restrict__ cb,
   const int groups = max((P + kGroup - 1) / kGroup, (Q + kGroup - 1) / kGroup);
   const long long items = (v + kBK - 1) / kBK * groups;
   auto stage = [&](long long item) {
-    return raw_s + static_cast<int>(item % kStages) * 2 * kGroup * kTile;
+    return raw_s + static_cast<int>(item % kStages) * 2 * kGroup * kTile<T>;
   };
   auto load = [&](long long item) {
     const long long v0 = item / groups * kBK;
@@ -156,11 +195,11 @@ fused_worker_kernel(const T* __restrict__ ca, const T* __restrict__ cb,
     T* s = stage(item);
     for (int j = 0; j < kGroup; ++j) {
       if (p0 + j < P) {
-        load_tile<T, kVec, kBK>(s + j * kTile, a + aoff_s[p0 + j] + v0 * a_sv + r0,
+        load_tile<T, kVec, kBK>(s + j * kTile<T>, a + aoff_s[p0 + j] + v0 * a_sv + r0,
                                 a_sv, v - v0, r - r0, tid);
       }
       if (p0 + j < Q) {
-        load_tile<T, kVec, kBK>(s + (kGroup + j) * kTile,
+        load_tile<T, kVec, kBK>(s + (kGroup + j) * kTile<T>,
                                 b + boff_s[p0 + j] + v0 * b_sv + t0, b_sv, v - v0,
                                 t - t0, tid);
       }
@@ -175,8 +214,8 @@ fused_worker_kernel(const T* __restrict__ ca, const T* __restrict__ cb,
   Tile<T> acc(tid);
   const bool product_first = tid >= kThreads / 2;
   auto product = [&](long long step) {
-    const T* c = coded_s + static_cast<int>(step & 1) * 2 * kTile;
-    acc.template multiply<kBK>(c, c + kTile);
+    const T* c = coded_s + static_cast<int>(step & 1) * 2 * kTile<T>;
+    acc.template multiply<kBK>(c, c + kTile<T>);
   };
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < items) load(s);
@@ -193,11 +232,15 @@ fused_worker_kernel(const T* __restrict__ ca, const T* __restrict__ cb,
     if (multiply && product_first) product(step - 1);
     const int p0 = g * kGroup;
     const T* s = stage(item);
-    T* coded = coded_s + static_cast<int>(step & 1) * 2 * kTile;
-    if (p0 < P) encode(coded, s, ca_s + p0, min(kGroup, P - p0), g == 0, tid);
+    T* coded = coded_s + static_cast<int>(step & 1) * 2 * kTile<T>;
+    Acc* partial = partial_s + static_cast<int>(step & 1) * 2 * kPartialTile<T>;
+    if (p0 < P) {
+      encode<T>(coded, partial, s, ca_s + p0, min(kGroup, P - p0), g == 0,
+                p0 + kGroup >= P, tid);
+    }
     if (p0 < Q) {
-      encode(coded + kTile, s + kGroup * kTile, cb_s + p0, min(kGroup, Q - p0), g == 0,
-             tid);
+      encode<T>(coded + kTile<T>, partial + kPartialTile<T>, s + kGroup * kTile<T>,
+                cb_s + p0, min(kGroup, Q - p0), g == 0, p0 + kGroup >= Q, tid);
     }
     if (multiply && !product_first) product(step - 1);
   }
@@ -209,11 +252,16 @@ fused_worker_kernel(const T* __restrict__ ca, const T* __restrict__ cb,
   acc.store(out + k * r * t, r0, t0, r, t);
 }
 
-template <typename T>
-int launch(const T* ca, const T* cb, const T* a, const T* b, T* out,
+template <typename T, typename Out>
+int launch(const void* ca_, const void* cb_, const void* a_, const void* b_, void* out_,
            const long long* a_off, const long long* b_off, int K, int P, int Q,
            long long v, long long r, long long t, long long a_sv, long long b_sv,
            int copy_bytes, void* stream) {
+  const T* ca = static_cast<const T*>(ca_);
+  const T* cb = static_cast<const T*>(cb_);
+  const T* a = static_cast<const T*>(a_);
+  const T* b = static_cast<const T*>(b_);
+  Out* out = static_cast<Out*>(out_);
   const long long tiles = ((r + kBM - 1) / kBM) * ((t + kBN - 1) / kBN);
   if (P < 1 || Q < 1 || P > kMaxBlocks || Q > kMaxBlocks || K < 1 || r < 1 ||
       t < 1 || v < 0 || tiles * K > 0x7fffffffLL) {
@@ -237,12 +285,12 @@ int launch(const T* ca, const T* cb, const T* a, const T* b, T* out,
   const size_t bytes = smem_bytes<T>();
   if (copy_bytes == 16) {
     if (misaligned % 16) return static_cast<int>(cudaErrorMisalignedAddress);
-    return launch_kernel(fused_worker_kernel<T, 16 / sizeof(T)>, grid, bytes,
+    return launch_kernel(fused_worker_kernel<T, Out, 16 / sizeof(T)>, grid, bytes,
                          stream, ca, cb, a, b, out, ao, bo, K, P, Q, v, r, t,
                          a_sv, b_sv);
   }
   if (copy_bytes == static_cast<int>(sizeof(T))) {
-    return launch_kernel(fused_worker_kernel<T, 1>, grid, bytes, stream, ca, cb,
+    return launch_kernel(fused_worker_kernel<T, Out, 1>, grid, bytes, stream, ca, cb,
                          a, b, out, ao, bo, K, P, Q, v, r, t, a_sv, b_sv);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -255,20 +303,20 @@ int launch(const T* ca, const T* cb, const T* a, const T* b, T* out,
 // (K, r, t) contiguous.  a_off / b_off are HOST arrays.  copy_bytes is 16
 // (both base pointers, every block offset and both row strides 16-byte
 // multiples) or the element size.  Returns the cudaError_t of the launch.
-extern "C" int repro_fused_worker_f64(
-    const double* ca, const double* cb, const double* a, const double* b,
-    double* out, const long long* a_off, const long long* b_off, int K, int P,
-    int Q, long long v, long long r, long long t, long long a_sv, long long b_sv,
-    int copy_bytes, void* stream) {
-  return launch<double>(ca, cb, a, b, out, a_off, b_off, K, P, Q, v, r, t,
-                        a_sv, b_sv, copy_bytes, stream);
-}
+// The _bf16 / _f16 entries accumulate in FP32 and write their input type;
+// the _out_f32 ones write the FP32 sums.
+#define REPRO_FUSED_WORKER(NAME, T, OUT)                                           \
+  extern "C" int NAME(const void* ca, const void* cb, const void* a, const void* b,  \
+                      void* out, const long long* a_off, const long long* b_off,     \
+                      int K, int P, int Q, long long v, long long r, long long t,    \
+                      long long a_sv, long long b_sv, int copy_bytes, void* stream) { \
+    return launch<T, OUT>(ca, cb, a, b, out, a_off, b_off, K, P, Q, v, r, t, a_sv,  \
+                          b_sv, copy_bytes, stream);                                \
+  }
 
-extern "C" int repro_fused_worker_f32(
-    const float* ca, const float* cb, const float* a, const float* b,
-    float* out, const long long* a_off, const long long* b_off, int K, int P,
-    int Q, long long v, long long r, long long t, long long a_sv, long long b_sv,
-    int copy_bytes, void* stream) {
-  return launch<float>(ca, cb, a, b, out, a_off, b_off, K, P, Q, v, r, t,
-                       a_sv, b_sv, copy_bytes, stream);
-}
+REPRO_FUSED_WORKER(repro_fused_worker_f64, double, double)
+REPRO_FUSED_WORKER(repro_fused_worker_f32, float, float)
+REPRO_FUSED_WORKER(repro_fused_worker_bf16, __nv_bfloat16, __nv_bfloat16)
+REPRO_FUSED_WORKER(repro_fused_worker_bf16_out_f32, __nv_bfloat16, float)
+REPRO_FUSED_WORKER(repro_fused_worker_f16, __half, __half)
+REPRO_FUSED_WORKER(repro_fused_worker_f16_out_f32, __half, float)

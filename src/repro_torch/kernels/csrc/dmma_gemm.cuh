@@ -17,18 +17,28 @@
 // memory per 16 DMMA, and one block per SM (the ring fills shared memory), so
 // the copy ring, not other blocks, hides the device-memory latency.
 // FP32 has no tensor-core path without TF32, which stays off, so each thread
-// accumulates an 8x8 micro-tile with FMAs on the CUDA cores.
+// accumulates an 8x8 micro-tile with FMAs on the CUDA cores.  bf16 and f16
+// run on the tensor cores (mma.sync m16n8k16, FP32 accumulators, the
+// fragments read by ldmatrix.trans), and the tile is written in the output
+// type, rounded to nearest even.  Their shared-memory pitch is 136 elements
+// (272 bytes): 16-byte aligned rows, and the eight rows of an 8x8 matrix on
+// distinct banks.
 //
 // Tiles arrive through cp.async into a multi-stage ring that the kernels
 // own.  The copies are 16 bytes wide where the base pointer, every block
 // offset and every row stride are 16-byte multiples, one element wide
 // otherwise (template parameter kVec, picked by the Python wrapper); rows past
 // v and columns past the operand's width are zero-filled by the copy itself
-// (source size 0 or short), so ragged edges need no padding.
+// (source size 0 or short), so ragged edges need no padding.  cp.async has
+// no 2-byte copy, so one-element tiles of bf16/f16 are plain loads and
+// shared stores (made visible by the barrier that precedes their use).
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "accum.cuh"
 #include "async_copy.cuh"
 
 namespace dmma_gemm {
@@ -39,10 +49,15 @@ constexpr int kPitch = kBM + 4;   // shared-memory row pitch, in elements
 constexpr int kThreads = 256;
 static_assert(kBM == kBN, "one tile loader serves both operands");
 
+// The pitch of a shared tile of T: 132 for 8- and 4-byte elements, 136 for
+// 2-byte ones (132 of them would be 264 bytes, not a 16-byte multiple).
+template <typename T>
+constexpr int kPitchOf = sizeof(T) == 2 ? kBM + 8 : kPitch;
+
 // Start copying a (kRows x kBM) tile whose element (0, 0) is `src` (row
-// stride ld, unit column stride) into dst[kRows][kPitch]: rows at or past
-// rows_left and columns at or past cols_left read as zero.  kVec elements per
-// copy.
+// stride ld, unit column stride) into dst[kRows][kPitchOf<T>]: rows at or
+// past rows_left and columns at or past cols_left read as zero.  kVec
+// elements per copy.
 template <typename T, int kVec, int kRows>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, long long ld,
                                           long long rows_left, long long cols_left,
@@ -57,9 +72,16 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long ld,
     const int col = (c % kPerRow) * kVec;
     long long n = cols_left - col;
     n = row >= rows_left || n < 0 ? 0 : (n > kVec ? kVec : n);
-    async_copy::copy_zfill<static_cast<int>(kVec * sizeof(T))>(
-        dst + row * kPitch + col, n ? src + row * ld + col : src,
-        static_cast<int>(n * sizeof(T)));
+    if constexpr (kVec * sizeof(T) < 4) {
+      static_assert(sizeof(T) == 2 && kVec == 1, "2-byte elements one at a time");
+      const auto* s = reinterpret_cast<const unsigned short*>(src);
+      reinterpret_cast<unsigned short*>(dst)[row * kPitchOf<T> + col] =
+          n ? s[row * ld + col] : static_cast<unsigned short>(0);
+    } else {
+      async_copy::copy_zfill<static_cast<int>(kVec * sizeof(T))>(
+          dst + row * kPitchOf<T> + col, n ? src + row * ld + col : src,
+          static_cast<int>(n * sizeof(T)));
+    }
   }
 }
 
@@ -136,7 +158,8 @@ struct Tile<double> {
 
   // Write the tile at (r0, t0) of the contiguous (r, t) output, masking the
   // edge.
-  __device__ __forceinline__ void store(double* __restrict__ out, long long r0,
+  template <typename Out>
+  __device__ __forceinline__ void store(Out* __restrict__ out, long long r0,
                                         long long t0, long long r, long long t) const {
 #pragma unroll
     for (int i = 0; i < kMI; ++i)
@@ -149,7 +172,7 @@ struct Tile<double> {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const long long tt = t0 + n0 + j * 8 + 2 * q + e;
-            if (tt < t) out[rr * t + tt] = c[i][j][2 * h + e];
+            if (tt < t) out[rr * t + tt] = accum::Cast<Out>::from(c[i][j][2 * h + e]);
           }
       }
   }
@@ -192,7 +215,8 @@ struct Tile<float> {
     }
   }
 
-  __device__ __forceinline__ void store(float* __restrict__ out, long long r0,
+  template <typename Out>
+  __device__ __forceinline__ void store(Out* __restrict__ out, long long r0,
                                         long long t0, long long r, long long t) const {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -201,10 +225,133 @@ struct Tile<float> {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const long long tt = t0 + (j / 4) * 64 + tx * 4 + j % 4;
-        if (tt < t) out[rr * t + tt] = c[i][j];
+        if (tt < t) out[rr * t + tt] = accum::Cast<Out>::from(c[i][j]);
       }
     }
   }
+};
+
+// bf16 / f16 on the tensor cores: the warp grid of Tile<double> (warp (wm,
+// wn) of 2x4 owns rows wm*64 + [0, 64) and columns wn*32 + [0, 32)) as 4x4
+// fragments of mma.sync.m16n8k16 with FP32 accumulators (64 a thread).  The
+// operands lie contraction-first (a_s[k][m], b_s[k][n]), so each fragment is
+// four 8x8 matrices read by ldmatrix.trans: lane l names row l % 8 of matrix
+// l / 8, and the transposed load hands thread (g, q) = (l / 4, l % 4) the
+// pair (k 2q, 2q + 1) at m (or n) g that the MMA's A and B registers hold.
+// A pitch of 136 puts the eight 16-byte rows of a matrix on distinct banks.
+// Fragment layouts (PTX ISA, mma.m16n8k16 .bf16/.f16): A a0 (g, 2q..2q+1),
+// a1 (g+8, ..), a2 (g, 2q+8..), a3 (g+8, 2q+8..); B b0 (2q..2q+1, g), b1
+// (2q+8.., g); C c0,c1 (g, 2q+{0,1}), c2,c3 (g+8, 2q+{0,1}).
+template <typename T>
+struct HalfTile {
+  static constexpr int kMI = 4;
+  static constexpr int kNI = 4;
+  float c[kMI][kNI][4];
+  int m0, n0, g, q, lane;
+
+  __device__ explicit HalfTile(int tid) {
+    const int warp = tid / 32;
+    lane = tid % 32;
+    m0 = (warp / 4) * 64;
+    n0 = (warp % 4) * 32;
+    g = lane / 4;
+    q = lane % 4;
+#pragma unroll
+    for (int i = 0; i < kMI; ++i)
+#pragma unroll
+      for (int j = 0; j < kNI; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[i][j][e] = 0.0f;
+  }
+
+  // Four transposed 8x8 matrices of 2-byte elements; `row` is this lane's
+  // row of its matrix.
+  __device__ static __forceinline__ void load_trans(unsigned (&r)[4], const T* row) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(s));
+  }
+
+  __device__ static __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+    if constexpr (std::is_same_v<T, __half>) {
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+    } else {
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+    }
+  }
+
+  // c += a_s^T b_s over kK contraction rows (a_s, b_s: [kK][kPitchOf<T>]).
+  template <int kK>
+  __device__ __forceinline__ void multiply(const T* a_s, const T* b_s) {
+    static_assert(kK % 16 == 0, "m16n8k16 steps");
+    constexpr int kP = kPitchOf<T>;
+    const int mat = lane / 8;   // this lane names a row of matrix `mat`
+    const int row = lane % 8;
+#pragma unroll 1
+    for (int k0 = 0; k0 < kK; k0 += 16) {
+      unsigned a[kMI][4];
+      unsigned b[kNI][2];
+      // A: matrices (k +0, m +0), (k +0, m +8), (k +8, m +0), (k +8, m +8)
+      const T* ap = a_s + (k0 + (mat / 2) * 8 + row) * kP + m0 + (mat % 2) * 8;
+#pragma unroll
+      for (int i = 0; i < kMI; ++i) load_trans(a[i], ap + i * 16);
+      // B: matrices (k +0, n +0), (k +8, n +0), (k +0, n +8), (k +8, n +8)
+      const T* bp = b_s + (k0 + (mat % 2) * 8 + row) * kP + n0 + (mat / 2) * 8;
+#pragma unroll
+      for (int j = 0; j < kNI / 2; ++j) {
+        unsigned r[4];
+        load_trans(r, bp + j * 16);
+        b[2 * j][0] = r[0];
+        b[2 * j][1] = r[1];
+        b[2 * j + 1][0] = r[2];
+        b[2 * j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < kMI; ++i)
+#pragma unroll
+        for (int j = 0; j < kNI; ++j) mma(c[i][j], a[i], b[j][0], b[j][1]);
+    }
+  }
+
+  // Write the tile at (r0, t0) of the contiguous (r, t) output in Out,
+  // rounded to nearest even, masking the edge.
+  template <typename Out>
+  __device__ __forceinline__ void store(Out* __restrict__ out, long long r0,
+                                        long long t0, long long r, long long t) const {
+#pragma unroll
+    for (int i = 0; i < kMI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long rr = r0 + m0 + i * 16 + g + 8 * h;
+        if (rr >= r) continue;
+#pragma unroll
+        for (int j = 0; j < kNI; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const long long tt = t0 + n0 + j * 8 + 2 * q + e;
+            if (tt < t) out[rr * t + tt] = accum::Cast<Out>::from(c[i][j][2 * h + e]);
+          }
+      }
+  }
+};
+
+template <>
+struct Tile<__nv_bfloat16> : HalfTile<__nv_bfloat16> {
+  using HalfTile::HalfTile;
+};
+template <>
+struct Tile<__half> : HalfTile<__half> {
+  using HalfTile::HalfTile;
 };
 
 // Opt the kernel in to `bytes` of dynamic shared memory (above the 48 KB

@@ -10,8 +10,11 @@ path on the card too.
 
 Every wrapper carries an integer ``launches`` count, raised by one where it
 launches its kernel and nowhere else, so a run can show that its main path
-went through the kernels.  The two scan wrappers take float32 only, as
-their TPU kernels do.  Every wrapper also carries the observability hook
+went through the kernels.  The coded product wrappers (encode, matmul_t,
+fused_worker) take float64, float32, bfloat16 and float16; bf16/f16
+accumulate in float32, as the TPU kernels do.  The two decode wrappers take
+float64 and float32, and the two scan wrappers float32 only, as their TPU
+kernels do.  Every wrapper also carries the observability hook
 :func:`_instrumented`, which does nothing while ``repro_torch.obs`` is off.
 """
 from __future__ import annotations
@@ -114,9 +117,9 @@ def fused_worker(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
     ca, cb, a, b = (x.to(dt) for x in tensors)
     if not _on_card(*tensors):
         return ref.fused_worker_ref(ca, cb, a, b, out_dtype)
-    out = fused_worker_cuda(ca, cb, a, b)
+    out = fused_worker_cuda(ca, cb, a, b, out_dtype)
     fused_worker.launches += 1
-    return out if out_dtype is None else out.to(out_dtype)
+    return out
 
 
 @_instrumented("decode")
@@ -200,10 +203,8 @@ def matmul_t(A: torch.Tensor, B: torch.Tensor, *, out_dtype=None,
         a, b = A.to(dt), B.to(dt)
         if _on_card(a, b):
             direct = out if out_dtype is None else None
-            res = matmul_t_cuda(a, b, direct)
+            res = matmul_t_cuda(a, b, direct, out_dtype)
             matmul_t.launches += 1
-            if out_dtype is not None:
-                res = res.to(out_dtype)
         else:
             res = ref.matmul_t_ref(a, b, out_dtype)
     if out is None or res is out:

@@ -3,10 +3,16 @@
 These are the ground truth the CUDA kernels are held against on the card,
 and what the wrappers in ``ops`` run for tensors on the CPU.  Keep them
 boring and obviously correct.
+
+Half precision (bf16, f16) in the three coded products follows one
+contract, the kernels' and the TPU kernels': every sum is taken in float32
+and the result is rounded once to its output dtype.
 """
 from __future__ import annotations
 
 import torch
+
+_HALF = (torch.bfloat16, torch.float16)
 
 __all__ = ["encode_ref", "decode_ref", "decode_partial_ref", "matmul_t_ref",
            "fused_worker_ref", "scan_chunk", "linear_scan", "wkv_chunked",
@@ -17,8 +23,12 @@ def encode_ref(coeff: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     """coeff: (K, P), blocks: (P, E) -> (K, E).
 
     The encode stage of the coded matmul: worker k's coded block is the
-    coefficient-weighted sum of all P = p*m (or p*n) source blocks.
+    coefficient-weighted sum of all P = p*m (or p*n) source blocks, in the
+    coefficient dtype.  bf16/f16 coefficients: the sums are taken in
+    float32 and rounded once to the coefficient dtype.
     """
+    if coeff.dtype in _HALF:
+        return (coeff.float() @ blocks.float()).to(coeff.dtype)
     return coeff @ blocks.to(coeff.dtype)
 
 
@@ -69,10 +79,20 @@ def fused_worker_ref(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
     The fused encode+product stage: worker k's output is
     Y_k = (sum_P ca[k,P] A_P)^T (sum_Q cb[k,Q] B_Q), staged explicitly here
     (coded matrices materialised) as ground truth for the kernel.
+
+    bf16/f16: each coded matrix is summed in float32 and ROUNDED ONCE to the
+    input dtype before the product (as the staged ``encode_ref`` then
+    ``matmul_t_ref`` would form it); the product accumulates in float32
+    and is rounded once to ``out_dtype`` (default: the input dtype).
     """
     dt = coeff_a.dtype
     A = a_blocks.reshape(coeff_a.shape[1], *a_blocks.shape[-2:]).to(dt)
     B = b_blocks.reshape(coeff_b.shape[1], *b_blocks.shape[-2:]).to(dt)
+    if dt in _HALF:
+        a_tilde = torch.einsum("kp,pvr->kvr", coeff_a.float(), A.float()).to(dt)
+        b_tilde = torch.einsum("kq,qvt->kvt", coeff_b.float(), B.float()).to(dt)
+        Y = torch.einsum("kvr,kvt->krt", a_tilde.float(), b_tilde.float())
+        return Y.to(out_dtype or dt)
     a_tilde = torch.einsum("kp,pvr->kvr", coeff_a, A)
     b_tilde = torch.einsum("kq,qvt->kvt", coeff_b, B)
     Y = torch.einsum("kvr,kvt->krt", a_tilde, b_tilde)
@@ -80,9 +100,10 @@ def fused_worker_ref(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
 
 
 def matmul_t_ref(A: torch.Tensor, B: torch.Tensor, out_dtype=None) -> torch.Tensor:
-    """A: (v, r), B: (v, t) -> A^T @ B: (r, t) - one worker's task."""
-    low = A.dtype in (torch.bfloat16, torch.float16)
-    acc = torch.float32 if low else A.dtype
+    """A: (v, r), B: (v, t) -> A^T @ B: (r, t) - one worker's task.
+    bf16/f16 accumulate in float32, rounded once to ``out_dtype`` (default:
+    the input dtype)."""
+    acc = torch.float32 if A.dtype in _HALF else A.dtype
     out = A.to(acc).T @ B.to(acc)
     return out.to(out_dtype or A.dtype)
 

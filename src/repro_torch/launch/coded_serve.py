@@ -61,13 +61,12 @@ joins the launcher's group and takes a (WORLD_SIZE / K, K) mesh.  Every rank
 runs the same loop on the same seeded draws; only rank 0 prints (spawned
 ranks hand their printed lines to the parent).
 
-Two departures from the JAX package's CLI:
+``--elastic`` and ``--serve-tier`` do not drive the mesh backend: with
+``--backend mesh`` they print the reference's reason and serve on the
+reference executor, on the chosen device, as the JAX package's CLI does.
 
-* ``--elastic`` and ``--serve-tier`` refuse ``--backend mesh`` with the
-  reference's reason (a mesh's K is fixed by its ranks; the tier's split
-  worker/decode stages run fused on mesh).  The reference prints that
-  reason and serves on the reference executor instead; the port raises
-  ``NotImplementedError`` and switches no backend on its own.
+One departure from the JAX package's CLI:
+
 * The serve tier's operands.  The reference draws a pool of
   ``len(tenants) * 64`` operands up front, ``192 v r`` integers on the host
   (49 GB at ``--size 8000``).  The port makes request ``rid``'s operand on
@@ -114,12 +113,6 @@ STATIC_K, ADAPTIVE_K = 4, 12
 # outer deadline of the ranks a mesh run spawns (None: none; a stalled
 # rank still fails the others after the process group's 60 s timeout)
 MESH_TIMEOUT_S = None
-MESH_ELASTIC = (
-    "--elastic does not drive the mesh backend yet (a mesh's K is fixed by "
-    "its ranks); serve the elastic pool on reference, fused or staged")
-MESH_SERVE_TIER = (
-    "--serve-tier does not drive the mesh backend (the split worker/decode "
-    "stages run fused on mesh); serve the tier on reference, fused or staged")
 
 
 def _exact(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor) -> bool:
@@ -258,11 +251,7 @@ def main(argv=None):
             ap.error("--sub-tasks needs --adaptive (partial-straggler "
                      "decoding is driven by the monitor's progress plans)")
         runner = run_static
-    if args.backend == "mesh":
-        if runner is run_elastic:
-            raise NotImplementedError(MESH_ELASTIC)
-        if runner is run_serve_tier:
-            raise NotImplementedError(MESH_SERVE_TIER)
+    if args.backend == "mesh" and runner in (run_static, run_adaptive):
         return _serve_on_mesh(runner, args)
     return _with_obs(runner, args)
 
@@ -587,9 +576,13 @@ def run_elastic(args):
     p, m, n = 3, 2, 1
     v = max(args.size - args.size % p, p)
     r, t = (v // 2) - (v // 2) % m, v // 2
+    backend = args.backend
+    if backend == "mesh":
+        print("--elastic does not drive the mesh backend yet; "
+              "falling back to the reference executor")
+        backend = "reference"
     ladder = PlanLadder(p, m, n, K=len(pool), L=conservative_L(v, 4, 4),
-                        backend=args.backend, device=dev,
-                        include=["polycode"])
+                        backend=backend, device=dev, include=["polycode"])
     info = ladder.prewarm((v, r), (v, t))
     builds_marker = info["builds"]
     print(f"elastic universe={universe} pool={pool} "
@@ -714,8 +707,14 @@ def run_serve_tier(args):
     p, m, n, K = 4, 2, 1, 12
     v = max(args.size - args.size % p, p)
     r, t = (v // 2) - (v // 2) % m, (v // 2) - (v // 2) % n
+    backend = args.backend
+    if backend == "mesh":
+        print("--serve-tier does not drive the mesh backend (the split "
+              "worker/decode stages run fused on mesh); falling back to "
+              "the reference executor")
+        backend = "reference"
     ladder = PlanLadder(p, m, n, K=K, L=conservative_L(v, 4, 4),
-                        backend=args.backend, device=dev)
+                        backend=backend, device=dev)
     top = args.max_batch or 8
     buckets = tuple(1 << i for i in range((top - 1).bit_length() + 1))
     split = args.sub_tasks == 1

@@ -9,8 +9,9 @@ package either); ``scaled_dot_product_attention`` would compute another
 schedule, so it is not used.
 
 Decode attends one token to the whole ``S_max`` cache in float32, masked by
-position.  Sliding-window layers (``attn_local``) wait for their slice
-(ROADMAP.md queue 1, item 8).
+position.  Rotary positions (``cos_sin``) rotate q and k after the qk-norm,
+so the cache holds rotated keys.  Sliding-window layers (``attn_local``)
+wait for their slice (ROADMAP.md queue 1, item 8.2).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.models.layers import normal, rms_head_norm
+from repro_torch.models.layers import apply_rope, normal, rms_head_norm
 
 __all__ = ["NEG_INF", "init_attn", "repeat_kv", "mha_chunked", "attn_forward",
            "attn_decode_step"]
@@ -136,23 +137,28 @@ def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.transpose(1, 2).to(in_dtype)
 
 
-def _no_positions(cos_sin) -> None:
-    if cos_sin is not None and cos_sin[0] is not None:
-        raise NotImplementedError(
-            "rotary positions are not ported yet (ROADMAP.md queue 1, item 8)")
+def _rotate(q: torch.Tensor, k: torch.Tensor, cos_sin):
+    """q and k rotated by ``cos_sin`` = (cos, sin), or as they are when it
+    is None or holds None (a model without rotary positions)."""
+    if cos_sin is None or cos_sin[0] is None:
+        return q, k
+    cos, sin = cos_sin
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
 
 def attn_forward(params, x: torch.Tensor, cos_sin=None, *,
                  window: Optional[int] = None, q_chunk: int = 512,
                  kv_chunk: int = 1024, return_kv: bool = False):
     """Full-sequence attention (prefill): x (B, S, d) -> (B, S, d), and with
-    ``return_kv`` also the (k, v) the cache keeps, (B, S, KH, hd) each."""
-    _no_positions(cos_sin)
+    ``return_kv`` also the (k, v) the cache keeps, (B, S, KH, hd) each, the
+    keys rotated.  ``cos_sin``: (cos, sin) of the positions, (S, hd/2) or
+    (B, S, hd/2), or None."""
     if window is not None:
         raise NotImplementedError(
             "sliding-window attention (attn_local) is not ported yet "
-            "(ROADMAP.md queue 1, item 8)")
+            "(ROADMAP.md queue 1, item 8.2)")
     q, k, v = _project_qkv(params, x)
+    q, k = _rotate(q, k, cos_sin)
     o = mha_chunked(q.to(x.dtype), k.to(x.dtype), v, q_chunk=q_chunk,
                     kv_chunk=kv_chunk)
     y = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), params["wo"])
@@ -165,20 +171,21 @@ def attn_decode_step(params, x: torch.Tensor, cos_sin, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: int, *,
                      window: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """One-token decode on the full cache: x (B, 1, d); cache_k/v (B, S_max,
-    KH, hd); ``pos`` the token's absolute position.
+    KH, hd); ``pos`` the token's absolute position; ``cos_sin`` the
+    rotation at ``pos``, (1, hd/2) or (B, 1, hd/2), or None.
 
     The new key and value are written into ``cache_k`` / ``cache_v`` IN
     PLACE at ``pos`` (the reference returns updated copies; writing in place
     saves copying the whole cache every token) and the same tensors are
     returned.  Returns (y (B, 1, d), cache_k, cache_v).
     """
-    _no_positions(cos_sin)
     if window is not None:
         raise NotImplementedError(
             "sliding-window attention (attn_local) is not ported yet "
-            "(ROADMAP.md queue 1, item 8)")
+            "(ROADMAP.md queue 1, item 8.2)")
     B = x.shape[0]
     q, k_new, v_new = _project_qkv(params, x)
+    q, k_new = _rotate(q, k_new, cos_sin)
     S_c = cache_k.shape[1]
     if not 0 <= pos < S_c:
         raise ValueError(f"position {pos} is outside the cache of {S_c}")

@@ -1,10 +1,10 @@
-"""Shared model layers: RMS norms, the embedding and the MLPs.
+"""Shared model layers: RMS norms, rotary positions, the embedding and the
+MLPs.
 
 Pure-function style as in the reference package: ``init_*`` returns a dict of
 tensors, the apply functions take (params, x).  Every ``init_*`` takes an
-explicit ``torch.Generator`` and device.  Rotary and sinusoidal positions
-wait for the first ported architecture that uses them (ROADMAP.md queue 1,
-item 8).
+explicit ``torch.Generator`` and device.  Multimodal rope and sinusoidal
+positions wait for their architectures (ROADMAP.md queue 1, item 8.4).
 """
 from __future__ import annotations
 
@@ -13,8 +13,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["normal", "init_rmsnorm", "rmsnorm", "rms_head_norm", "init_mlp",
-           "apply_mlp", "init_embedding", "embed"]
+__all__ = ["normal", "init_rmsnorm", "rmsnorm", "rms_head_norm", "rope_freqs",
+           "rope_cos_sin", "apply_rope", "init_mlp", "apply_mlp",
+           "init_embedding", "embed"]
 
 
 def normal(gen: torch.Generator, shape, dtype, scale: float) -> torch.Tensor:
@@ -44,6 +45,39 @@ def rms_head_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
     xf = x.float()
     var = xf.square().mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+
+
+def rope_freqs(d_rot: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies for RoPE: (d_rot/2,) float32."""
+    exponents = torch.arange(0, d_rot, 2, dtype=torch.float32, device=device) / d_rot
+    return 1.0 / (theta ** exponents)
+
+
+def rope_cos_sin(positions: torch.Tensor, d_rot: int, theta: float):
+    """positions (..., S) -> cos/sin (..., S, d_rot/2) in float32."""
+    inv = rope_freqs(d_rot, theta, positions.device)
+    ang = positions[..., None].float() * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, hd) with leading rotary half-pairs; cos/sin (B, S, hd/2)
+    or (S, hd/2).  Rotates the pairs (x1, x2) = (x[..., :hd/2],
+    x[..., hd/2:]) in float32 (NeoX / llama convention) and returns x's
+    dtype."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    if cos.ndim == 2:  # (S, half) -> broadcast over batch and heads
+        cos_b, sin_b = cos[None, :, None, :], sin[None, :, None, :]
+    else:  # (B, S, half)
+        cos_b, sin_b = cos[:, :, None, :], sin[:, :, None, :]
+    r1 = x1 * cos_b - x2 * sin_b
+    r2 = x2 * cos_b + x1 * sin_b
+    return torch.cat([r1, r2], dim=-1).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -12,11 +12,11 @@ Two execution paths share the parameters:
                  serve cache (one dict of tensors per layer)
   decode_step  - one token, consumes and updates the cache
 
-Ported so far: mixers ``attn`` (no positions), ``mamba`` and ``rwkv``; FFNs
-``mlp`` and ``rwkv_cmix``; token input.  ``moe``, ``attn_local``, rotary
-positions, the ``embeds`` input mode and ``train_loss`` raise
-``NotImplementedError`` until their slices land (ROADMAP.md queue 1,
-item 8).
+Ported so far: mixers ``attn`` (rotary positions or none), ``mamba`` and
+``rwkv``; FFNs ``mlp`` and ``rwkv_cmix``; token input.  ``moe``,
+``attn_local``, multimodal and sinusoidal positions, the ``embeds`` input
+mode and ``train_loss`` raise ``NotImplementedError`` until their slices
+land (ROADMAP.md queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -110,9 +110,10 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.input_mode!r} input mode is not ported yet "
             f"({_ROADMAP})")
-    if cfg.pos != "none" and any(m == "attn" for m, _ in cfg.pattern):
+    if cfg.pos not in ("rope", "none"):
         raise NotImplementedError(
-            f"{cfg.name}: {cfg.pos!r} positions are not ported yet ({_ROADMAP})")
+            f"{cfg.name}: {cfg.pos!r} positions are not ported yet "
+            f"({_ROADMAP}.4)")
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +284,21 @@ def cache_to_numpy(cfg: ModelConfig, cache: List[dict]) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# position embeddings
+
+
+def _cos_sin(cfg: ModelConfig, S: int, device, pos_offset: int = 0):
+    """The rotation of positions ``pos_offset + [0, S)``: cos/sin (S,
+    d_head/2) float32 for ``rope``, (None, None) without positions.  (The
+    reference's ``mrope`` and ``sinusoidal`` are refused by
+    ``_check_supported``.)"""
+    if cfg.pos != "rope":
+        return None, None
+    positions = torch.arange(S, device=device) + pos_offset
+    return L.rope_cos_sin(positions, cfg.d_head, cfg.rope_theta)
+
+
+# ---------------------------------------------------------------------------
 # serving
 
 
@@ -321,11 +337,12 @@ def prefill(params: LM, cfg: ModelConfig, batch, S_max: Optional[int] = None):
     S = tokens.shape[1]
     S_max = S_max or S
     x = L.embed(params.embed, tokens)
+    cos_sin = _cos_sin(cfg, S, tokens.device)
     caches = []
     for block in params.blocks:
         h = L.rmsnorm(block.norm1, x, cfg.eps)
         if block.mixer_kind == "attn":
-            y, (k, v) = attn_mod.attn_forward(block.mixer, h, None, q_chunk=cfg.q_chunk,
+            y, (k, v) = attn_mod.attn_forward(block.mixer, h, cos_sin, q_chunk=cfg.q_chunk,
                                               kv_chunk=cfg.kv_chunk, return_kv=True)
             cache = {}
             for name, t in (("k", k), ("v", v)):
@@ -359,12 +376,14 @@ def decode_step(params: LM, cfg: ModelConfig, cache: List[dict], batch, pos: int
     here: the scans step from a carried state on the plain path, as in the
     reference."""
     _check_supported(cfg)
-    x = L.embed(params.embed, _tokens(batch))
+    tokens = _tokens(batch)
+    x = L.embed(params.embed, tokens)
+    cos_sin = _cos_sin(cfg, 1, tokens.device, pos_offset=pos)
     new_cache = []
     for block, c in zip(params.blocks, cache):
         h = L.rmsnorm(block.norm1, x, cfg.eps)
         if block.mixer_kind == "attn":
-            y, ck, cv = attn_mod.attn_decode_step(block.mixer, h, None, c["k"], c["v"], pos)
+            y, ck, cv = attn_mod.attn_decode_step(block.mixer, h, cos_sin, c["k"], c["v"], pos)
             nc = {"k": ck, "v": cv}
         elif block.mixer_kind == "mamba":
             y, nc = mamba_mod.mamba_decode_step(block.mixer, h, c)

@@ -78,8 +78,10 @@ class ErasurePattern:
 
         Raises:
             ValueError: if the mask's shape is not (K,), or it holds values
-                outside {0, 1} (a fractional per-worker completion vector is
-                not an erasure mask; partial stragglers are not ported yet).
+                outside {0, 1}: a fractional per-worker completion vector is
+                not an erasure mask; pass it as ``progress=`` with
+                ``sub_tasks=Q`` (or a ``PartialPattern``) so the finished
+                prefix of each straggler is decoded instead of discarded.
         """
         m = _host(mask)
         if m.shape != (K,):
@@ -88,7 +90,9 @@ class ErasurePattern:
             raise ValueError(
                 f"binary erasure mask entries must be 0 or 1, got "
                 f"{m.tolist()}: a fractional per-worker completion vector "
-                f"is NOT an erasure mask")
+                f"is NOT an erasure mask — pass it as progress= with "
+                f"sub_tasks=Q (or a PartialPattern) so the finished prefix "
+                f"of each straggler is decoded instead of discarded")
         return cls(K=K, kind="concrete", mask=(m != 0).astype(np.float64))
 
     @classmethod

@@ -7,7 +7,8 @@ reference's erasure draws; ``--serve-tier --record`` writes the reference's
 records; the adaptive and elastic modes give the reference's step reports;
 ``--record``/``--replay`` round-trips; the obs exports are readable;
 ``--backend mesh`` serves the static and adaptive modes exactly on CPU
-ranks and refuses the elastic and tier modes with the reference's reason;
+ranks, and the elastic and tier modes, with the reference's printed
+reason, on the reference executor as the JAX CLI does;
 and the reference's argument errors are raised the same way.
 
 Prewarm measures each rung's step on the host clock, and the CLI's
@@ -211,17 +212,35 @@ class TestMeshAndArgumentErrors:
     @pytest.mark.parametrize("mode", [[], ["--adaptive"],
                                       ["--adaptive", "--elastic"],
                                       ["--serve-tier"]])
-    def test_mesh_backend_raises_in_every_mode(self, mode, monkeypatch, capsys):
+    def test_mesh_backend_raises_in_every_mode(self, mode, monkeypatch, capsys,
+                                               pinned_overheads, tmp_path):
         """The static and adaptive modes serve exactly on CPU ranks (K = 4
-        and 12); the elastic and tier modes refuse mesh with the
-        reference's reason."""
+        and 12); the elastic and tier modes print the reference's reason,
+        serve on the reference executor and give the JAX CLI's report."""
         monkeypatch.setattr(coded_serve, "MESH_TIMEOUT_S", 120)
         argv = ["--backend", "mesh", "--requests", "3", "--size", "32"] + mode
         if "--elastic" in mode or "--serve-tier" in mode:
-            reason = ("--elastic does not drive the mesh backend" if "--elastic" in mode
-                      else "split worker/decode stages run fused on mesh")
-            with pytest.raises(NotImplementedError, match=reason):
-                port(argv)
+            reason = ("--elastic does not drive the mesh backend yet; falling "
+                      "back to the reference executor" if "--elastic" in mode
+                      else "--serve-tier does not drive the mesh backend (the "
+                      "split worker/decode stages run fused on mesh); falling "
+                      "back to the reference executor")
+            tier = "--serve-tier" in mode
+            rec = lambda name: ["--record", str(tmp_path / name)] if tier else []  # noqa: E731
+            mine = port(argv + rec("port.jsonl"))
+            out_mine = capsys.readouterr().out
+            theirs = ref(argv + rec("jax.jsonl"))
+            out_theirs = capsys.readouterr().out
+            assert reason in out_mine.splitlines()
+            assert reason in out_theirs.splitlines()
+            if tier:
+                a = ServeTrace.load(tmp_path / "port.jsonl")
+                b = ServeTrace.load(tmp_path / "jax.jsonl")
+                assert a.diff(b) == [] and a.meta == b.meta
+                assert all(batch.report["exact"] for batch in mine.batches)
+            else:
+                assert [_fields(r) for r in mine] == [_fields(r) for r in theirs]
+                assert all(r.exact for r in mine)
             return
         result = port(argv)
         lines = _request_lines(capsys.readouterr().out)

@@ -25,7 +25,10 @@ from repro_torch.runtime import CodedMatmul
 
 pytestmark = pytest.mark.gpu
 
-TOL = {torch.float32: 1e-4, torch.float64: 1e-10}  # sums taken in another order
+TOL = {torch.float32: 1e-4, torch.float64: 1e-10,   # sums taken in another order
+       # FP32 sums rounded once to bf16 / f16 (tests/test_kernels.py's bound)
+       torch.bfloat16: 2e-2, torch.float16: 2e-2}
+HALF = [torch.bfloat16, torch.float16]
 
 
 @pytest.fixture
@@ -72,8 +75,8 @@ def _check(out, exp, data):
     if data == "integer":
         torch.testing.assert_close(out, exp, rtol=0, atol=0)
     else:
-        scale = float(exp.abs().max()) + 1e-9
-        assert float((out - exp).abs().max()) / scale < TOL[out.dtype]
+        scale = float(exp.float().abs().max()) + 1e-9
+        assert float((out.float() - exp.float()).abs().max()) / scale < TOL[out.dtype]
 
 
 @pytest.mark.parametrize("K,P,Q,v,r,t", [
@@ -117,11 +120,29 @@ def test_fused_kernel_on_strided_block_views(cuda):
     torch.testing.assert_close(out, exp, rtol=0, atol=0)
 
 
-def test_fused_kernel_refuses_half_precision(cuda):
-    x = torch.ones(2, 8, 8, device=cuda, dtype=torch.bfloat16)
-    c = torch.ones(1, 2, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="float64 or float32"):
-        ops.fused_worker(c, c, x, x)
+@pytest.mark.parametrize("stride", ["aligned", "odd"])
+@pytest.mark.parametrize("data", ["random", "integer"])
+@pytest.mark.parametrize("dtype", HALF)
+def test_fused_kernel_refuses_half_precision(cuda, dtype, data, stride):
+    """bf16 / f16 run the kernel (FP32 sums, the coded tiles rounded once to
+    the input dtype, the result once to its output dtype) and match the
+    plain version, in both copy forms (16-byte copies, 2-byte loads); the
+    float32 output is the FP32 sums themselves."""
+    gen = torch.Generator().manual_seed(0)
+    K, P, Q, v, r, t = 6, 8, 2, 300, 200, 150
+    ca, cb = _data(gen, (K, P), dtype, data), _data(gen, (K, Q), dtype, data)
+    a = _with_row_stride(_data(gen, (P, v, r), dtype, data), stride)
+    b = _with_row_stride(_data(gen, (Q, v, t), dtype, data), stride)
+    width = coded_fused.copy_bytes(a.element_size(), *(
+        (x.data_ptr(), coded_fused._block_offsets(x)[0], x.stride(-2)) for x in (a, b)))
+    assert width == (16 if stride == "aligned" else 2)
+    _check(ops.fused_worker(ca, cb, a, b), ref.fused_worker_ref(ca, cb, a, b), data)
+    wide = ops.fused_worker(ca, cb, a, b, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    exp = ref.fused_worker_ref(ca, cb, a, b, torch.float32)
+    assert wide.dtype == torch.float32
+    assert float((wide - exp).abs().max()) <= 1e-5 * float(exp.abs().max())
+    assert ops.launch_counts()["fused_worker"] == 2
 
 
 @pytest.mark.parametrize("extract", [True, False])
@@ -269,15 +290,27 @@ def test_matmul_t_kernel_on_row_strided_operands(cuda):
     torch.testing.assert_close(ops.matmul_t(A, B), A.T @ B, rtol=0, atol=0)
 
 
-def test_new_kernels_refuse_half_precision(cuda):
-    x = torch.ones(2, 8, 8, device=cuda, dtype=torch.bfloat16)
-    c = torch.ones(1, 2, device=cuda, dtype=torch.bfloat16)
+@pytest.mark.parametrize("stride", ["aligned", "odd"])
+@pytest.mark.parametrize("data", ["random", "integer"])
+@pytest.mark.parametrize("dtype", HALF)
+def test_new_kernels_refuse_half_precision(cuda, dtype, data, stride):
+    """bf16 / f16 encode (kernel 4, written in the coefficient dtype) and
+    block matmul (kernel 5) against their plain versions in both copy
+    forms; the per-chunk decode still takes float64 / float32 only."""
+    gen = torch.Generator().manual_seed(9)
+    c = _data(gen, (7, 5), dtype, data)
+    x = _with_row_stride(_data(gen, (5, 37, 1031), dtype, data), stride)
+    _check(ops.encode(c, x), ref.encode_ref(c, x.reshape(5, -1)).reshape(7, 37, 1031), data)
+    A = _with_row_stride(_data(gen, (300, 257), dtype, data), stride)
+    B = _with_row_stride(_data(gen, (300, 65), dtype, data), stride)
+    width = coded_fused.copy_bytes(A.element_size(), (A.data_ptr(), (0,), A.stride(0)),
+                                   (B.data_ptr(), (0,), B.stride(0)))
+    assert width == (16 if stride == "aligned" else 2)
+    _check(ops.matmul_t(A, B), ref.matmul_t_ref(A, B), data)
+    assert ops.launch_counts() == dict(_NONE, encode=1, matmul_t=1)
+    h = torch.ones(2, 8, 8, device=cuda, dtype=dtype)
     with pytest.raises(NotImplementedError, match="float64 or float32"):
-        ops.encode(c, x)
-    with pytest.raises(NotImplementedError, match="float64 or float32"):
-        ops.matmul_t(x[0], x[1])
-    with pytest.raises(NotImplementedError, match="float64 or float32"):
-        ops.decode_partial(x[:, :4, :2], x.transpose(1, 2)[:, :2, :], 4.0)
+        ops.decode_partial(h[:, :4, :2], h.transpose(1, 2)[:, :2, :], 4.0)
 
 
 def _partial_form(Y, y_off, ys, widths):

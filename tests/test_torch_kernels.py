@@ -401,16 +401,22 @@ def test_decode_partial_complex_routes_to_plain(rng):
 
 def test_new_kernel_launchers_validate_before_building():
     """The encode, block-matmul and per-chunk decode launchers refuse CPU
-    tensors and unsupported dtypes before touching nvcc."""
+    tensors and unsupported dtypes before touching nvcc.  bf16/f16 are
+    kernel dtypes (tests/test_torch_half.py holds them against JAX), so a
+    half-precision CPU tensor is refused as a CPU tensor."""
     x = torch.ones(2, 3, 4)
     with pytest.raises(ValueError, match="CUDA"):
         coded_encode.encode_cuda(torch.ones(3, 2), x)
-    with pytest.raises(NotImplementedError, match="float64 or float32"):
+    with pytest.raises(ValueError, match="CUDA"):
         coded_encode.encode_cuda(torch.ones(3, 2).half(), x.half())
+    with pytest.raises(NotImplementedError, match="bfloat16 or float16, not torch.int32"):
+        coded_encode.encode_cuda(torch.ones(3, 2, dtype=torch.int32), x.int())
     with pytest.raises(ValueError, match="CUDA"):
         block_matmul.matmul_t_cuda(x[0], x[1])
-    with pytest.raises(NotImplementedError, match="float64 or float32"):
+    with pytest.raises(ValueError, match="CUDA"):
         block_matmul.matmul_t_cuda(x[0].bfloat16(), x[1].bfloat16())
+    with pytest.raises(NotImplementedError, match="bfloat16 or float16, not torch.complex64"):
+        block_matmul.matmul_t_cuda(x[0].to(torch.complex64), x[1].to(torch.complex64))
     with pytest.raises(ValueError, match="CUDA"):
         coded_decode.decode_partial_cuda(torch.ones(2, 4, 3), x.transpose(1, 2)[:, :3], 8.0)
     assert not _build._LIBS
@@ -423,9 +429,11 @@ def test_kernel_launchers_validate_before_building():
     c = torch.ones(1, 2)
     with pytest.raises(ValueError, match="CUDA"):
         coded_fused.fused_worker_cuda(c, c, x[:2], x[:2])
-    with pytest.raises(NotImplementedError, match="float64 or float32"):
+    with pytest.raises(ValueError, match="CUDA"):
         coded_fused.fused_worker_cuda(c.bfloat16(), c.bfloat16(),
                                       x[:2].bfloat16(), x[:2].bfloat16())
+    with pytest.raises(NotImplementedError, match="bfloat16 or float16, not torch.int32"):
+        coded_fused.fused_worker_cuda(c.int(), c.int(), x[:2].int(), x[:2].int())
     with pytest.raises(ValueError, match="CUDA"):
         coded_decode.decode_cuda(torch.ones(4, 3), torch.ones(3, 5), 8.0)
 

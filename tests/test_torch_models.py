@@ -50,7 +50,9 @@ from repro_torch.models import (
 )
 
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
-ARCHS = ("rwkv6_3b", "jamba_1_5_large_398b")
+ARCHS = ("rwkv6_3b", "jamba_1_5_large_398b", "qwen3_0_6b", "qwen2_0_5b",
+         "granite_3_8b")
+DENSE = ("qwen3_0_6b", "qwen2_0_5b", "granite_3_8b")   # attention with rope
 
 
 def _rel(got, exp) -> float:
@@ -131,8 +133,9 @@ def test_configs_match_the_reference_field_for_field():
             assert a == b, arch
             assert port_cfg.n_groups == jax_cfg.n_groups
     assert get_config("rwkv6_3b").param_dtype == torch.bfloat16
+    assert get_smoke_config("granite_3_8b").vocab == 515
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("qwen3_0_6b")
+        get_config("qwen2_vl_72b")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_smoke_config("gemma3_12b")
 
@@ -153,6 +156,30 @@ def test_layers_match_jax(rng, act):
     np.testing.assert_array_equal(
         layers.embed({"table": _t(table)}, _t(toks)).numpy(),
         np.asarray(jlayers.embed({"table": jnp.asarray(table)}, jnp.asarray(toks))))
+
+
+@pytest.mark.parametrize("offset", [0, 37])
+def test_rope_matches_jax(rng, offset):
+    """cos/sin of offset positions (as decode asks) and the rotation, in
+    float32, against ``repro.models.layers``; (S, hd/2) and (B, S, hd/2)
+    tables."""
+    B, S, H, hd, theta = 2, 12, 3, 16, 1e6
+    positions = np.arange(S) + offset
+    cj, sj = jlayers.rope_cos_sin(jnp.asarray(positions), hd, theta)
+    ct, st = layers.rope_cos_sin(torch.as_tensor(positions), hd, theta)
+    assert ct.dtype == st.dtype == torch.float32 and ct.shape == (S, hd // 2)
+    assert _rel(ct, cj) < 1e-6 and _rel(st, sj) < 1e-6
+    np.testing.assert_allclose(layers.rope_freqs(hd, theta).numpy(),
+                               np.asarray(jlayers.rope_freqs(hd, theta)), rtol=1e-6)
+    x = rng.normal(size=(B, S, H, hd)).astype(np.float32)
+    got = layers.apply_rope(_t(x), ct, st)
+    assert _rel(got, jlayers.apply_rope(jnp.asarray(x), cj, sj)) < 1e-6
+    cb, sb = (np.broadcast_to(np.asarray(a), (B, S, hd // 2)) for a in (cj, sj))
+    got = layers.apply_rope(_t(x), _t(cb), _t(sb))
+    assert _rel(got, jlayers.apply_rope(jnp.asarray(x), jnp.asarray(cb),
+                                        jnp.asarray(sb))) < 1e-6
+    xb = _t(x).bfloat16()
+    assert layers.apply_rope(xb, ct, st).dtype == torch.bfloat16
 
 
 # ---------------------------------------------------------------------------
@@ -234,6 +261,17 @@ def test_mamba_block_matches_jax(rng, carried, use_kernel):
 
 @pytest.mark.parametrize("qk_norm,qkv_bias", [(False, False), (True, True)])
 def test_attention_matches_jax(rng, qk_norm, qkv_bias):
+    _attention_case(rng, qk_norm, qkv_bias, rope=False)
+
+
+@pytest.mark.parametrize("qk_norm,qkv_bias", [(False, False), (True, True)])
+def test_rotary_attention_matches_jax(rng, qk_norm, qkv_bias):
+    """Prefill and decode with rope: q and k rotated after the qk-norm, the
+    cache holding rotated keys, decode rotated at its position."""
+    _attention_case(rng, qk_norm, qkv_bias, rope=True)
+
+
+def _attention_case(rng, qk_norm, qkv_bias, rope):
     B, S, d, H, KH, hd = 2, 40, 32, 4, 2, 8
     p = jattn.init_attn(jax.random.PRNGKey(3), d, H, KH, hd, qk_norm, qkv_bias,
                         jnp.float32)
@@ -241,10 +279,18 @@ def test_attention_matches_jax(rng, qk_norm, qkv_bias):
          if k in ("bq", "bk", "bv", "q_norm", "k_norm") else v for k, v in p.items()}
     pt = {k: _t(np.asarray(v)) for k, v in p.items()}
     x = rng.normal(size=(B, S, d)).astype(np.float32)
+
+    def cos_sin(start, n):   # rotation of positions start + [0, n), or none
+        if not rope:
+            return (None, None), None
+        cj = jlayers.rope_cos_sin(jnp.arange(n) + start, hd, 1e4)
+        return cj, layers.rope_cos_sin(torch.arange(n) + start, hd, 1e4)
+
     # q_chunk 16, kv_chunk 8: several q chunks, each over several kv tiles
-    yj, (kj, vj) = jattn.attn_forward(p, jnp.asarray(x), (None, None), q_chunk=16,
+    csj, cst = cos_sin(0, S)
+    yj, (kj, vj) = jattn.attn_forward(p, jnp.asarray(x), csj, q_chunk=16,
                                       kv_chunk=8, return_kv=True)
-    yt, (kt, vt) = attention.attn_forward(pt, _t(x), None, q_chunk=16, kv_chunk=8,
+    yt, (kt, vt) = attention.attn_forward(pt, _t(x), cst, q_chunk=16, kv_chunk=8,
                                           return_kv=True)
     assert _rel(yt, yj) < TOL["float32"]                                 # 3.1e-7
     assert _rel(kt, kj) < TOL["float32"] and _rel(vt, vj) < TOL["float32"]
@@ -254,16 +300,19 @@ def test_attention_matches_jax(rng, qk_norm, qkv_bias):
     cv = np.zeros((B, S_max, KH, hd), np.float32)
     ck[:, :pos], cv[:, :pos] = np.asarray(kj)[:, :pos], np.asarray(vj)[:, :pos]
     x1 = x[:, pos:pos + 1]
-    yj, ckj, cvj = jattn.attn_decode_step(p, jnp.asarray(x1), (None, None),
+    csj, cst = cos_sin(pos, 1)
+    yj, ckj, cvj = jattn.attn_decode_step(p, jnp.asarray(x1), csj,
                                           jnp.asarray(ck), jnp.asarray(cv), jnp.int32(pos))
     ckt, cvt = _t(ck), _t(cv)
-    yt, ck2, cv2 = attention.attn_decode_step(pt, _t(x1), None, ckt, cvt, pos)
+    yt, ck2, cv2 = attention.attn_decode_step(pt, _t(x1), cst, ckt, cvt, pos)
     assert ck2 is ckt and cv2 is cvt                  # written in place
     assert _rel(yt, yj) < TOL["float32"]                                 # 1.7e-7
     assert _rel(ck2, ckj) < TOL["float32"] and _rel(cv2, cvj) < TOL["float32"]
     # the decode step's output equals the full forward's at that position
+    # (the cache holds keys rotated at their own positions)
+    csj, _ = cos_sin(0, pos + 1)
     assert _rel(yt[:, 0], np.asarray(
-        jattn.attn_forward(p, jnp.asarray(x[:, :pos + 1]), (None, None)))[:, -1]) < 1e-4
+        jattn.attn_forward(p, jnp.asarray(x[:, :pos + 1]), csj))[:, -1]) < 1e-4
 
 
 # ---------------------------------------------------------------------------
@@ -279,10 +328,12 @@ def _jax_decode(jcfg):
     return _JAX_DECODE[key]
 
 
-@pytest.mark.parametrize("kernel", [False, True])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,dtype,kernel", [
+    (arch, dtype, kernel) for kernel in (False, True) for dtype in ("float32", "bfloat16")
+    for arch in ARCHS if not (kernel and arch in DENSE)])
 def test_model_serving_matches_jax(rng, arch, dtype, kernel):
+    """(The scan kernels' flags do nothing in the attention-only configs,
+    which are served once.)"""
     jcfg, cfg = _configs(arch, dtype, kernel)
     jp, npp = _perturbed_params(jcfg)
     params = params_from_jax(cfg, npp, device="cpu")
@@ -337,14 +388,16 @@ def test_params_from_jax_is_bit_exact(arch):
                     np.testing.assert_array_equal(got.float().numpy(),
                                                   leaf[g].astype(np.float32))
                     n_leaves += 1
-    for top in ("embed", "lm_head", "final_norm"):
+    tops = [top for top in ("embed", "lm_head", "final_norm") if top in npp]
+    assert ("lm_head" in npp) == (not cfg.tie_embeddings)
+    for top in tops:
         for name, leaf in npp[top].items():
             np.testing.assert_array_equal(
                 getattr(params, top)[name].float().numpy(), leaf.astype(np.float32))
             n_leaves += 1
     n_jax = sum(leaf.shape[0] if leaf.ndim and len(leaf) == cfg.n_groups else 1
                 for leaf in jax.tree.leaves(npp["blocks"])) \
-        + len(jax.tree.leaves({k: npp[k] for k in ("embed", "lm_head", "final_norm")}))
+        + len(jax.tree.leaves({k: npp[k] for k in tops}))
     assert n_leaves == n_jax == len(list(params.parameters()))
     # the port's own initialisation has the same layout
     own = init_params(cfg, device="cpu")
@@ -366,13 +419,44 @@ def test_decode_matches_full_forward_in_the_port(rng):
         assert _rel(dec, full.numpy()) < 5e-2, arch     # rwkv 0.0, jamba 2.1e-2
 
 
+# the reference's TestSmoke::test_forward_shapes and test_decode_matches_full_forward
+# (tests/test_models.py), on the port's own parameters, for the rope configs
+SMOKE_B, SMOKE_S = 2, 64
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_smoke_forward_shapes(arch):
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, seed=1, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (SMOKE_B, SMOKE_S), generator=gen)
+    logits, cache = prefill(params, cfg, {"tokens": toks})
+    assert logits.shape == (SMOKE_B, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    assert len(cache) == cfg.n_layers
+    assert cache[0]["k"].shape == (SMOKE_B, SMOKE_S, cfg.n_kv_heads, cfg.d_head)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_smoke_decode_matches_full_forward(arch):
+    """prefill(S) + decode(1) logits == full forward logits at position S."""
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, seed=2, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (SMOKE_B, SMOKE_S + 1), generator=gen)
+    full, _ = prefill(params, cfg, {"tokens": toks})
+    _, cache = prefill(params, cfg, {"tokens": toks[:, :SMOKE_S]}, S_max=SMOKE_S + 4)
+    dec, _ = decode_step(params, cfg, cache, {"tokens": toks[:, SMOKE_S:]}, SMOKE_S)
+    assert _rel(dec, full.numpy()) < 0.05, f"{arch}: decode diverges from full forward"
+
+
 def test_unported_parts_raise_naming_the_roadmap():
     cfg = get_smoke_config("jamba_1_5_large_398b")          # has MoE layers
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         init_params(cfg, device="cpu")
     dense = _dense(cfg)
     for bad in (dataclasses.replace(dense, pattern=(("attn_local", "mlp"),) * 8),
-                dataclasses.replace(dense, pos="rope"),
+                dataclasses.replace(dense, pos="mrope"),
                 dataclasses.replace(dense, input_mode="embeds")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             init_params(bad, device="cpu")

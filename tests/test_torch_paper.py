@@ -139,7 +139,8 @@ def test_paper_config_equals_reference():
     assert dataclasses.asdict(get_config("paper_matmul")) == \
         dataclasses.asdict(jget_config("paper_matmul"))
     assert "paper_matmul" not in list_archs()
-    assert set(list_archs()) == {"jamba_1_5_large_398b", "rwkv6_3b"}
+    assert set(list_archs()) == {"jamba_1_5_large_398b", "rwkv6_3b", "qwen3_0_6b",
+                                 "qwen2_0_5b", "granite_3_8b"}
 
 
 # -- the deprecated shims -----------------------------------------------------

@@ -232,6 +232,18 @@ def test_erasure_normalisation_errors():
     assert ErasurePattern.normalize(4, torch.tensor([0, 1, 1, 1])).erased == (0,)
 
 
+def test_fractional_mask_error_matches_reference():
+    """A fractional completion vector passed as a mask is refused with the
+    reference's whole message, guidance to ``progress=`` included."""
+    mask = [1, 0.5, 1, 1]
+    with pytest.raises(ValueError) as port:
+        ErasurePattern.from_mask(4, mask)
+    with pytest.raises(ValueError) as ref:
+        JErasurePattern.from_mask(4, np.asarray(mask))
+    assert str(port.value) == str(ref.value)
+    assert "pass it as progress= with sub_tasks=Q" in str(port.value)
+
+
 def test_cpu_path_launches_no_kernel(rng):
     A, B, _, plan = _problem(rng, "bec", 2, 2, 2, 1)
     ops.reset_launch_counts()
@@ -253,8 +265,9 @@ def test_cpu_path_launches_no_kernel(rng):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """The package, every module of it, the smoke script's imports and the
-    port's benches pull in no JAX and nothing of the JAX package."""
+    """The package, every module of it, the smoke script's imports, the
+    port's benches and its mesh examples pull in no JAX and nothing of the
+    JAX package."""
     code = """
 import importlib, pkgutil, sys
 import repro_torch
@@ -265,12 +278,14 @@ import chip_smoke
 import benchmarks.torch_obs_util, benchmarks.torch_table1_error
 import benchmarks.torch_fig1_latency, benchmarks.torch_tradeoff_sweep
 import benchmarks.torch_control_bench, benchmarks.torch_serve_bench
+sys.path.insert(0, {examples!r})
+import torch_serve_lm, torch_straggler_sim
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
 assert not bad, bad
 print("clean", len([m for m in sys.modules if m.startswith("repro_torch")]))
-""".format(root=str(ROOT))
+""".format(root=str(ROOT), examples=str(ROOT / "examples"))
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(ROOT),
