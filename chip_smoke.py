@@ -18,7 +18,8 @@ Phases, each raising on failure:
              per-chunk decode's (kernel 3) registers and spills are printed,
              and its float64 bulk-copy instances must hold UBLKCP; so are
              the registers and spills of the bf16/f16 instances of kernels
-             1, 4 and 5;
+             1, 4 and 5, and every bf16/f16 TMA instance of kernels 1 and 5
+             must hold HGMMA (wgmma) and UTMALDG (TMA loads);
 3. kernels - each kernel against its plain PyTorch version on the card, at a
              ragged small shape and at the main path's shapes; kernels 1 and
              5 also with K=1 and with a row stride that is (16-byte copies)
@@ -137,7 +138,8 @@ through the public ``ops`` entry points (normal coefficients and operands
 from the seed):
 ``ops.fused_worker`` once, ``ops.encode`` twice and ``ops.matmul_t`` once
 per worker, counts set to 0 just before each dtype and read just after;
-those launches are the half entries' in the ``kernels`` line.  Phase 5h
+those launches are the half entries' in the ``kernels`` line.  The fused
+Y must equal the staged Y bit for bit.  Phase 5h
 times each half kernel, its plain version and one PyTorch call (cuBLAS's
 reduced-precision reductions off) beside its bound at the bf16/f16 tensor
 peak and the HBM rate.  Phase 6c serves ``granite_3_8b``, ``qwen3_0_6b``
@@ -395,6 +397,18 @@ def build_phase() -> None:
         half = [k for k in ptxas_summary(logs[name]).split("; ")
                 if "<bf16" in k or "<half" in k]
         print(f"{name} bf16/f16 instances: {'; '.join(half) or 'built before this run'}")
+    # their TMA form must load through the Tensor Memory Accelerator (UTMALDG)
+    # and multiply on Hopper's warpgroup MMA (HGMMA): every 16-bit instance
+    # (four output types; kernel 1 also in its grouped plan)
+    for name, instances in (("coded_fused", 8), ("block_matmul", 4)):
+        counts = {}
+        for section in _build.sass(name).split("Function : ")[1:]:
+            kernel = kernel_name(section.split("\n", 1)[0])
+            if "_tma_kernel<" in kernel:
+                counts[kernel] = (section.count("HGMMA"), section.count("UTMALDG"))
+        print(f"{name}: (HGMMA, UTMALDG) instructions per bf16/f16 TMA kernel {counts}")
+        check(len(counts) == instances and all(h and u for h, u in counts.values()),
+              f"{name}: a bf16/f16 TMA kernel without HGMMA or UTMALDG: {counts}")
     # the selective scan's exponentials must be one MUFU op each
     ex2 = {kernel_name(section.split("\n", 1)[0]): section.count("MUFU.EX2")
            for section in _build.sass("mamba_scan").split("Function : ")[1:]}
@@ -762,6 +776,7 @@ def half_path_phase(plan, seed: int) -> dict:
               f"4h {tag}: Y {tuple(Y.shape)} not finite")
         check(rel_f < HALF_TOL and rel_s < HALF_TOL,
               f"4h {tag}: worker stage rel err {rel_f}, {rel_s}")
+        check(same, f"4h {tag}: the fused Y is not the staged Y bit for bit")
         out[tag] = {"counts": counts}
         del ca, cb, a4, b4, Y, at, bt, Ys, exp
         torch.cuda.empty_cache()

@@ -7,12 +7,16 @@ kernel): one worker's coded block product ``A^T B`` for A (v, r), B (v, t)
 
 What bounds it on the card: FP64 operations, 2*v*r*t of them (1.28e11 per
 worker at the paper's 8000^2 geometry) against 0.38 GB of operands.  The
-kernel is the main loop it shares with the fused kernel
+float64 / float32 kernel is the main loop it shares with the fused kernel
 (``csrc/dmma_gemm.cuh``: a 128x128 output tile per block, FP64 on the
 tensor cores with mma.sync m16n8k8, a 4-stage cp.async ring) without the
 encode; every edge is zero-filled by the copies.  bf16 and f16 run on the
-tensor cores (mma.sync m16n8k16) with FP32 accumulators and write the
-input type (or float32), rounded to nearest even.
+tensor cores with FP32 accumulators and write the input type (or
+float32), rounded to nearest even: with 16-byte aligned operands on the
+Hopper main loop of ``csrc/wgmma_gemm.cuh`` (a persistent grid of 128x256
+tiles, TMA into a 4-stage ring, wgmma m64n128k16, the instruction and
+contraction order of the fused kernel, so fused equals staged bit for
+bit), otherwise on mma.sync m16n8k16 with plain 2-byte loads.
 
 :func:`matmul_t_ref` (from ``ref``) is the plain version; the wrapper
 ``ops.matmul_t`` runs it for CPU tensors and launches the kernel for CUDA

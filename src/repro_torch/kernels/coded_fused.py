@@ -16,9 +16,14 @@ tile per block, mma.sync m16n8k8, a 2-stage cp.async ring of raw tiles)
 with the encode fused in shared memory, the worker on the grid's fastest
 axis; FP32 runs the same ring with CUDA-core FMAs.  In bf16 and f16 each
 coded tile is the FP32 sum of its raw tiles rounded once to the input
-type, the products run on the tensor cores (mma.sync m16n8k16) with FP32
-accumulators, and the result is written in the input type (or float32),
-rounded to nearest even.
+type, the products run on the tensor cores with FP32 accumulators, and
+the result is written in the input type (or float32), rounded to nearest
+even.  With 16-byte aligned operands (the TMA form) the kernel is the
+Hopper main loop of ``csrc/wgmma_gemm.cuh``: a block per output tile and
+PAIR of workers, raw tiles brought once for both by TMA through one
+tensor map per operand (:func:`tma_layout`), encoded by two consumer
+warpgroups that multiply with wgmma; otherwise the one-element form keeps
+mma.sync m16n8k16 with plain 2-byte loads.
 
 :func:`fused_worker_ref` (from ``ref``) is the plain version; the wrapper
 ``ops.fused_worker`` runs it for CPU tensors and launches the kernel for
@@ -29,16 +34,18 @@ from __future__ import annotations
 import ctypes
 import itertools
 import math
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import fused_worker_ref
 
-__all__ = ["fused_worker_cuda", "fused_worker_ref", "copy_bytes", "MAX_BLOCKS",
-           "DTYPES"]
+__all__ = ["fused_worker_cuda", "fused_worker_ref", "copy_bytes", "tma_layout",
+           "TmaLayout", "MAX_BLOCKS", "DTYPES"]
 
 MAX_BLOCKS = 64  # kMaxBlocks in csrc/coded_fused.cu
+TMA_MAX_RANK = 5  # the Tensor Memory Accelerator's largest tensor rank
 _HALF = (torch.bfloat16, torch.float16)
 DTYPES = (torch.float64, torch.float32, *_HALF)
 
@@ -73,7 +80,8 @@ def _unsupported(dtype: torch.dtype, what: str) -> NotImplementedError:
 
 def _function(dtype: torch.dtype, out_dtype: torch.dtype):
     fn = getattr(_build.load("coded_fused"), _SYMBOLS[dtype, out_dtype])
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _I, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L,
+                   _I, _P]
     fn.restype = _I
     return fn
 
@@ -102,6 +110,77 @@ def copy_bytes(itemsize: int, *operands) -> int:
                 (o * itemsize) % 16 for o in offsets):
             return itemsize
     return 16
+
+
+class TmaLayout(NamedTuple):
+    """A block grid (*grid, v, x) as one tensor map of the Tensor Memory
+    Accelerator: ``dims`` (elements, innermost first; dimension 0 is x
+    within a block, ``v_dim`` is v, the others index the grid), ``strides``
+    (bytes, one per dimension; dimension 0's is the element size) and, per
+    block in row-major grid order, its coordinates in dimensions
+    1..rank-1 (0 at ``v_dim``)."""
+    dims: Tuple[int, ...]
+    strides: Tuple[int, ...]
+    v_dim: int
+    coords: Tuple[Tuple[int, ...], ...]
+
+
+def _tma_refusal(shape: Sequence[int], strides: Sequence[int],
+                 itemsize: int) -> Optional[str]:
+    """Why TMA cannot describe this block grid, or None if it can."""
+    *grid, v, x = shape
+    if x > 1 and strides[-1] != 1:
+        return "the last dimension must be unit-stride"
+    outer = [strides[-2]] + [s for n, s in zip(grid, strides[:-2]) if n > 1]
+    if 1 + len(outer) > TMA_MAX_RANK:
+        return (f"a grid of {len(outer) - 1} block dimensions needs rank "
+                f"{len(outer) + 1} > {TMA_MAX_RANK}")
+    bad = [s for s in outer if s <= 0 or (s * itemsize) % 16]
+    if bad:
+        return f"stride {bad[0]} of {itemsize}-byte elements is no positive 16-byte multiple"
+    return None
+
+
+def tma_layout(shape: Sequence[int], strides: Sequence[int], itemsize: int) -> TmaLayout:
+    """The tensor map of a block grid view of shape (*grid, v, x) with
+    element ``strides``: dimension 0 is x (unit stride), then v and every
+    grid dimension of more than one block, in increasing stride (grid
+    dimensions of one block are dropped).  The map's dimensions are a
+    block's, so a box past a block's edge reads zeros, never the
+    neighbouring block.
+
+    Raises:
+        ValueError: if TMA cannot describe it: a stride that is no positive
+            multiple of 16 bytes, more than ``TMA_MAX_RANK`` dimensions, or
+            a last dimension that is not unit-stride.
+    """
+    refusal = _tma_refusal(shape, strides, itemsize)
+    if refusal:
+        raise ValueError(f"TMA cannot describe the block grid {tuple(shape)} with "
+                         f"strides {tuple(strides)}: {refusal}")
+    *grid, v, x = shape
+    # (stride, size, grid axis or None for v); v first among equal strides
+    outer = [(strides[-2], v, None)] + [(s, n, i) for i, (n, s) in
+                                        enumerate(zip(grid, strides[:-2])) if n > 1]
+    outer.sort(key=lambda e: e[0])
+    axes = [axis for _, _, axis in outer]
+    coords = tuple(tuple(0 if axis is None else idx[axis] for axis in axes)
+                   for idx in itertools.product(*(range(g) for g in grid)))
+    return TmaLayout(dims=(x, *(n for _, n, _ in outer)),
+                     strides=(itemsize, *(s * itemsize for s, _, _ in outer)),
+                     v_dim=1 + axes.index(None), coords=coords)
+
+
+def _packed(layout: TmaLayout):
+    """``layout`` as the kernel's host array (kLayoutHead in
+    csrc/coded_fused.cu): rank, v_dim, dims[5], strides[5], then each
+    block's coordinates in dimensions 1..4, zero-padded."""
+    pad = TMA_MAX_RANK
+    head = [len(layout.dims), layout.v_dim,
+            *layout.dims, *[0] * (pad - len(layout.dims)),
+            *layout.strides, *[0] * (pad - len(layout.strides))]
+    body = [c for block in layout.coords for c in (*block, *[0] * (pad - 1 - len(block)))]
+    return (_L * (len(head) + len(body)))(*head, *body)
 
 
 def _unit_column_stride(x: torch.Tensor) -> torch.Tensor:
@@ -154,12 +233,22 @@ def fused_worker_cuda(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
     b = _unit_column_stride(b_blocks)
     a_off, a_sv = _block_offsets(a)
     b_off, b_sv = _block_offsets(b)
-    width = copy_bytes(a.element_size(), (a.data_ptr(), a_off, a_sv),
-                       (b.data_ptr(), b_off, b_sv))
+    itemsize = a.element_size()
+    width = copy_bytes(itemsize, (a.data_ptr(), a_off, a_sv), (b.data_ptr(), b_off, b_sv))
+    a_tma = b_tma = None
+    if dtype in _HALF and width == 16:
+        # the TMA form where TMA can describe both grids, else one element
+        if any(_tma_refusal(x.shape, x.stride(), itemsize) for x in (a, b)):
+            width = itemsize
+        else:
+            a_tma, b_tma = (_packed(tma_layout(x.shape, x.stride(), itemsize))
+                            for x in (a, b))
     stream = torch.cuda.current_stream(coeff_a.device).cuda_stream
     err = _function(dtype, written)(
         ca.data_ptr(), cb.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
-        ctypes.addressof(a_off), ctypes.addressof(b_off), K, P, Q, v, r, t,
+        ctypes.addressof(a_off), ctypes.addressof(b_off),
+        None if a_tma is None else ctypes.addressof(a_tma),
+        None if b_tma is None else ctypes.addressof(b_tma), K, P, Q, v, r, t,
         a_sv, b_sv, width, stream)
     if err != 0:
         raise RuntimeError(f"fused_worker kernel launch failed: cudaError {err}")

@@ -10,7 +10,13 @@
 // Bulk copies (coded_decode.cu, kernel 3): one thread asks the copy engine
 // for whole row segments (cp.async.bulk, SASS UBLKCP); an mbarrier armed
 // with the stage's byte count completes when they have landed, and the
-// other threads wait on its phase.  No tensor map, so nothing links libcuda.
+// other threads wait on its phase.
+//
+// Tensor copies (wgmma_gemm.cuh, the 16-bit form of kernels 1 and 5): one
+// thread asks the Tensor Memory Accelerator for a box of a tensor map
+// (cp.async.bulk.tensor, SASS UTMALDG), completing on an mbarrier as the
+// bulk copies do.  The map is encoded on the host through
+// cudaGetDriverEntryPoint, so nothing links libcuda.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -89,11 +95,12 @@ __device__ __forceinline__ uint32_t smem_address(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// One thread sets up a barrier that completes a phase on one arrival plus
-// the bytes it announces; then a fence and a block barrier publish it.
-__device__ __forceinline__ void barrier_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-               ::"r"(smem_address(bar)) : "memory");
+// One thread sets up a barrier that completes a phase on `count` arrivals
+// (one, by default, plus the bytes it announces); then a fence and a block
+// barrier publish it.
+__device__ __forceinline__ void barrier_init(uint64_t* bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_address(bar)), "r"(count) : "memory");
 }
 
 __device__ __forceinline__ void fence_barrier_init() {
@@ -122,6 +129,58 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       "[%0], [%1], %2, [%3];\n"
       ::"r"(smem_address(dst)), "l"(src), "r"(bytes), "r"(smem_address(bar))
       : "memory");
+}
+
+// Copy the box at coordinates c[0..rank) (innermost first; 2 <= rank <= 5)
+// of the tensor map `map` (the address of a __grid_constant__ kernel
+// parameter) into dst; the barrier counts its bytes off as they land.  Box
+// elements outside the map's dimensions arrive as zeros.
+__device__ __forceinline__ void tensor_copy(void* dst, const void* map, uint64_t* bar,
+                                            int rank, const int (&c)[5]) {
+  const uint32_t d = smem_address(dst);
+  const uint32_t b = smem_address(bar);
+  const uint64_t m = reinterpret_cast<uint64_t>(map);
+  switch (rank) {
+    case 2:
+      asm volatile(
+          "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1, {%3, %4}], [%2];\n"
+          ::"r"(d), "l"(m), "r"(b), "r"(c[0]), "r"(c[1]) : "memory");
+      break;
+    case 3:
+      asm volatile(
+          "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1, {%3, %4, %5}], [%2];\n"
+          ::"r"(d), "l"(m), "r"(b), "r"(c[0]), "r"(c[1]), "r"(c[2]) : "memory");
+      break;
+    case 4:
+      asm volatile(
+          "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+          ::"r"(d), "l"(m), "r"(b), "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3])
+          : "memory");
+      break;
+    default:
+      asm volatile(
+          "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
+          ::"r"(d), "l"(m), "r"(b), "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]),
+            "r"(c[4]) : "memory");
+      break;
+  }
+}
+
+// Bring a tensor map (a __grid_constant__ kernel parameter) into the TMA
+// unit's descriptor cache ahead of its first copy.
+__device__ __forceinline__ void prefetch_map(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// One arrival on the barrier (a consumer releasing a stage).
+__device__ __forceinline__ void arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               ::"r"(smem_address(bar)) : "memory");
 }
 
 // Wait until the barrier's phase of parity `parity` has completed.

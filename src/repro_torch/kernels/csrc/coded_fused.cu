@@ -15,32 +15,55 @@
 // type before the product (on the bf16/f16 tensor cores), as
 // ref.fused_worker_ref states.
 //
-// What bounds it: FP64 (or FP32) operations, 2*K*r*t*v of them (1.28e12 at
-// the paper's 8000^2 geometry, 19 ms at the FP64 tensor peak), and behind
-// them the raw-tile traffic: a block reads P + Q raw tiles for every coded
-// pair it multiplies, 0.25 B per FLOP from L2 at P = Q = 4 and a 128x128
-// tile (some 335 GB at the main shape), four times kernel 5's, and the
-// shared-memory work of the encode: those two, not the tensor cores, hold
-// the kernel.
+// float64 / float32.  What bounds it: FP64 (or FP32) operations,
+// 2*K*r*t*v of them (1.28e12 at the paper's 8000^2 geometry, 19 ms at the
+// FP64 tensor peak), and behind them the raw-tile traffic: a block reads
+// P + Q raw tiles for every coded pair it multiplies, 0.25 B per FLOP from
+// L2 at P = Q = 4 and a 128x128 tile (some 335 GB at the main shape), four
+// times kernel 5's, and the shared-memory work of the encode: those two, not
+// the tensor cores, hold the kernel.  Design: the main loop of dmma_gemm.cuh
+// (128x128 output tile, 8 warps, FP64 on the tensor cores with mma.sync
+// m16n8k8, FP32 on CUDA-core FMAs, never TF32) with the encode fused in.  A
+// block owns one (worker, output tile) and walks v 8 rows at a time.  Each
+// step's raw tiles - up to kGroup blocks of each operand - arrive through a
+// 2-stage cp.async ring; all threads form the coded tiles shared-to-shared
+// (16-byte vectors, coefficients broadcast from shared memory) into one of
+// two coded pairs, and the step's product runs in the next barrier interval,
+// beside the next step's encode: one barrier per step.  Half the warps
+// multiply before they encode and half after, so each SM sub-partition has
+// one warp on its tensor core while the other works the shared-memory pipe.
+// P or Q above kGroup are walked in groups of kGroup that accumulate into
+// the coded pair.  The grid puts the worker on the fastest axis, so the K
+// blocks of one output tile run together and share their raw tiles through
+// L2.  Blocks are passed as a base pointer, one element offset per block and
+// a row stride, so strided views (block_decompose) need no copy; ragged
+// edges are zero-filled by the copies.
 //
-// Design: the main loop of dmma_gemm.cuh (128x128 output tile, 8 warps,
-// FP64 on the tensor cores with mma.sync m16n8k8, FP32 on CUDA-core FMAs,
-// never TF32; bf16/f16 on the tensor cores with mma.sync m16n8k16 and FP32
-// accumulators) with the encode fused in.  A block owns one (worker, output
-// tile) and walks v 8 rows at a time (16 for bf16/f16).  Each step's raw tiles - up to kGroup
-// blocks of each operand - arrive through a 2-stage cp.async ring; all
-// threads form the coded tiles shared-to-shared (16-byte vectors,
-// coefficients broadcast from shared memory) into one of two coded pairs,
-// and the step's product runs in the next barrier interval, beside the next
-// step's encode: one barrier per step.  Half the warps multiply before they
-// encode and half after, so each SM sub-partition has one warp on its tensor
-// core while the other works the shared-memory pipe.  P or Q above kGroup
-// are walked in groups of kGroup that accumulate into the coded pair.  The
-// grid puts the worker on the fastest axis, so the K blocks of one output
-// tile run together and share their raw tiles through L2.  Blocks are passed
-// as a base pointer, one element offset per block and a row stride, so
-// strided views (block_decompose) need no copy; ragged edges are zero-filled
-// by the copies.
+// bf16 / f16 with 16-byte aligned operands (the TMA form).  The bf16 tensor
+// cores take the product's 2*K*r*t*v operations in 1.3 ms at the main
+// shape; the encode is the heavier half.  Per coded element it takes one
+// FP32 FMA per raw block (the sums must match kernel 4's FMA chain bit for
+// bit, so they cannot run on the tensor cores), which at a 128x128 tile
+// and P = Q = 4 is 1/16 of the product's multiply-adds on CUDA cores that
+// run at 1/16 of the tensor rate, plus a widening per raw element and a
+// rounding per coded one.  Design: the main loop of wgmma_gemm.cuh with
+// the encode fused in, a block per (128x128 output tile, PAIR of workers),
+// the pairs on the grid's fastest axis so that the five pairs of a tile
+// share their raw tiles through L2.  The producer warp's lanes issue one
+// TMA box each (a single thread issuing a stage's 16 boxes in turn paced
+// the loads), 32 rows of v a stage into a 2-stage raw ring (64 KB a stage
+// at P = Q = 4); each raw tile arrives once for both workers.  Both
+// consumer warpgroups encode a stage elementwise (raw and coded tiles share
+// one swizzled layout), reading each raw 16-byte vector once for both
+// workers with the block count unrolled, into a 2-stage coded ring, and
+// fence the stores to the async proxy; warpgroup w then multiplies worker
+// w's coded pair (two m64n128k16 bands, 128 FP32 accumulators a thread)
+// while the next step is encoded.  P or Q above kGroup take the 16-row
+// plan, whose FP32 partial sums wait in shared memory between groups of
+// kGroup raw blocks.  An odd K (or K = 1) leaves the last block's second
+// warpgroup encoding for its partner only.  The one-element form (a
+// stride TMA cannot describe) keeps the mma.sync loop above with plain
+// 2-byte loads.
 
 #include <cuda_runtime.h>
 
@@ -48,6 +71,7 @@
 #include <type_traits>
 
 #include "dmma_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -58,9 +82,8 @@ constexpr int kMaxBlocks = 64;  // largest P or Q the kernel takes
 constexpr int kGroup = 4;       // raw blocks of each operand per stage
 constexpr int kStages = 2;      // depth of the copy ring
 
-// Contraction rows per ring stage: 8, or 16 for 2-byte elements, whose
-// 16-byte copies cover a 128-wide row in 16 pieces (8 rows would leave half
-// the threads without a copy) and whose MMA steps are 16 deep.
+// Contraction rows per ring stage: 8, or 16 for 2-byte elements (their
+// one-element form here), whose MMA steps are 16 deep.
 template <typename T>
 constexpr int kBKOf = sizeof(T) == 2 ? 16 : 8;
 // A raw or coded tile [kBK][kPitchOf<T>] of T; for bf16/f16 also a tile of
@@ -252,9 +275,430 @@ fused_worker_kernel(const T* __restrict__ ca, const T* __restrict__ cb,
   acc.store(out + k * r * t, r0, t0, r, t);
 }
 
+// ---- bf16 / f16: the TMA form ------------------------------------------------
+
+constexpr int kPairWorkers = 2;  // workers per block, one per consumer warpgroup
+constexpr int kLayoutHead = 12;  // rank, v_dim, dims[5], strides[5] (see coded_fused.py)
+
+// A block grid as one tensor map: dimension 0 is r (or t) within a block,
+// dimension v_dim is v; the others index the grid.  coord[p] holds block
+// p's coordinates in dimensions 1..rank-1 (0 at v_dim).
+struct Grid {
+  int rank;
+  int v_dim;
+  int coord[kMaxBlocks][wgmma_gemm::kMaxRank - 1];
+};
+
+// The shared-memory plan of the TMA form: kTK contraction rows a stage, a
+// raw ring of kStages stages and two coded stages (a step's products read
+// one while the next step's encode writes the other).  A tile is 128 x kTK
+// elements as two 64-wide TMA boxes; raw and coded tiles share that
+// swizzled layout, so the encode is elementwise over 16-byte vectors.
+// P, Q <= kGroup take 32-row stages (64 KB of raw tiles at P = Q = 4; TMA
+// moves boxes under 4 KB at fewer bytes a cycle), two deep: what paces the
+// kernel is the encode, not the ring (three raw stages beside one coded
+// stage ran no faster on an H100).  Above kGroup, 16-row stages, four
+// deep, beside the FP32 partial sums that wait in shared memory between
+// groups of kGroup raw blocks.
+template <int kTK, int kStages>
+struct Plan {
+  static constexpr bool kGrouped = kTK < 32;
+  static constexpr int kBoxBytes = wgmma_gemm::kBox * kTK * 2;
+  static constexpr int kTileBytes = 2 * kBoxBytes;
+  static constexpr int kVecs = kTileBytes / 16;                        // per tile
+  static constexpr int kVecsPerThread = kVecs / (2 * wgmma_gemm::kWarpgroup);
+  static constexpr int kRawBytes = 2 * kGroup * kTileBytes;            // A tiles, then B
+  static constexpr int kCodedBytes = kPairWorkers * 2 * kTileBytes;    // [worker][A, B]
+  static constexpr int kPartialBytes = kGrouped ? 2 * kPairWorkers * kVecs * 32 : 0;
+  static constexpr size_t kSmemBytes =
+      wgmma_gemm::kAlign + kStages * kRawBytes + 2 * kCodedBytes + kPartialBytes +
+      2 * kPairWorkers * kMaxBlocks * sizeof(float) +
+      2 * kMaxBlocks * wgmma_gemm::kMaxRank * sizeof(int8_t) + 2 * kStages * sizeof(uint64_t);
+  static_assert(kSmemBytes <= 232448, "the opt-in shared-memory limit");
+  static_assert(kVecsPerThread >= 1, "every consumer thread encodes");
+};
+
+// A 32-bit word of two 16-bit elements, widened to FP32 (exactly).  bf16
+// is the top half of an FP32: one byte permute and one mask, both on the
+// integer pipe, which leaves the FMA pipes to the encode's sums.
+__device__ __forceinline__ void widen_pair(uint32_t word, float& lo, float& hi,
+                                           __nv_bfloat16) {
+  lo = __uint_as_float(__byte_perm(word, 0u, 0x1044));  // word << 16
+  hi = __uint_as_float(word & 0xffff0000u);
+}
+__device__ __forceinline__ void widen_pair(uint32_t word, float& lo, float& hi, __half) {
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&word));
+  lo = f.x;
+  hi = f.y;
+}
+
+// The two workers' coded tiles (+)= sum_{j < kN} c[w][j] * raw[j] at this
+// consumer thread's 16-byte vector `at` of a tile, from the vector's kN raw
+// values x, read once for both workers.  FP32 sums in registers within a
+// group of raw blocks; `first` starts them from zero, `last` rounds them
+// once to T into the coded tiles (two elements a conversion, each to
+// nearest even), and between groups (the grouped plan) they wait in
+// `partial` ([worker][vector][2] float4).
+template <typename T, bool kGrouped, int kN>
+__device__ __forceinline__ void encode_pair(unsigned char* __restrict__ coded0,
+                                            unsigned char* __restrict__ coded1,
+                                            float4* __restrict__ partial,
+                                            const uint4 (&x)[kN], int vecs,
+                                            const float (&c0)[kGroup],
+                                            const float (&c1)[kGroup], bool first,
+                                            bool last, int at) {
+  float s0[8];
+  float s1[8];
+  if (!kGrouped || first) {
+#pragma unroll
+    for (int l = 0; l < 8; ++l) s0[l] = s1[l] = 0.0f;
+  } else {
+    const float4* p0 = partial + 2 * at;
+    const float4* p1 = partial + 2 * (vecs + at);
+    const float4 lo0 = p0[0], hi0 = p0[1], lo1 = p1[0], hi1 = p1[1];
+    s0[0] = lo0.x; s0[1] = lo0.y; s0[2] = lo0.z; s0[3] = lo0.w;
+    s0[4] = hi0.x; s0[5] = hi0.y; s0[6] = hi0.z; s0[7] = hi0.w;
+    s1[0] = lo1.x; s1[1] = lo1.y; s1[2] = lo1.z; s1[3] = lo1.w;
+    s1[4] = hi1.x; s1[5] = hi1.y; s1[6] = hi1.z; s1[7] = hi1.w;
+  }
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    const uint32_t words[4] = {x[j].x, x[j].y, x[j].z, x[j].w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float e[2];
+      widen_pair(words[u], e[0], e[1], T());
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        s0[2 * u + h] += c0[j] * e[h];
+        s1[2 * u + h] += c1[j] * e[h];
+      }
+    }
+  }
+  if (!kGrouped || last) {
+    using Pair = typename wgmma_gemm::Pair<T>::type;
+    union Packed {
+      uint4 v;
+      Pair e[4];
+    } y0, y1;
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      y0.e[l] = wgmma_gemm::Pair<T>::of(s0[2 * l], s0[2 * l + 1]);
+      y1.e[l] = wgmma_gemm::Pair<T>::of(s1[2 * l], s1[2 * l + 1]);
+    }
+    reinterpret_cast<uint4*>(coded0)[at] = y0.v;
+    reinterpret_cast<uint4*>(coded1)[at] = y1.v;
+  } else {
+    float4* p0 = partial + 2 * at;
+    float4* p1 = partial + 2 * (vecs + at);
+    p0[0] = make_float4(s0[0], s0[1], s0[2], s0[3]);
+    p0[1] = make_float4(s0[4], s0[5], s0[6], s0[7]);
+    p1[0] = make_float4(s1[0], s1[1], s1[2], s1[3]);
+    p1[1] = make_float4(s1[4], s1[5], s1[6], s1[7]);
+  }
+}
+
+// encode_pair over this thread's vectors of a tile from kN raw blocks: all
+// the vectors' loads issued before the first sum consumes them.
+template <typename T, typename L, int kN>
+__device__ __forceinline__ void encode_tile(unsigned char* __restrict__ coded0,
+                                            unsigned char* __restrict__ coded1,
+                                            float4* __restrict__ partial,
+                                            const unsigned char* __restrict__ raw,
+                                            const float (&c0)[kGroup],
+                                            const float (&c1)[kGroup], bool first,
+                                            bool last, int ctid) {
+  uint4 x[L::kVecsPerThread][kN];
+#pragma unroll
+  for (int i = 0; i < L::kVecsPerThread; ++i)
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      x[i][j] = reinterpret_cast<const uint4*>(raw + j * L::kTileBytes)
+          [ctid + i * 2 * wgmma_gemm::kWarpgroup];
+    }
+#pragma unroll
+  for (int i = 0; i < L::kVecsPerThread; ++i) {
+    encode_pair<T, L::kGrouped, kN>(coded0, coded1, partial, x[i], L::kVecs, c0, c1, first,
+                                    last, ctid + i * 2 * wgmma_gemm::kWarpgroup);
+  }
+}
+
+// encode_tile for the group's n (1 to kGroup) raw blocks.
+template <typename T, typename L>
+__device__ __forceinline__ void encode_group(unsigned char* coded0, unsigned char* coded1,
+                                             float4* partial, const unsigned char* raw,
+                                             const float (&c0)[kGroup],
+                                             const float (&c1)[kGroup], int n, bool first,
+                                             bool last, int ctid) {
+  static_assert(kGroup == 4, "one instance per block count");
+  switch (n) {
+    case 1:
+      encode_tile<T, L, 1>(coded0, coded1, partial, raw, c0, c1, first, last, ctid);
+      break;
+    case 2:
+      encode_tile<T, L, 2>(coded0, coded1, partial, raw, c0, c1, first, last, ctid);
+      break;
+    case 3:
+      encode_tile<T, L, 3>(coded0, coded1, partial, raw, c0, c1, first, last, ctid);
+      break;
+    default:
+      encode_tile<T, L, 4>(coded0, coded1, partial, raw, c0, c1, first, last, ctid);
+      break;
+  }
+}
+
+// A box's coordinates: x0 in dimension 0, v0 at v_dim (-1 in the block's
+// row of the coordinate table), the block's grid coordinates elsewhere.
+__device__ __forceinline__ void box_coords(int (&c)[wgmma_gemm::kMaxRank],
+                                           const int8_t* coord, int x0, int v0) {
+  c[0] = x0;
+#pragma unroll
+  for (int d = 1; d < wgmma_gemm::kMaxRank; ++d) c[d] = coord[d] < 0 ? v0 : coord[d];
+}
+
+// A block owns one output tile (128 x 128) for a pair of workers 2 * pair +
+// {0, 1}: the producer warp brings each step's raw tiles (a group of up to
+// kGroup blocks of A and of B, kTK rows) into the raw ring, one TMA box a
+// lane; the consumer warpgroups encode them into the coded ring (both
+// workers at once), then warpgroup w multiplies worker w's coded pair with
+// wgmma while the next step is encoded.  An odd K leaves the last block's
+// second warpgroup encoding for its partner only.
+template <typename T, typename Out, int kTK, int kStages>
+__global__ void __launch_bounds__(wgmma_gemm::kThreads, 1)
+fused_worker_tma_kernel(const T* __restrict__ ca, const T* __restrict__ cb,
+                        const __grid_constant__ CUtensorMap a_map,
+                        const __grid_constant__ CUtensorMap b_map,
+                        const __grid_constant__ Grid a_grid,
+                        const __grid_constant__ Grid b_grid,
+                        Out* __restrict__ out, int K, int P, int Q, long long v,
+                        long long r, long long t, bool pairs) {
+  namespace wg = wgmma_gemm;
+  using L = Plan<kTK, kStages>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* raw_s = wg::aligned_smem(smem_raw);              // [kStages][raw stage]
+  unsigned char* coded_s = raw_s + kStages * L::kRawBytes;        // [2][worker][A, B][tile]
+  float4* partial_s = reinterpret_cast<float4*>(coded_s + 2 * L::kCodedBytes);  // [A, B][..]
+  float* ca_s = reinterpret_cast<float*>(coded_s + 2 * L::kCodedBytes + L::kPartialBytes);
+  float* cb_s = ca_s + kPairWorkers * kMaxBlocks;                 // [worker][block]
+  uint64_t* full = reinterpret_cast<uint64_t*>(cb_s + kPairWorkers * kMaxBlocks);
+  uint64_t* empty = full + kStages;
+  // [A, B][block][dimension]: each block's box coordinates, -1 at v_dim
+  int8_t* coord_s = reinterpret_cast<int8_t*>(empty + kStages);
+
+  const int pairs_k = (K + 1) / 2;
+  const int pair = static_cast<int>(blockIdx.x % pairs_k);  // workers on the fastest axis
+  const long long tile = blockIdx.x / pairs_k;
+  const long long tiles_t = (t + kBN - 1) / kBN;
+  const int r0 = static_cast<int>(tile / tiles_t * kBM);
+  const int t0 = static_cast<int>(tile % tiles_t * kBN);
+  for (int i = threadIdx.x; i < kPairWorkers * kMaxBlocks; i += blockDim.x) {
+    const int k = 2 * pair + i / kMaxBlocks;
+    const int p = i % kMaxBlocks;
+    ca_s[i] = k < K && p < P ? accum::widen(ca[k * P + p]) : 0.0f;
+    cb_s[i] = k < K && p < Q ? accum::widen(cb[k * Q + p]) : 0.0f;
+  }
+  for (int i = threadIdx.x; i < 2 * kMaxBlocks * wg::kMaxRank; i += blockDim.x) {
+    const Grid& g = i < kMaxBlocks * wg::kMaxRank ? a_grid : b_grid;
+    const int p = i / wg::kMaxRank % kMaxBlocks;
+    const int d = i % wg::kMaxRank;
+    coord_s[i] = static_cast<int8_t>(d == 0 ? 0 : d == g.v_dim ? -1 : g.coord[p][d - 1]);
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      async_copy::barrier_init(&full[s]);
+      async_copy::barrier_init(&empty[s], 2 * wg::kWarpgroup / 32);  // one per consumer warp
+    }
+    async_copy::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // One item per (v step, group of raw blocks); a step's coded tiles are
+  // complete after its last group.
+  const int groups = max((P + kGroup - 1) / kGroup, (Q + kGroup - 1) / kGroup);
+  const int items = static_cast<int>((v + kTK - 1) / kTK) * groups;
+  const int k_steps = static_cast<int>((v + wg::kStep - 1) / wg::kStep);
+
+  if (threadIdx.x < wg::kWarpgroup) {  // the producer warp
+    wg::regs_dec<wg::kProducerRegs>();
+    const int lane = threadIdx.x;
+    if (lane >= 32) return;
+    if (lane == 0) {
+      async_copy::prefetch_map(&a_map);
+      async_copy::prefetch_map(&b_map);
+    }
+    const int a_rank = a_grid.rank;
+    const int b_rank = b_grid.rank;
+    int slot = 0;
+    uint32_t phase = 0;
+    for (int item = 0; item < items; ++item) {
+      const int v0 = item / groups * kTK;
+      const int p0 = item % groups * kGroup;
+      const int na = max(0, min(kGroup, P - p0));
+      const int nb = max(0, min(kGroup, Q - p0));
+      async_copy::barrier_wait(&empty[slot], phase ^ 1);
+      if (lane == 0) async_copy::arrive_expect_bytes(&full[slot], (na + nb) * L::kTileBytes);
+      // A stage is 2 (na + nb) boxes, A's then B's, box i from lane i: one
+      // thread issuing them in turn would pace the kernel.  Each branch
+      // names its tensor map itself (a map chosen at run time would reach
+      // TMA as a generic address).
+      unsigned char* s = raw_s + slot * L::kRawBytes;
+      const int h = lane % 2;  // the box's half of its tile
+      int c[wg::kMaxRank];
+      if (lane < 2 * na) {
+        const int j = lane / 2;
+        box_coords(c, coord_s + (p0 + j) * wg::kMaxRank, r0 + h * wg::kBox, v0);
+        async_copy::tensor_copy(s + j * L::kTileBytes + h * L::kBoxBytes, &a_map, &full[slot],
+                                a_rank, c);
+      } else if (lane < 2 * (na + nb)) {
+        const int j = lane / 2 - na;
+        box_coords(c, coord_s + (kMaxBlocks + p0 + j) * wg::kMaxRank, t0 + h * wg::kBox, v0);
+        async_copy::tensor_copy(s + (kGroup + j) * L::kTileBytes + h * L::kBoxBytes, &b_map,
+                                &full[slot], b_rank, c);
+      }
+      if (++slot == kStages) {
+        slot = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup w multiplies worker 2 * pair + w
+  wg::regs_inc<wg::kConsumerRegs>();
+  const int ctid = threadIdx.x - wg::kWarpgroup;
+  const int w = ctid / wg::kWarpgroup;
+  const int wtid = ctid % wg::kWarpgroup;
+  const bool active = 2 * pair + w < K;
+  float acc[2][64];  // rows 64 * band + [0, 64) of the tile
+#pragma unroll
+  for (int band = 0; band < 2; ++band)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[band][i] = 0.0f;
+  // the group's coefficients of both workers, in registers: once for the
+  // one-group plan, per group for the grouped one
+  float ca0[kGroup], ca1[kGroup], cb0[kGroup], cb1[kGroup];
+  auto coefficients = [&](int p0) {
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      ca0[j] = ca_s[p0 + j];
+      ca1[j] = ca_s[kMaxBlocks + p0 + j];
+      cb0[j] = cb_s[p0 + j];
+      cb1[j] = cb_s[kMaxBlocks + p0 + j];
+    }
+  };
+  if (!L::kGrouped) coefficients(0);
+  int slot = 0;
+  uint32_t phase = 0;
+  for (int item = 0; item < items; ++item) {
+    const int step = item / groups;
+    const int g = item % groups;
+    const int p0 = g * kGroup;
+    if (L::kGrouped) coefficients(p0);
+    async_copy::barrier_wait(&full[slot], phase);
+    const unsigned char* s = raw_s + slot * L::kRawBytes;
+    unsigned char* coded = coded_s + (step & 1) * L::kCodedBytes;
+    if (p0 < P) {
+      encode_group<T, L>(coded, coded + 2 * L::kTileBytes, partial_s, s, ca0, ca1,
+                         min(kGroup, P - p0), g == 0, p0 + kGroup >= P, ctid);
+    }
+    if (p0 < Q) {
+      encode_group<T, L>(coded + L::kTileBytes, coded + 3 * L::kTileBytes,
+                         partial_s + 4 * L::kVecs, s + kGroup * L::kTileBytes, cb0, cb1,
+                         min(kGroup, Q - p0), g == 0, p0 + kGroup >= Q, ctid);
+    }
+    __syncwarp();
+    if (ctid % 32 == 0) async_copy::arrive(&empty[slot]);
+    if (++slot == kStages) {
+      slot = 0;
+      phase ^= 1;
+    }
+    if (g != groups - 1) continue;
+    // The step's coded tiles are complete: publish them to the async proxy,
+    // let the last step's products finish in both warpgroups (the next
+    // step's encode overwrites their tiles), then multiply this step while
+    // the next one is encoded.
+    async_copy::fence_proxy_async();
+    wg::mma_wait<0>();
+    wg::fence_operand(acc[0]);
+    wg::fence_operand(acc[1]);
+    wg::consumers_sync();
+    if (active) {
+      const unsigned char* a_t = coded + 2 * w * L::kTileBytes;
+      const unsigned char* b_t = a_t + L::kTileBytes;
+      const int n = min(kTK / wg::kStep, k_steps - step * (kTK / wg::kStep));
+      wg::mma_fence();
+#pragma unroll
+      for (int k = 0; k < kTK / wg::kStep; ++k) {
+        if (k < n) {
+          const uint64_t db = wg::smem_desc(b_t + k * wg::kStepBytes, L::kBoxBytes);
+#pragma unroll
+          for (int band = 0; band < 2; ++band) {
+            wg::mma<T>(acc[band],
+                       wg::smem_desc(a_t + band * L::kBoxBytes + k * wg::kStepBytes,
+                                     L::kBoxBytes),
+                       db);
+          }
+        }
+      }
+      wg::mma_commit();
+    }
+  }
+  wg::mma_wait<0>();
+  wg::fence_operand(acc[0]);
+  wg::fence_operand(acc[1]);
+  if (active) {
+    Out* y = out + (2 * pair + w) * r * t;
+#pragma unroll
+    for (int band = 0; band < 2; ++band) {
+      wg::store(y, acc[band], r0 + 64 * band, t0, r, t, pairs, wtid);
+    }
+  }
+}
+
+// The TMA form's launch.  a_layout / b_layout (HOST arrays, coded_fused.py's
+// tma_layout packed): rank, v_dim, dims[5], strides[5] in bytes, then each
+// block's coordinates in dimensions 1..4.
+template <typename T, typename Out, int kTK, int kStages>
+int launch_tma(const T* ca, const T* cb, const T* a, const T* b, Out* out,
+               const long long* a_layout, const long long* b_layout, int K, int P, int Q,
+               long long v, long long r, long long t, void* stream) {
+  namespace wg = wgmma_gemm;
+  CUtensorMap maps[2] = {};
+  Grid grids[2] = {};
+  const long long* layouts[2] = {a_layout, b_layout};
+  const T* bases[2] = {a, b};
+  const int blocks[2] = {P, Q};
+  for (int o = 0; o < 2; ++o) {
+    const long long* l = layouts[o];
+    if (l == nullptr || l[0] < 2 || l[0] > wg::kMaxRank || l[1] < 1 || l[1] >= l[0]) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    grids[o].rank = static_cast<int>(l[0]);
+    grids[o].v_dim = static_cast<int>(l[1]);
+    for (int p = 0; p < blocks[o]; ++p)
+      for (int d = 0; d < wg::kMaxRank - 1; ++d)
+        grids[o].coord[p][d] = static_cast<int>(l[kLayoutHead + (wg::kMaxRank - 1) * p + d]);
+    int box[wg::kMaxRank];
+    for (int d = 0; d < grids[o].rank; ++d) {
+      box[d] = d == 0 ? wg::kBox : d == grids[o].v_dim ? kTK : 1;
+    }
+    if (v > 0) {
+      const int err = wg::encode_map<T>(&maps[o], bases[o], grids[o].rank, l + 2, l + 7, box);
+      if (err != 0) return err;
+    }
+  }
+  const long long tiles = ((r + kBM - 1) / kBM) * ((t + kBN - 1) / kBN);
+  const bool pairs = t % 2 == 0 && reinterpret_cast<std::uintptr_t>(out) % (2 * sizeof(Out)) == 0;
+  return wg::launch_kernel(fused_worker_tma_kernel<T, Out, kTK, kStages>,
+                           dim3(static_cast<unsigned>(tiles * ((K + 1) / 2))),
+                           Plan<kTK, kStages>::kSmemBytes, stream, ca, cb, maps[0], maps[1],
+                           grids[0], grids[1], out, K, P, Q, v, r, t, pairs);
+}
+
 template <typename T, typename Out>
 int launch(const void* ca_, const void* cb_, const void* a_, const void* b_, void* out_,
-           const long long* a_off, const long long* b_off, int K, int P, int Q,
+           const long long* a_off, const long long* b_off, const long long* a_tma,
+           const long long* b_tma, int K, int P, int Q,
            long long v, long long r, long long t, long long a_sv, long long b_sv,
            int copy_bytes, void* stream) {
   const T* ca = static_cast<const T*>(ca_);
@@ -285,9 +729,18 @@ int launch(const void* ca_, const void* cb_, const void* a_, const void* b_, voi
   const size_t bytes = smem_bytes<T>();
   if (copy_bytes == 16) {
     if (misaligned % 16) return static_cast<int>(cudaErrorMisalignedAddress);
-    return launch_kernel(fused_worker_kernel<T, Out, 16 / sizeof(T)>, grid, bytes,
-                         stream, ca, cb, a, b, out, ao, bo, K, P, Q, v, r, t,
-                         a_sv, b_sv);
+    if constexpr (sizeof(T) == 2) {
+      if (P > kGroup || Q > kGroup) {  // the grouped plan: partial sums
+        return launch_tma<T, Out, 16, 4>(ca, cb, a, b, out, a_tma, b_tma, K, P, Q, v, r, t,
+                                         stream);
+      }
+      return launch_tma<T, Out, 32, 2>(ca, cb, a, b, out, a_tma, b_tma, K, P, Q, v, r, t,
+                                       stream);
+    } else {
+      return launch_kernel(fused_worker_kernel<T, Out, 16 / sizeof(T)>, grid, bytes,
+                           stream, ca, cb, a, b, out, ao, bo, K, P, Q, v, r, t,
+                           a_sv, b_sv);
+    }
   }
   if (copy_bytes == static_cast<int>(sizeof(T))) {
     return launch_kernel(fused_worker_kernel<T, Out, 1>, grid, bytes, stream, ca, cb,
@@ -302,16 +755,19 @@ int launch(const void* ca_, const void* cb_, const void* a_, const void* b_, voi
 // elements) with row stride a_sv and unit column stride, likewise B; out
 // (K, r, t) contiguous.  a_off / b_off are HOST arrays.  copy_bytes is 16
 // (both base pointers, every block offset and both row strides 16-byte
-// multiples) or the element size.  Returns the cudaError_t of the launch.
-// The _bf16 / _f16 entries accumulate in FP32 and write their input type;
-// the _out_f32 ones write the FP32 sums.
-#define REPRO_FUSED_WORKER(NAME, T, OUT)                                           \
-  extern "C" int NAME(const void* ca, const void* cb, const void* a, const void* b,  \
-                      void* out, const long long* a_off, const long long* b_off,     \
-                      int K, int P, int Q, long long v, long long r, long long t,    \
-                      long long a_sv, long long b_sv, int copy_bytes, void* stream) { \
-    return launch<T, OUT>(ca, cb, a, b, out, a_off, b_off, K, P, Q, v, r, t, a_sv,  \
-                          b_sv, copy_bytes, stream);                                \
+// multiples) or the element size.  a_tma / b_tma (HOST arrays, or null) are
+// the operands' tensor-map layouts, which the 16-byte form of the _bf16 /
+// _f16 entries (TMA) reads.  Returns the cudaError_t of the launch.  The
+// _bf16 / _f16 entries accumulate in FP32 and write their input type; the
+// _out_f32 ones write the FP32 sums.
+#define REPRO_FUSED_WORKER(NAME, T, OUT)                                             \
+  extern "C" int NAME(const void* ca, const void* cb, const void* a, const void* b,    \
+                      void* out, const long long* a_off, const long long* b_off,       \
+                      const long long* a_tma, const long long* b_tma, int K, int P,    \
+                      int Q, long long v, long long r, long long t, long long a_sv,    \
+                      long long b_sv, int copy_bytes, void* stream) {                  \
+    return launch<T, OUT>(ca, cb, a, b, out, a_off, b_off, a_tma, b_tma, K, P, Q, v, r, \
+                          t, a_sv, b_sv, copy_bytes, stream);                          \
   }
 
 REPRO_FUSED_WORKER(repro_fused_worker_f64, double, double)

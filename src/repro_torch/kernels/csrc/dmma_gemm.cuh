@@ -18,9 +18,10 @@
 // the copy ring, not other blocks, hides the device-memory latency.
 // FP32 has no tensor-core path without TF32, which stays off, so each thread
 // accumulates an 8x8 micro-tile with FMAs on the CUDA cores.  bf16 and f16
-// run on the tensor cores (mma.sync m16n8k16, FP32 accumulators, the
-// fragments read by ldmatrix.trans), and the tile is written in the output
-// type, rounded to nearest even.  Their shared-memory pitch is 136 elements
+// in the one-element copy form run here on the tensor cores (mma.sync
+// m16n8k16, FP32 accumulators, the fragments read by ldmatrix.trans), and
+// the tile is written in the output type, rounded to nearest even; their
+// 16-byte form runs the Hopper loop of wgmma_gemm.cuh instead.  Their shared-memory pitch is 136 elements
 // (272 bytes): 16-byte aligned rows, and the eight rows of an 8x8 matrix on
 // distinct banks.
 //

@@ -93,8 +93,11 @@ def _check(out, exp, data):
 ])
 @pytest.mark.parametrize("stride", ["aligned", "odd"])
 @pytest.mark.parametrize("data", ["random", "integer"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, *HALF])
 def test_fused_kernel_matches_plain(cuda, K, P, Q, v, r, t, stride, data, dtype):
+    """Every shape in both copy forms: for bf16/f16 the 16-byte form is the
+    TMA + wgmma loop (worker pairs, K = 1 and odd K masking a warpgroup, P or
+    Q = 64 on the grouped plan), the one-element form the mma.sync loop."""
     gen = torch.Generator().manual_seed(0)
     ca, cb = _data(gen, (K, P), dtype, data), _data(gen, (K, Q), dtype, data)
     a = _with_row_stride(_data(gen, (P, v, r), dtype, data), stride)
@@ -105,6 +108,37 @@ def test_fused_kernel_matches_plain(cuda, K, P, Q, v, r, t, stride, data, dtype)
     out = ops.fused_worker(ca, cb, a, b)
     _check(out, ref.fused_worker_ref(ca, cb, a, b), data)
     assert ops.launch_counts()["fused_worker"] == 1
+
+
+@pytest.mark.parametrize("stride", ["aligned", "odd"])
+@pytest.mark.parametrize("dtype", HALF)
+def test_half_fused_equals_staged_bit_for_bit(cuda, dtype, stride):
+    """The 16-bit fused Y is the staged one (kernel 4, then kernel 5 per
+    worker) bit for bit, at a shape of several tiles: coded tiles rounded
+    once from the same FP32 sums, products on the same instruction in the
+    same contraction order.  In the TMA form (block views of 16-byte aligned
+    matrices) and in the one-element form (odd row strides and odd widths,
+    so that the staged product's coded operands take it too)."""
+    gen = torch.Generator().manual_seed(11)
+    K, v = 5, 300
+    r, t = (256, 384) if stride == "aligned" else (257, 129)
+    A = _with_row_stride(_rand(gen, (2 * v, 2 * r), dtype), stride)
+    B = _with_row_stride(_rand(gen, (2 * v, t), dtype), stride)
+    a4, b4 = block_decompose(A, 2, 2), block_decompose(B, 2, 1)
+    ca, cb = _rand(gen, (K, 4), dtype), _rand(gen, (K, 2), dtype)
+    wide = 16 if stride == "aligned" else 2
+    width = coded_fused.copy_bytes(2, *(
+        (x.data_ptr(), coded_fused._block_offsets(x)[0], x.stride(-2)) for x in (a4, b4)))
+    assert width == wide
+    Y = ops.fused_worker(ca, cb, a4, b4)
+    at, bt = ops.encode(ca, a4), ops.encode(cb, b4)
+    assert coded_fused.copy_bytes(2, (at.data_ptr(), (0,), at.stride(1)),
+                                  (bt.data_ptr(), (0,), bt.stride(1))) == wide
+    staged = torch.stack([ops.matmul_t(at[k], bt[k]) for k in range(K)])
+    torch.cuda.synchronize()
+    assert Y.dtype == dtype and bool(torch.isfinite(Y).all())
+    assert torch.equal(Y, staged)
+    assert ops.launch_counts() == dict(_NONE, fused_worker=1, encode=2, matmul_t=K)
 
 
 def test_fused_kernel_on_strided_block_views(cuda):
@@ -123,7 +157,7 @@ def test_fused_kernel_on_strided_block_views(cuda):
 @pytest.mark.parametrize("stride", ["aligned", "odd"])
 @pytest.mark.parametrize("data", ["random", "integer"])
 @pytest.mark.parametrize("dtype", HALF)
-def test_fused_kernel_refuses_half_precision(cuda, dtype, data, stride):
+def test_fused_kernel_takes_half_precision(cuda, dtype, data, stride):
     """bf16 / f16 run the kernel (FP32 sums, the coded tiles rounded once to
     the input dtype, the result once to its output dtype) and match the
     plain version, in both copy forms (16-byte copies, 2-byte loads); the
@@ -264,7 +298,7 @@ def test_encode_kernel_on_strided_block_views_is_exact(cuda):
                                    (33, 257, 4000)])
 @pytest.mark.parametrize("stride", ["aligned", "odd"])
 @pytest.mark.parametrize("data", ["random", "integer"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, *HALF])
 def test_matmul_t_kernel_matches_plain(cuda, v, r, t, stride, data, dtype):
     gen = torch.Generator().manual_seed(7)
     A = _with_row_stride(_data(gen, (v, r), dtype, data), stride)
@@ -293,7 +327,7 @@ def test_matmul_t_kernel_on_row_strided_operands(cuda):
 @pytest.mark.parametrize("stride", ["aligned", "odd"])
 @pytest.mark.parametrize("data", ["random", "integer"])
 @pytest.mark.parametrize("dtype", HALF)
-def test_new_kernels_refuse_half_precision(cuda, dtype, data, stride):
+def test_new_kernels_take_half_precision(cuda, dtype, data, stride):
     """bf16 / f16 encode (kernel 4, written in the coefficient dtype) and
     block matmul (kernel 5) against their plain versions in both copy
     forms; the per-chunk decode still takes float64 / float32 only."""
