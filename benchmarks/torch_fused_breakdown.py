@@ -78,15 +78,16 @@ def variant_sources() -> dict:
     return out
 
 
-def build(sources: dict) -> dict:
-    """{variant: loaded library}, one nvcc per variant, all at once."""
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
+def build(sources: dict, out_dir=OUT_DIR) -> dict:
+    """{variant: loaded library}, one nvcc per variant, all at once, into
+    ``out_dir``."""
+    out_dir.mkdir(parents=True, exist_ok=True)
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     running = []
     for name, src in sources.items():
-        path = OUT_DIR / f"{name}.cu"
+        path = out_dir / f"{name}.cu"
         path.write_text(src)
-        lib = OUT_DIR / f"lib{name}.so"
+        lib = out_dir / f"lib{name}.so"
         cmd = [_build._nvcc(), *flags, "-I", str(_build._CSRC), "-o", str(lib), str(path)]
         running.append((name, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                     stderr=subprocess.STDOUT, text=True)))

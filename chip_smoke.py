@@ -19,7 +19,9 @@ Phases, each raising on failure:
              and its float64 bulk-copy instances must hold UBLKCP; so are
              the registers and spills of the bf16/f16 instances of kernels
              1, 4 and 5, and every bf16/f16 TMA instance of kernels 1 and 5
-             must hold HGMMA (wgmma) and UTMALDG (TMA loads);
+             must hold HGMMA (wgmma) and UTMALDG (TMA loads), every
+             16-byte-form instance of kernel 4 LDG.E.128 and STG.E.128 and
+             no spills;
 3. kernels - each kernel against its plain PyTorch version on the card, at a
              ragged small shape and at the main path's shapes; kernels 1 and
              5 also with K=1 and with a row stride that is (16-byte copies)
@@ -132,20 +134,26 @@ their plain versions (FP32 sums, each result rounded once to its output
 dtype) at a ragged shape and at the main path's (K=10, P=Q=4, 4000^2
 blocks), with a 16-byte aligned row stride (16-byte copies) and an odd one
 (2-byte loads): integer inputs in [-4, 4] exactly (also with float32
-output), random normal ones within 2e-2 of the largest value.  Phase 4h
+output), random normal ones within 2e-2 of the largest value; kernel 4
+also on ragged rows of widths 264 and 520 (P = 20, K = 17), each case
+checked to take the form its layout picks (16 bytes on aligned rows whose
+width is a multiple of 8, else one element).  Phase 4h
 drives the worker stage at the paper's geometry in bf16 and in f16
 through the public ``ops`` entry points (normal coefficients and operands
 from the seed):
 ``ops.fused_worker`` once, ``ops.encode`` twice and ``ops.matmul_t`` once
 per worker, counts set to 0 just before each dtype and read just after;
 those launches are the half entries' in the ``kernels`` line.  The fused
-Y must equal the staged Y bit for bit.  Phase 5h
+Y must equal the staged Y bit for bit, and kernel 4 must take its 16-byte
+form.  Phase 5h
 times each half kernel, its plain version and one PyTorch call (cuBLAS's
 reduced-precision reductions off) beside its bound at the bf16/f16 tensor
-peak and the HBM rate.  Phase 6c serves ``granite_3_8b``, ``qwen3_0_6b``
-and ``qwen2_0_5b`` whole (bf16 weights from the seed, rotary positions,
-the traffic of phase 6, no kernel on their path), gated on prefill(1024)
-+ decode against prefill(1025) and finite logits, printing prefill and
+peak and the HBM rate; kernel 4 also as GB/s beside one torch copy of as
+many bytes (a measured ceiling; the port never calls it).  Phase 6c
+serves ``granite_3_8b``, ``qwen3_0_6b`` and ``qwen2_0_5b`` whole (bf16
+weights from the seed, rotary positions, the traffic of phase 6, no kernel
+on their path), gated on prefill(1024) + decode against prefill(1025) and
+finite logits, printing prefill and
 decode times, tokens/s, parameters and peak memory; Granite is freed
 before phase 6d runs ``examples/torch_serve_lm.py`` on the card: the smoke
 Qwen3 served, then its coded lm_head on a (2, 4) mesh of eight ranks
@@ -409,6 +417,23 @@ def build_phase() -> None:
         print(f"{name}: (HGMMA, UTMALDG) instructions per bf16/f16 TMA kernel {counts}")
         check(len(counts) == instances and all(h and u for h, u in counts.values()),
               f"{name}: a bf16/f16 TMA kernel without HGMMA or UTMALDG: {counts}")
+    # kernel 4's 16-byte form must load and store 16 bytes an instruction
+    # (LDG.E.128 and STG.E.128, any cache suffix), without spills: every
+    # bf16/f16 instance (P = 1-8 resident, any P in groups)
+    wide = {}
+    for section in _build.sass("coded_encode").split("Function : ")[1:]:
+        kernel = kernel_name(section.split("\n", 1)[0])
+        if kernel.startswith("encode_vector_kernel<"):
+            wide[kernel] = tuple(len(re.findall(rf"\b{op}\.E(?:\.[A-Z]+)*\.128\b", section))
+                                 for op in ("LDG", "STG"))
+    print(f"coded_encode: (LDG.E.128, STG.E.128) instructions per 16-byte-form kernel {wide}")
+    check(len(wide) == 18 and all(ld and st for ld, st in wide.values()),
+          f"coded_encode: a 16-byte-form kernel without 16-byte loads or stores: {wide}")
+    regs = [k for k in ptxas_summary(logs["coded_encode"]).split("; ")
+            if k.startswith("encode_vector_kernel<")]
+    print(f"coded_encode 16-byte form: {'; '.join(regs) or 'built before this run'}")
+    check(all(k.endswith(" 0/0 bytes spill stores/loads") for k in regs),
+          f"coded_encode: a 16-byte-form kernel spills: {regs}")
     # the selective scan's exponentials must be one MUFU op each
     ex2 = {kernel_name(section.split("\n", 1)[0]): section.count("MUFU.EX2")
            for section in _build.sass("mamba_scan").split("Function : ")[1:]}
@@ -505,6 +530,14 @@ def copy_width(*operands: torch.Tensor) -> int:
     return coded_fused.copy_bytes(operands[0].element_size(), *(
         (x.data_ptr(), coded_fused._block_offsets(x)[0] if x.ndim > 2 else (0,),
          x.stride(-2)) for x in operands))
+
+
+def encode_form(blocks: torch.Tensor) -> int:
+    """The form the wrapper of kernel 4 picks for ``blocks`` (*grid, rows,
+    cols): 16 (16-byte loads and stores) or one element."""
+    offsets, row_stride = coded_fused._block_offsets(blocks)
+    return coded_fused.encode_width(blocks.element_size(), blocks.shape[-1],
+                                    (blocks.data_ptr(), offsets, row_stride))
 
 
 def edge_cases(gen, dtype) -> None:
@@ -693,6 +726,9 @@ def half_kernels_phase(gen) -> dict:
                     width = copy_width(a, b)
                     check(width == (16 if stride == "aligned" else 2),
                           f"{tag} {stride} rows take {width}-byte copies")
+                    form = encode_form(a)
+                    check(form == (16 if stride == "aligned" and r % 8 == 0 else 2),
+                          f"{tag} {stride} rows of width {r}: kernel 4 takes the {form}-byte form")
                     name = f"{tag} {label} ({K}, {P}, {Q}, {v}, {r}, {t}) {stride} rows " \
                            f"({width}-byte copies) {data}"
                     found = {
@@ -700,7 +736,7 @@ def half_kernels_phase(gen) -> dict:
                             f"fused_worker {name}", ops.fused_worker(ca, cb, a, b),
                             ref.fused_worker_ref(ca, cb, a, b), data),
                         "encode": half_check(
-                            f"encode {name}", ops.encode(ca, a),
+                            f"encode ({form}-byte form) {name}", ops.encode(ca, a),
                             ref.encode_ref(ca, a.reshape(P, -1)).reshape(K, v, r), data),
                         "matmul_t": half_check(
                             f"matmul_t {name}", ops.matmul_t(a[0], b[0]),
@@ -718,6 +754,21 @@ def half_kernels_phase(gen) -> dict:
                             key = f"{kernel}_{tag}"
                             errs[key] = max(err, errs.get(key, 0.0))
                     del ca, cb, a, b
+        # kernel 4 on ragged rows of a width that is a multiple of 8 (the
+        # 16-byte form where the row stride is aligned), past a group of 8
+        # raw loads (P = 20) and past groups of 4 workers (K = 17)
+        for K, P, v, r in ((10, 4, 129, 264), (17, 20, 37, 520)):
+            for stride in ("aligned", "odd"):
+                for data in ("random", "integer"):
+                    c = make(data, K, P)
+                    a = with_row_stride(make(data, P, v, r), stride)
+                    form = encode_form(a)
+                    check(form == (16 if stride == "aligned" else 2),
+                          f"{tag} {stride} rows of width {r}: kernel 4 takes the {form}-byte form")
+                    half_check(f"encode ({form}-byte form) {tag} ({K}, {P}, {v}, {r}) {stride} "
+                               f"rows {data}", ops.encode(c, a),
+                               ref.encode_ref(c, a.reshape(P, -1)).reshape(K, v, r), data)
+                    del c, a
     torch.cuda.empty_cache()
     return errs
 
@@ -748,6 +799,8 @@ def half_path_phase(plan, seed: int) -> dict:
     for dtype in HALF:
         tag = HALF_NAME[dtype]
         ca, cb, a4, b4 = half_operands(plan, dtype, seed)
+        forms = [encode_form(x) for x in (a4, b4)]
+        check(forms == [16, 16], f"4h {tag}: kernel 4 takes the {forms}-byte forms, not 16")
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -767,7 +820,8 @@ def half_path_phase(plan, seed: int) -> dict:
         _, rel_s = rel_err(Ys.float(), exp.float())
         same = same_bits(Y, Ys)
         print(f"4h {tag} worker stage (K={K}, {tuple(a4.shape)} blocks, "
-              f"{copy_width(a4, b4)}-byte copies): fused {(t1 - t0) * 1e3:.2f} ms wall, "
+              f"{copy_width(a4, b4)}-byte copies, kernel 4 in its {forms[0]}-byte form): "
+              f"fused {(t1 - t0) * 1e3:.2f} ms wall, "
               f"staged {(t2 - t1) * 1e3:.2f} ms wall; Y {tuple(Y.shape)} {Y.dtype}, finite "
               f"{finite}; rel err against the plain version: fused {rel_f:.3e}, staged "
               f"{rel_s:.3e} (bound {HALF_TOL}); fused and staged bit-identical {same}; "
@@ -819,7 +873,20 @@ def half_times_phase(plan, seed: int, smi: str) -> dict:
         enc = dict(ms=time_ms(lambda: ops.encode(ca, a4), 20),
                    plain_ms=time_ms(lambda: ref.encode_ref(ca, stack), 20),
                    library_ms=time_ms(lambda: torch.matmul(ca, stack), 20))
-        enc |= bound(2 * K * P * E, 2 * (P * E + K * E + K * P))
+        enc_bytes = 2 * (P * E + K * E + K * P)
+        enc |= bound(2 * K * P * E, enc_bytes)
+        # a yardstick, not used by the port: one device-to-device copy that
+        # moves as many bytes (half read, half written)
+        src = torch.empty(enc_bytes // 2, dtype=torch.uint8, device="cuda")
+        dst = torch.empty_like(src)
+        copy_ms = time_ms(lambda: dst.copy_(src), 20)
+        del src, dst
+        print(f"encode_{tag} ({encode_form(a4)}-byte form): {enc_bytes:.4g} B in "
+              f"{enc['ms']:.4f} ms = {enc_bytes / enc['ms'] / 1e6:.1f} GB/s, "
+              f"{enc['bound_ms'] / enc['ms']:.1%} of its {enc['bound_ms']:.4f} ms bound at "
+              f"{PEAK_HBM / 1e9:.0f} GB/s; a torch copy of as many bytes {copy_ms:.4f} ms = "
+              f"{enc_bytes / copy_ms / 1e6:.1f} GB/s (the practical ceiling measured here); "
+              f"on {smi}")
         del stack
         at, bt = ops.encode(ca, a4), ops.encode(cb, b4)
         a1, b1 = at[0], bt[0]

@@ -13,6 +13,10 @@ contiguous (K, rows, cols) coded stack.  The blocks may be the strided views
 and the row stride, so nothing is copied into a (P, E) stack first.  bf16
 and f16 are summed in FP32 and written in the coefficient dtype, rounded to
 nearest even, as the reference's ``out_shape`` is the coefficient dtype.
+Where the layout allows (:func:`coded_fused.encode_width`), bf16 and f16
+take the 16-byte form: a persistent grid of 16-byte loads and streaming
+stores, each element's sum the FP32 chain of kernel 1's encode, so the
+staged product equals the fused one bit for bit; else one element a thread.
 
 :func:`encode_ref` (from ``ref``) is the plain version; the wrapper
 ``ops.encode`` runs it for CPU tensors and launches the kernel for CUDA
@@ -31,6 +35,7 @@ from repro_torch.kernels.coded_fused import (
     _block_offsets,
     _unit_column_stride,
     _unsupported,
+    encode_width,
 )
 from repro_torch.kernels.ref import encode_ref
 
@@ -46,7 +51,7 @@ _SYMBOLS = {torch.float64: "repro_encode_f64", torch.float32: "repro_encode_f32"
 
 def _function(dtype: torch.dtype):
     fn = getattr(_build.load("coded_encode"), _SYMBOLS[dtype])
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _L, _L, _L, _P]
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _L, _L, _L, _I, _P]
     fn.restype = _I
     return fn
 
@@ -91,10 +96,11 @@ def encode_cuda(coeff: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     c = coeff.contiguous()
     x = _unit_column_stride(blocks)
     offsets, row_stride = _block_offsets(x)
+    width = encode_width(x.element_size(), cols, (x.data_ptr(), offsets, row_stride))
     stream = torch.cuda.current_stream(coeff.device).cuda_stream
     err = _function(dtype)(c.data_ptr(), x.data_ptr(), out.data_ptr(),
                            ctypes.addressof(offsets), K, P, rows, cols,
-                           row_stride, stream)
+                           row_stride, width, stream)
     if err != 0:
         raise RuntimeError(f"encode kernel launch failed: cudaError {err}")
     return out

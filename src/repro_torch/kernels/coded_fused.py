@@ -41,8 +41,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import fused_worker_ref
 
-__all__ = ["fused_worker_cuda", "fused_worker_ref", "copy_bytes", "tma_layout",
-           "TmaLayout", "MAX_BLOCKS", "DTYPES"]
+__all__ = ["fused_worker_cuda", "fused_worker_ref", "copy_bytes", "encode_width",
+           "tma_layout", "TmaLayout", "MAX_BLOCKS", "DTYPES"]
 
 MAX_BLOCKS = 64  # kMaxBlocks in csrc/coded_fused.cu
 TMA_MAX_RANK = 5  # the Tensor Memory Accelerator's largest tensor rank
@@ -110,6 +110,18 @@ def copy_bytes(itemsize: int, *operands) -> int:
                 (o * itemsize) % 16 for o in offsets):
             return itemsize
     return 16
+
+
+def encode_width(itemsize: int, cols: int, *operands) -> int:
+    """The form of the encode kernel (``csrc/coded_encode.cu``): 16 (16-byte
+    loads and stores of 8 elements) for 2-byte elements where ``cols`` is a
+    multiple of 8, so that every row of the contiguous (K, rows, cols)
+    output starts on 16 bytes, and :func:`copy_bytes` gives 16 for the
+    operands; else ``itemsize``, the one-element form (always for float64
+    and float32)."""
+    if itemsize != 2 or cols % (16 // itemsize):
+        return itemsize
+    return copy_bytes(itemsize, *operands)
 
 
 class TmaLayout(NamedTuple):

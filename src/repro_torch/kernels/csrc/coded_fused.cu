@@ -318,27 +318,14 @@ struct Plan {
   static_assert(kVecsPerThread >= 1, "every consumer thread encodes");
 };
 
-// A 32-bit word of two 16-bit elements, widened to FP32 (exactly).  bf16
-// is the top half of an FP32: one byte permute and one mask, both on the
-// integer pipe, which leaves the FMA pipes to the encode's sums.
-__device__ __forceinline__ void widen_pair(uint32_t word, float& lo, float& hi,
-                                           __nv_bfloat16) {
-  lo = __uint_as_float(__byte_perm(word, 0u, 0x1044));  // word << 16
-  hi = __uint_as_float(word & 0xffff0000u);
-}
-__device__ __forceinline__ void widen_pair(uint32_t word, float& lo, float& hi, __half) {
-  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&word));
-  lo = f.x;
-  hi = f.y;
-}
-
 // The two workers' coded tiles (+)= sum_{j < kN} c[w][j] * raw[j] at this
 // consumer thread's 16-byte vector `at` of a tile, from the vector's kN raw
 // values x, read once for both workers.  FP32 sums in registers within a
 // group of raw blocks; `first` starts them from zero, `last` rounds them
 // once to T into the coded tiles (two elements a conversion, each to
 // nearest even), and between groups (the grouped plan) they wait in
-// `partial` ([worker][vector][2] float4).
+// `partial` ([worker][vector][2] float4).  The arithmetic is accum.cuh's
+// encode chain, which kernel 4's 16-byte form runs too.
 template <typename T, bool kGrouped, int kN>
 __device__ __forceinline__ void encode_pair(unsigned char* __restrict__ coded0,
                                             unsigned char* __restrict__ coded1,
@@ -347,54 +334,36 @@ __device__ __forceinline__ void encode_pair(unsigned char* __restrict__ coded0,
                                             const float (&c0)[kGroup],
                                             const float (&c1)[kGroup], bool first,
                                             bool last, int at) {
-  float s0[8];
-  float s1[8];
+  float s[2][8];  // the two workers' sums
   if (!kGrouped || first) {
 #pragma unroll
-    for (int l = 0; l < 8; ++l) s0[l] = s1[l] = 0.0f;
+    for (int l = 0; l < 8; ++l) s[0][l] = s[1][l] = 0.0f;
   } else {
     const float4* p0 = partial + 2 * at;
     const float4* p1 = partial + 2 * (vecs + at);
     const float4 lo0 = p0[0], hi0 = p0[1], lo1 = p1[0], hi1 = p1[1];
-    s0[0] = lo0.x; s0[1] = lo0.y; s0[2] = lo0.z; s0[3] = lo0.w;
-    s0[4] = hi0.x; s0[5] = hi0.y; s0[6] = hi0.z; s0[7] = hi0.w;
-    s1[0] = lo1.x; s1[1] = lo1.y; s1[2] = lo1.z; s1[3] = lo1.w;
-    s1[4] = hi1.x; s1[5] = hi1.y; s1[6] = hi1.z; s1[7] = hi1.w;
+    s[0][0] = lo0.x; s[0][1] = lo0.y; s[0][2] = lo0.z; s[0][3] = lo0.w;
+    s[0][4] = hi0.x; s[0][5] = hi0.y; s[0][6] = hi0.z; s[0][7] = hi0.w;
+    s[1][0] = lo1.x; s[1][1] = lo1.y; s[1][2] = lo1.z; s[1][3] = lo1.w;
+    s[1][4] = hi1.x; s[1][5] = hi1.y; s[1][6] = hi1.z; s[1][7] = hi1.w;
   }
 #pragma unroll
   for (int j = 0; j < kN; ++j) {
-    const uint32_t words[4] = {x[j].x, x[j].y, x[j].z, x[j].w};
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      float e[2];
-      widen_pair(words[u], e[0], e[1], T());
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        s0[2 * u + h] += c0[j] * e[h];
-        s1[2 * u + h] += c1[j] * e[h];
-      }
-    }
+    const float c[2] = {c0[j], c1[j]};
+    accum::fma8<T, 2>(s, c, x[j]);
   }
   if (!kGrouped || last) {
-    using Pair = typename wgmma_gemm::Pair<T>::type;
-    union Packed {
-      uint4 v;
-      Pair e[4];
-    } y0, y1;
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      y0.e[l] = wgmma_gemm::Pair<T>::of(s0[2 * l], s0[2 * l + 1]);
-      y1.e[l] = wgmma_gemm::Pair<T>::of(s1[2 * l], s1[2 * l + 1]);
-    }
-    reinterpret_cast<uint4*>(coded0)[at] = y0.v;
-    reinterpret_cast<uint4*>(coded1)[at] = y1.v;
+    uint4 y[2];
+    accum::round8<T, 2>(s, y);
+    reinterpret_cast<uint4*>(coded0)[at] = y[0];
+    reinterpret_cast<uint4*>(coded1)[at] = y[1];
   } else {
     float4* p0 = partial + 2 * at;
     float4* p1 = partial + 2 * (vecs + at);
-    p0[0] = make_float4(s0[0], s0[1], s0[2], s0[3]);
-    p0[1] = make_float4(s0[4], s0[5], s0[6], s0[7]);
-    p1[0] = make_float4(s1[0], s1[1], s1[2], s1[3]);
-    p1[1] = make_float4(s1[4], s1[5], s1[6], s1[7]);
+    p0[0] = make_float4(s[0][0], s[0][1], s[0][2], s[0][3]);
+    p0[1] = make_float4(s[0][4], s[0][5], s[0][6], s[0][7]);
+    p1[0] = make_float4(s[1][0], s[1][1], s[1][2], s[1][3]);
+    p1[1] = make_float4(s[1][4], s[1][5], s[1][6], s[1][7]);
   }
 }
 

@@ -211,26 +211,6 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
 
 // ---- the epilogue ------------------------------------------------------------
 
-// Two FP32 values as a pair of Out, each rounded to nearest even: one
-// conversion instruction for bf16 and f16.
-template <typename Out>
-struct Pair;
-template <>
-struct Pair<float> {
-  using type = float2;
-  __device__ static type of(float x, float y) { return make_float2(x, y); }
-};
-template <>
-struct Pair<__nv_bfloat16> {
-  using type = __nv_bfloat162;
-  __device__ static type of(float x, float y) { return __floats2bfloat162_rn(x, y); }
-};
-template <>
-struct Pair<__half> {
-  using type = __half2;
-  __device__ static type of(float x, float y) { return __floats2half2_rn(x, y); }
-};
-
 // Write the 64 x 128 accumulator tile d (warpgroup thread `wtid`) at (r0,
 // t0) of the (r, t) output with row stride t, rounded to Out, masking the
 // edge.  `pairs`: t is even and out two-element aligned, so neighbouring
@@ -253,7 +233,8 @@ __device__ __forceinline__ void store(Out* __restrict__ out, const float (&d)[64
       const float y = d[4 * j + 2 * h + 1];
       if (pairs) {
         if (tt < t) {
-          *reinterpret_cast<typename Pair<Out>::type*>(p + tt) = Pair<Out>::of(x, y);
+          using Pair = accum::Pair<Out>;
+          *reinterpret_cast<typename Pair::type*>(p + tt) = Pair::of(x, y);
         }
       } else {
         if (tt < t) p[tt] = accum::Cast<Out>::from(x);

@@ -19,7 +19,7 @@ from repro_torch import obs
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import make_plan
 from repro_torch.core.partition import block_decompose
-from repro_torch.kernels import coded_decode, coded_fused, ops, ref, wkv_scan
+from repro_torch.kernels import coded_decode, coded_encode, coded_fused, ops, ref, wkv_scan
 from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.runtime import CodedMatmul
 
@@ -79,6 +79,16 @@ def _check(out, exp, data):
         assert float((out.float() - exp.float()).abs().max()) / scale < TOL[out.dtype]
 
 
+def _encode_form(blocks):
+    """The form ops.encode launches kernel 4 in for ``blocks`` (*grid, rows,
+    cols), or (P, E), which it passes as (P, 1, E): 16 (16-byte loads and
+    stores) or the element size (one element a thread)."""
+    x = blocks.unsqueeze(1) if blocks.ndim == 2 else blocks
+    offsets, row_stride = coded_fused._block_offsets(x)
+    return coded_fused.encode_width(x.element_size(), x.shape[-1],
+                                    (x.data_ptr(), offsets, row_stride))
+
+
 @pytest.mark.parametrize("K,P,Q,v,r,t", [
     (4, 4, 4, 256, 128, 128),
     (6, 8, 2, 300, 200, 150),
@@ -110,26 +120,30 @@ def test_fused_kernel_matches_plain(cuda, K, P, Q, v, r, t, stride, data, dtype)
     assert ops.launch_counts()["fused_worker"] == 1
 
 
+@pytest.mark.parametrize("m", [2, 3])
 @pytest.mark.parametrize("stride", ["aligned", "odd"])
 @pytest.mark.parametrize("dtype", HALF)
-def test_half_fused_equals_staged_bit_for_bit(cuda, dtype, stride):
+def test_half_fused_equals_staged_bit_for_bit(cuda, dtype, stride, m):
     """The 16-bit fused Y is the staged one (kernel 4, then kernel 5 per
     worker) bit for bit, at a shape of several tiles: coded tiles rounded
     once from the same FP32 sums, products on the same instruction in the
     same contraction order.  In the TMA form (block views of 16-byte aligned
-    matrices) and in the one-element form (odd row strides and odd widths,
-    so that the staged product's coded operands take it too)."""
+    matrices; kernel 4's 16-byte form) and in the one-element form (odd row
+    strides and odd widths, so that the staged product's coded operands take
+    it too).  m = 3 gives A P = 6 raw blocks: kernel 1's grouped plan, whose
+    FP32 partial sums wait in shared memory between groups of 4 blocks."""
     gen = torch.Generator().manual_seed(11)
     K, v = 5, 300
     r, t = (256, 384) if stride == "aligned" else (257, 129)
-    A = _with_row_stride(_rand(gen, (2 * v, 2 * r), dtype), stride)
-    B = _with_row_stride(_rand(gen, (2 * v, t), dtype), stride)
-    a4, b4 = block_decompose(A, 2, 2), block_decompose(B, 2, 1)
-    ca, cb = _rand(gen, (K, 4), dtype), _rand(gen, (K, 2), dtype)
+    A = _with_row_stride(_rand(gen, (m * v, 2 * r), dtype), stride)
+    B = _with_row_stride(_rand(gen, (m * v, t), dtype), stride)
+    a4, b4 = block_decompose(A, m, 2), block_decompose(B, m, 1)
+    ca, cb = _rand(gen, (K, 2 * m), dtype), _rand(gen, (K, m), dtype)
     wide = 16 if stride == "aligned" else 2
     width = coded_fused.copy_bytes(2, *(
         (x.data_ptr(), coded_fused._block_offsets(x)[0], x.stride(-2)) for x in (a4, b4)))
     assert width == wide
+    assert [_encode_form(x) for x in (a4, b4)] == [wide, wide]
     Y = ops.fused_worker(ca, cb, a4, b4)
     at, bt = ops.encode(ca, a4), ops.encode(cb, b4)
     assert coded_fused.copy_bytes(2, (at.data_ptr(), (0,), at.stride(1)),
@@ -257,22 +271,47 @@ _NONE = {name: 0 for name in ("fused_worker", "decode", "decode_partial",
     (3, (3,), 37, 129, 5),        # ragged, off the 256-wide thread block
     (1, (1,), 1, 1, 1),
     (20, (4, 5), 9, 33, 17),      # K past the 16 register rows, P past 8 loads
+    # the 16-byte form's edges (bf16/f16): cols % 8 == 0 with ragged rows
+    (4, (2, 2), 37, 264, 10),
+    # the flat form with E % 8 == 0, E off a block's span (2048 elements)
+    (4, (4,), 1, 8 * 2053, 10),
+    # P past one group of 8 loads, K past groups of 4 workers
+    (20, (4, 5), 9, 40, 17),
+    (4, (4,), 16, 64, 17),
+    # P = 64 with the panel at its 48 KB limit (K = 384 in bf16/f16)
+    (64, (8, 8), 3, 24, "limit"),
 ])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, *HALF])
 def test_encode_kernel_matches_plain(cuda, P, grid, rows, cols, K, dtype):
+    """Each shape in the form its layout picks (asserted): bf16/f16 with
+    cols % 8 == 0 in the 16-byte form, all else one element a thread.  The
+    (P, E) form of the same blocks gives the same bits; bf16/f16 also with
+    integer inputs, exactly."""
+    if K == "limit":
+        K = coded_encode.MAX_PANEL_BYTES // (P * (torch.finfo(dtype).bits // 8))
     gen = torch.Generator().manual_seed(5)
-    coeff = _rand(gen, (K, P), dtype)
-    blocks = _rand(gen, (*grid, rows, cols), dtype)
-    out = ops.encode(coeff, blocks)
-    exp = ref.encode_ref(coeff, blocks.reshape(P, -1)).reshape(K, rows, cols)
-    torch.cuda.synchronize()
-    assert out.shape == (K, rows, cols) and out.dtype == dtype
-    scale = float(exp.abs().max()) + 1e-9
-    assert float((out - exp).abs().max()) / scale < TOL[dtype]
-    flat = ops.encode(coeff, blocks.reshape(P, -1))        # the (P, E) form
-    assert flat.shape == (K, rows * cols)
-    torch.testing.assert_close(flat, out.reshape(K, -1), rtol=0, atol=0)
-    assert ops.launch_counts() == dict(_NONE, encode=2)
+    half = dtype in HALF
+    for data in ("random", "integer") if half else ("random",):
+        coeff = _data(gen, (K, P), dtype, data)
+        blocks = _data(gen, (*grid, rows, cols), dtype, data)
+        form = 16 if half and cols % 8 == 0 else blocks.element_size()
+        assert _encode_form(blocks) == form
+        assert _encode_form(blocks.reshape(P, -1)) == (16 if half and rows * cols % 8 == 0
+                                                       else blocks.element_size())
+        ops.reset_launch_counts()
+        out = ops.encode(coeff, blocks)
+        exp = ref.encode_ref(coeff, blocks.reshape(P, -1)).reshape(K, rows, cols)
+        torch.cuda.synchronize()
+        assert out.shape == (K, rows, cols) and out.dtype == dtype
+        if half:
+            _check(out, exp, data)
+        else:
+            scale = float(exp.abs().max()) + 1e-9
+            assert float((out - exp).abs().max()) / scale < TOL[dtype]
+        flat = ops.encode(coeff, blocks.reshape(P, -1))        # the (P, E) form
+        assert flat.shape == (K, rows * cols)
+        torch.testing.assert_close(flat, out.reshape(K, -1), rtol=0, atol=0)
+        assert ops.launch_counts() == dict(_NONE, encode=2)
 
 
 def test_encode_kernel_on_strided_block_views_is_exact(cuda):

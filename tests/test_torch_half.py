@@ -23,6 +23,7 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.core.partition import block_decompose  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 TOL = 2e-2
@@ -67,6 +68,42 @@ def test_encode_matches_jax(rng, K, P, E, name):
     exp = jops.encode(jc, jx)
     assert got.dtype == DTYPES[name][0] and exp.dtype == DTYPES[name][1]
     _close_to_max(got, exp)
+
+
+@pytest.mark.parametrize("K,P,E", [
+    (10, 4, 4096),    # the flat form, E % 8 == 0 (the kernel's 16-byte form)
+    (10, 4, 4100),    # E % 8 != 0 (the one-element form)
+    (6, 20, 1024),    # P = 20: past one group of 8 raw loads
+    (4, 20, 1001),
+    (17, 4, 512),     # K = 17
+    (17, 9, 520),
+])
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_encode_forms_match_jax(rng, K, P, E, name):
+    """The shapes on either side of the encode kernel's form and group
+    edges, through the plain version here."""
+    c, jc = _pair(rng, (K, P), name)
+    x, jx = _pair(rng, (P, E), name)
+    got = ops.encode(c, x)
+    assert got.dtype == DTYPES[name][0] and got.shape == (K, E)
+    _close_to_max(got, jops.encode(jc, jx))
+
+
+@pytest.mark.parametrize("grid,v,r", [((2, 2), 64, 96), ((2, 1), 40, 24),
+                                      ((4, 5), 36, 45)])
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_encode_of_strided_block_views_matches_jax(rng, grid, v, r, name):
+    """ops.encode reads block_decompose's strided views in place; the JAX
+    ops.encode gets the same blocks stacked as (P, E)."""
+    P = grid[0] * grid[1]
+    c, jc = _pair(rng, (5, P), name)
+    A, _ = _pair(rng, (grid[0] * v, grid[1] * r), name)
+    view = block_decompose(A, *grid)
+    got = ops.encode(c, view)
+    assert got.shape == (5, v, r)
+    stack = view.reshape(P, v * r).float().numpy()
+    exp = jops.encode(jc, jnp.asarray(stack).astype(DTYPES[name][1]))
+    _close_to_max(got.reshape(5, -1), exp)
 
 
 @pytest.mark.parametrize("v,r,t", [(128, 128, 128), (512, 256, 384),

@@ -278,7 +278,7 @@ import chip_smoke
 import benchmarks.torch_obs_util, benchmarks.torch_table1_error
 import benchmarks.torch_fig1_latency, benchmarks.torch_tradeoff_sweep
 import benchmarks.torch_control_bench, benchmarks.torch_serve_bench
-import benchmarks.torch_fused_breakdown
+import benchmarks.torch_fused_breakdown, benchmarks.torch_encode_breakdown
 sys.path.insert(0, {examples!r})
 import torch_serve_lm, torch_straggler_sim
 bad = sorted(m for m in sys.modules
