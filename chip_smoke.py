@@ -159,6 +159,21 @@ before phase 6d runs ``examples/torch_serve_lm.py`` on the card: the smoke
 Qwen3 served, then its coded lm_head on a (2, 4) mesh of eight ranks
 sharing the card (100% argmax agreement, zero drift, every rank launching
 kernels 1 and 2 twice; the ranks' launches join the ``kernels`` line).
+Phases 6e-6h run after 6d and launch no kernel (no Pallas kernel lies on
+their path in the reference either).  6e serves ``gemma3_12b`` whole (40
+sliding-window layers of window 1024 with ring caches, 8 global) on 4
+prompts of 2048 tokens, gated as 6c: prefill(2048) + a decode step at
+position 2048, through the rings, against prefill(2049).  6f serves
+``qwen2_moe_a2_7b`` whole and 6g ``qwen3_moe_235b_a22b`` at full width cut
+to 8 layers, on the dense MoE path; their bf16 decode-vs-prefill(1025)
+distance is printed with the last token's routing flips between the two
+paths (each must lie at a near-tie), and the gate runs in float32 within
+1e-3 (Qwen3 on its first 4 layers).  6h runs Jamba-1.5-Large's expert
+layer alone at full width (``apply_moe``, 16 experts top-2 of d_ff 24576)
+on the 4 x 1024 prefill's tokens and on a 4-token batch, held on 64
+tokens from the seed against each token's own top-2 experts summed in
+float32 (5e-2).  Each prints its parameters, bytes, times, tokens/s and
+peak memory beside the card's name and power limit.
 
 Phases 7-11 run after phase 5b and before the LM phases.  Phase 3b holds
 the WKV and selective-scan kernels against their plain versions at the LM
@@ -218,7 +233,9 @@ from repro_torch.kernels import _build, coded_decode, coded_fused, ops, ref  # n
 from repro_torch.launch import coded_serve  # noqa: E402
 from repro_torch.launch.mesh import spawn_mesh  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
-from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
+from repro_torch.models import cache_shapes, decode_step, init_params, prefill  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.moe import apply_moe, init_moe  # noqa: E402
 from repro_torch.obs import export, report  # noqa: E402
 from repro_torch.runtime import CodedMatmul, PartialPattern, chunk_bounds  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
@@ -318,6 +335,33 @@ LM_TOL = 5e-2       # the reference's decode-vs-full-forward bound (bf16)
 # measured in the same run (plain bf16 vs plain float32).
 LM_F32_TOL = 1e-3
 SCAN_TOL = 1e-4     # max |kernel - plain| / max |plain|, float32
+# Phase 6e: Gemma-3-12B's prompts.  At 1024 tokens its band (window 1024)
+# would mask nothing in the prefill; at 2048 the later q chunks' key range
+# starts past key 0 and the ring caches are primed with more tokens than
+# slots, so prefill(2048) + decode against prefill(2049) holds the ring.
+GEMMA_PROMPT = 2048
+# Phase 6g: Qwen3-MoE-235B-A22B at full width, cut in depth to fit the card
+# (8 x 2.49 B parameters + 1.24 B of embedding and head, 42 GB in bf16).
+QWEN3_MOE_LAYERS = 8
+# Phases 6f-6g: the MoE configs' decode-vs-prefill gate.  In bf16 the two
+# paths' router inputs differ by bf16 rounding, which moves router logits by
+# more than some tokens' top-k gap (60-128 experts from random routers), so
+# the last token can take another expert in one path and the logits then
+# move by more than LM_TOL: each such flip must lie within twice the two
+# paths' router-logit difference for that token (only a near-tie can flip),
+# and the bf16 logits are held to LM_TOL only when nothing flipped.  The
+# gate proper runs again in float32 (the weights upcast exactly), held to
+# LM_F32_TOL: Qwen1.5-MoE whole (61 GB), Qwen3-MoE on its first 4 layers
+# (its 8 hold 85 GB in float32, more than the card).
+QWEN3_MOE_F32_LAYERS = 4
+# Phase 6h: Jamba's expert layer alone, against each token's own top-k
+# experts summed in float32, one expert at a time, on tokens drawn from the
+# seed.  The layer rounds to bf16 four times on the way (up, gate, the
+# SwiGLU product, each expert's output) and once more at the combine, with
+# the gates themselves rounded to bf16 (as the reference rounds them):
+# the bf16 bound of the LM checks.
+MOE_CHECK_TOKENS = 64
+MOE_TOL = 5e-2
 
 
 def phase(name: str) -> None:
@@ -1035,12 +1079,114 @@ def lm_rel(out: torch.Tensor, exp: torch.Tensor) -> float:
     return float((out - exp).abs().max()) / (float(exp.abs().max()) + 1e-30)
 
 
-def lm_phase(label: str, cfg, kernel, n_scan: int, seed: int, smi: str) -> dict:
+def counted(fn):
+    """fn's result and the kernel launches it made (ended by a synchronize)."""
+    before = ops.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@contextlib.contextmanager
+def routing_log(calls: list):
+    """Record each MoE routing of the block: (expert ids, router logits)."""
+    route = moe_mod._route
+
+    def logged(router_w, x_flat, mcfg):
+        out = route(router_w, x_flat, mcfg)
+        calls.append((out[1], x_flat.float() @ router_w))
+        return out
+
+    moe_mod._route = logged
+    try:
+        yield calls
+    finally:
+        moe_mod._route = route
+
+
+def routing_flips(dec_calls, full_calls, S_full: int, n_experts: int) -> list:
+    """The last tokens that took other experts in the decode step than in
+    prefill(S_full), per MoE layer: (layer, batch row, the prefill's top-k
+    gap in router logits, twice the two paths' largest router-logit
+    difference for that token: a flip needs the gap below it)."""
+    out = []
+    for layer, ((e_d, l_d), (e_f, l_f)) in enumerate(zip(dec_calls, full_calls)):
+        last = torch.arange(e_d.shape[0], device=e_d.device) * S_full + S_full - 1
+        e_f, l_f = e_f[last], l_f[last, :n_experts]
+        k = e_d.shape[1]
+        same = (e_d.sort(-1).values == e_f.sort(-1).values).all(-1)
+        top = l_f.sort(-1, descending=True).values
+        gap = top[:, k - 1] - top[:, k]
+        bound = 2 * (l_d[:, :n_experts] - l_f).abs().amax(-1)
+        out += [(layer, b, float(gap[b]), float(bound[b]))
+                for b in torch.nonzero(~same).flatten().tolist()]
+    return out
+
+
+def decode_vs_prefill(params, cfg, toks, S: int, label: str, scan: dict) -> tuple:
+    """prefill(S) + one decode step, and prefill(S + 1): (prefill logits,
+    decode logits, prefill(S + 1) logits, the flips of the last token's
+    routing between the two paths)."""
+    (logits, cache), steps = counted(
+        lambda: prefill(params, cfg, {"tokens": toks[:, :S]}, S_max=S + 1))
+    check(steps == scan, f"{label} prefill launched {steps}")
+    with routing_log([]) as dec_calls:
+        (dec, _), steps = counted(lambda: decode_step(params, cfg, cache,
+                                                      {"tokens": toks[:, S:]}, S))
+    check(not steps, f"{label} decode step launched {steps}")
+    del cache
+    with routing_log([]) as full_calls:
+        (full, _), steps = counted(lambda: prefill(params, cfg, {"tokens": toks}))
+    check(steps == scan, f"{label} prefill({S + 1}) launched {steps}")
+    flips = (routing_flips(dec_calls, full_calls, S + 1, cfg.moe.n_experts)
+             if cfg.moe is not None else [])
+    return logits, dec, full, flips
+
+
+def moe_gates(label: str, cfg, params, toks, S: int, rel_df: float, flips: list,
+              f32_layers=None) -> None:
+    """6f-6g: the bf16 decode-vs-prefill result with its routing flips, then
+    the gate in float32 (see QWEN3_MOE_F32_LAYERS)."""
+    shown = [f"layer {lay} row {b}: gap {g:.3e} <= {bd:.3e}" for lay, b, g, bd in flips]
+    print(f"{label} bf16 routing: {len(flips)} last-token expert flips between decode and "
+          f"prefill({S + 1}) {shown}; decode vs prefill({S + 1}) rel {rel_df:.3e} (bound "
+          f"{LM_TOL}, held only without flips)")
+    check(all(g <= bd for _, _, g, bd in flips),
+          f"{label}: a routing flip beyond the two paths' router-logit difference {flips}")
+    if not flips:
+        check(rel_df <= LM_TOL, f"{label}: decode vs prefill({S + 1}) rel {rel_df}")
+    n32 = f32_layers or cfg.n_layers
+    if n32 < cfg.n_layers:
+        del params.blocks[n32:]
+        print(f"cut: the float32 gate keeps the first {n32} of the {cfg.n_layers} layers "
+              f"(float32 weights of {cfg.n_layers} layers exceed the card)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params.float()      # every bf16 value is exact in float32
+    cfg32 = dataclasses.replace(cfg, n_layers=n32, dtype="float32")
+    n32_params = sum(p.numel() for p in params.parameters())
+    _, dec, full, flips32 = decode_vs_prefill(params, cfg32, toks, S, label, {})
+    rel32 = lm_rel(dec, full)
+    finite = bool(torch.isfinite(dec).all()) and bool(torch.isfinite(full).all())
+    print(f"{label} float32 gate ({n32} layers, {n32_params / 1e9:.3f} B parameters, "
+          f"{n32_params * 4 / 1e9:.1f} GB): prefill({S}) + decode vs prefill({S + 1}) rel "
+          f"{rel32:.3e} (bound {LM_F32_TOL}); routing flips {len(flips32)}; logits finite "
+          f"{finite}")
+    check(finite, f"{label}: float32 logits not finite")
+    check(rel32 <= LM_F32_TOL, f"{label}: float32 decode vs prefill({S + 1}) rel {rel32}")
+
+
+def lm_phase(label: str, cfg, kernel, n_scan: int, seed: int, smi: str,
+             prompt: int = LM_PROMPT, f32_layers=None) -> dict:
     """Serve ``cfg`` on the card: random weights from the seed, 4 prompts of
-    1024 tokens, 16 greedy tokens; then the decode-vs-prefill and
+    ``prompt`` tokens, 16 greedy tokens; then the decode-vs-prefill and
     kernel-vs-plain checks.  ``kernel`` names the scan wrapper the prefill
     must launch ``n_scan`` times; with ``kernel=None`` (attention-only
-    models) nothing may launch and there is no kernel to hold."""
+    models) nothing may launch and there is no kernel to hold.  An MoE
+    config's gate runs as ``moe_gates`` says (``f32_layers``: the depth of
+    its float32 gate)."""
+    S = prompt
     plain_cfg = dataclasses.replace(cfg, rwkv_kernel=False, mamba_kernel=False)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1054,16 +1200,8 @@ def lm_phase(label: str, cfg, kernel, n_scan: int, seed: int, smi: str) -> dict:
           f"parameters ({n_bytes / 1e9:.2f} GB), random from seed {seed} in "
           f"{time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT + 1), generator=gen,
-                         device="cuda")
-    prompts = toks[:, :LM_PROMPT]
-
-    def counted(fn):
-        before = ops.launch_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        after = ops.launch_counts()
-        return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, S + 1), generator=gen, device="cuda")
+    prompts = toks[:, :S]
 
     # the serving run: prefill, then 15 decode steps; counts 0 just before
     ops.reset_launch_counts()
@@ -1080,34 +1218,32 @@ def lm_phase(label: str, cfg, kernel, n_scan: int, seed: int, smi: str) -> dict:
     tok_s = LM_BATCH * stats["decode_steps"] / stats["decode_s"]
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{label} serve: prefill {stats['prefill_s'] * 1e3:.2f} ms "
-          f"({LM_BATCH}x{LM_PROMPT} tokens), decode {dec_ms:.2f} ms per step "
+          f"({LM_BATCH}x{S} tokens), decode {dec_ms:.2f} ms per step "
           f"({tok_s:.1f} tokens/s at batch {LM_BATCH}); {n_params / 1e9:.3f} B parameters; "
           f"peak device memory {peak:.2f} GiB; launches {counts}; "
           f"first tokens {tokens[0, :8].tolist()}; on {smi}")
 
-    # prefill(1024) + one decode step against prefill(1025), in bf16
+    # prefill(S) + one decode step against prefill(S + 1), in bf16
     scan = {kernel: n_scan} if kernel else {}
-    (logits_k, cache_k), steps = counted(
-        lambda: prefill(params, cfg, {"tokens": prompts}, S_max=LM_PROMPT + 1))
-    check(steps == scan, f"{label} prefill launched {steps}")
-    (dec, _), steps = counted(lambda: decode_step(params, cfg, cache_k,
-                                                  {"tokens": toks[:, LM_PROMPT:]}, LM_PROMPT))
-    check(not steps, f"{label} decode step launched {steps}")
-    (full, _), steps = counted(lambda: prefill(params, cfg, {"tokens": toks}))
-    check(steps == scan, f"{label} prefill({LM_PROMPT + 1}) launched {steps}")
+    logits_k, dec, full, flips = decode_vs_prefill(params, cfg, toks, S, label, scan)
     rel_df = lm_rel(dec, full)
-    del cache_k
     if kernel is None:
         finite = all(bool(torch.isfinite(x).all()) for x in (logits_k, dec, full))
-        print(f"{label} checks: prefill({LM_PROMPT}) + decode vs prefill({LM_PROMPT + 1}) "
-              f"rel {rel_df:.3e} (bound {LM_TOL}); logits finite {finite}")
+        bound = "see the routing line" if cfg.moe is not None else LM_TOL
+        print(f"{label} checks: prefill({S}) + decode vs prefill({S + 1}) "
+              f"rel {rel_df:.3e} (bound {bound}); logits finite {finite}")
         check(finite, f"{label}: logits not finite")
-        check(rel_df <= LM_TOL, f"{label}: decode vs prefill({LM_PROMPT + 1}) rel {rel_df}")
-        del params, logits_k, dec, full
+        del logits_k, dec, full
+        if cfg.moe is not None:
+            moe_gates(label, cfg, params, toks, S, rel_df, flips, f32_layers)
+        else:
+            check(rel_df <= LM_TOL, f"{label}: decode vs prefill({S + 1}) rel {rel_df}")
+        del params
         gc.collect()
         torch.cuda.empty_cache()
         return {"counts": counts, "prefill_ms": stats["prefill_s"] * 1e3,
-                "decode_ms": dec_ms, "tok_s": tok_s, "params": n_params, "peak_gib": peak}
+                "decode_ms": dec_ms, "tok_s": tok_s, "params": n_params, "peak_gib": peak,
+                "prompt": S}
     del full
     # the kernel against the plain chunked path on the same weights: in bf16,
     # and in float32 with the weights upcast in place (exactly)
@@ -1125,13 +1261,13 @@ def lm_phase(label: str, cfg, kernel, n_scan: int, seed: int, smi: str) -> dict:
     finite = all(bool(torch.isfinite(t).all())
                  for t in (logits_k, logits_p, dec, logits32_k, logits32_p))
     agree = float((logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean())
-    print(f"{label} checks: prefill({LM_PROMPT}) + decode vs prefill({LM_PROMPT + 1}) rel "
+    print(f"{label} checks: prefill({S}) + decode vs prefill({S + 1}) rel "
           f"{rel_df:.3e} (bound {LM_TOL}); prefill logits kernel vs plain: float32 rel "
           f"{rel32_kp:.3e} (bound {LM_F32_TOL}), bf16 rel {rel_kp:.3e} (bound: the bf16 "
           f"rounding scale, plain bf16 vs plain float32 rel {bf16_scale:.3e}); argmax "
           f"agreement kernel vs plain (bf16) {agree:.2f}; logits finite {finite}")
     check(finite, f"{label}: logits not finite")
-    check(rel_df <= LM_TOL, f"{label}: decode vs prefill({LM_PROMPT + 1}) rel {rel_df}")
+    check(rel_df <= LM_TOL, f"{label}: decode vs prefill({S + 1}) rel {rel_df}")
     check(rel32_kp <= LM_F32_TOL, f"{label}: float32 kernel vs plain logits rel {rel32_kp}")
     check(rel_kp <= bf16_scale, f"{label}: bf16 kernel vs plain logits rel {rel_kp} "
           f"exceeds the bf16 rounding scale {bf16_scale}")
@@ -1139,7 +1275,8 @@ def lm_phase(label: str, cfg, kernel, n_scan: int, seed: int, smi: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"counts": counts, "prefill_ms": stats["prefill_s"] * 1e3,
-            "decode_ms": dec_ms, "tok_s": tok_s, "params": n_params, "peak_gib": peak}
+            "decode_ms": dec_ms, "tok_s": tok_s, "params": n_params, "peak_gib": peak,
+            "prompt": S}
 
 
 def rwkv_phase(seed: int, smi: str) -> dict:
@@ -1168,6 +1305,11 @@ def jamba_phase(seed: int, smi: str) -> dict:
     moe_pos = [i for i, (_, f) in enumerate(full.pattern) if f == "moe"]
     print(f"cut: FFN 'moe' at pattern positions {moe_pos} -> the dense 'mlp' "
           f"(swiglu, d_ff {cfg.d_ff}); moe {full.moe} -> None")
+    e_bytes = 3 * full.moe.n_experts * full.d_model * full.moe.d_expert_ff * 2
+    print(f"why the stand-in stays: each of the group's {len(moe_pos)} expert layers holds "
+          f"{e_bytes / 1e9:.1f} GB in bf16, {len(moe_pos) * e_bytes / 1e9:.1f} GB beside the "
+          f"rest of the group, above the card's 80 GB; phase 6h serves one expert layer "
+          f"alone, and the group with experts across ranks waits for ROADMAP.md item 8.6")
     n_mamba = sum(m == "mamba" for m, _ in cfg.pattern) * cfg.n_groups
     return lm_phase("jamba group", cfg, "mamba_scan", n_mamba, seed, smi)
 
@@ -1186,6 +1328,141 @@ def dense_phase(seed: int, smi: str) -> dict:
               f"nothing cut")
         out[arch] = lm_phase(arch, cfg, None, 0, seed, smi)
     return out
+
+
+def gemma_phase(seed: int, smi: str) -> dict:
+    """6e: Gemma-3-12B whole: 40 sliding-window layers with ring caches and 8
+    global ones, prompts of 2048 tokens."""
+    phase("6e Gemma-3-12B served whole (sliding-window attention)")
+    start = time.perf_counter()
+    cfg = get_config("gemma3_12b")
+    n_local = sum(m == "attn_local" for m, _ in cfg.pattern) * cfg.n_groups
+    S_max = GEMMA_PROMPT + LM_GEN
+    shapes = cache_shapes(cfg, LM_BATCH, S_max)
+    kinds = [m for _ in range(cfg.n_groups) for m, _ in cfg.pattern]
+    cache_gb = {kind: sum(np.prod(shape) * 2 for one, m in zip(shapes, kinds) if m == kind
+                          for shape, _ in one.values()) / 1e9
+                for kind in ("attn", "attn_local")}
+    print(f"config gemma3_12b: {cfg.n_layers} layers ({n_local} sliding-window of "
+          f"{cfg.window} tokens, {cfg.n_layers - n_local} global), d_model {cfg.d_model}, "
+          f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads of {cfg.d_head}, qk_norm "
+          f"{cfg.qk_norm}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied head "
+          f"{cfg.tie_embeddings}; nothing cut; {LM_BATCH} prompts of {GEMMA_PROMPT} tokens: "
+          f"the band starts past key 0 and the rings are primed past their {cfg.window} "
+          f"slots; caches at S_max {S_max}: global {cache_gb['attn']:.2f} GB, rings "
+          f"{cache_gb['attn_local']:.2f} GB")
+    out = lm_phase("gemma3_12b", cfg, None, 0, seed, smi, prompt=GEMMA_PROMPT)
+    print(f"phase 6e: {time.perf_counter() - start:.1f} s")
+    return out
+
+
+def moe_lm_phase(seed: int, smi: str) -> dict:
+    """6f, 6g: the MoE configs on the dense single-device path: Qwen1.5-MoE
+    whole, Qwen3-MoE-235B at full width cut in depth."""
+    out = {}
+    for tag, arch, n_layers, f32_layers in (
+            ("6f", "qwen2_moe_a2_7b", None, None),
+            ("6g", "qwen3_moe_235b_a22b", QWEN3_MOE_LAYERS, QWEN3_MOE_F32_LAYERS)):
+        full = get_config(arch)
+        cfg = full if n_layers is None else dataclasses.replace(full, n_layers=n_layers)
+        mc = cfg.moe
+        E = moe_mod._e_padded(mc, cfg.tp_pad)
+        phase(f"{tag} {arch} served {'whole' if n_layers is None else 'cut in depth'} "
+              f"(MoE FFN, dense path)")
+        start = time.perf_counter()
+        print(f"config {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+              f"query / {cfg.n_kv_heads} kv heads of {cfg.d_head}, qk_norm {cfg.qk_norm}, "
+              f"qkv_bias {cfg.qkv_bias}, vocab {cfg.vocab}, tied head {cfg.tie_embeddings}; "
+              f"{mc.n_experts} experts top-{mc.top_k} of d_ff {mc.d_expert_ff} padded to {E} "
+              f"(tp_pad {cfg.tp_pad}; the padding is never routed), shared expert "
+              f"{mc.n_shared * mc.d_expert_ff or 'none'}; every expert computed for every "
+              f"token (the reference's single-device path)")
+        if n_layers is not None:
+            experts = 3 * E * cfg.d_model * mc.d_expert_ff * 2 * full.n_layers
+            print(f"cut: n_layers {full.n_layers} -> {cfg.n_layers} (full width; the "
+                  f"experts of {full.n_layers} layers alone hold {experts / 1e9:.0f} GB in bf16)")
+        out[arch] = lm_phase(arch, cfg, None, 0, seed, smi, f32_layers=f32_layers)
+        print(f"phase {tag}: {time.perf_counter() - start:.1f} s")
+    return out
+
+
+def jamba_moe_phase(seed: int, smi: str) -> dict:
+    """6h: Jamba-1.5-Large's expert layer alone at full width (d 8192, 16
+    experts top-2 of d_ff 24576): ``apply_moe`` on the 4 x 1024 prefill's
+    tokens and a 4-token decode batch, held against each token's own top-k
+    experts summed in float32."""
+    phase("6h Jamba-1.5-Large expert layer at full width")
+    start = time.perf_counter()
+    full = get_config("jamba_1_5_large_398b")
+    mc, d = full.moe, full.d_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_moe(gen, d, mc, ep_size=full.tp_pad, dtype=full.param_dtype)
+    n_params = sum(p.numel() for p in params.values())
+    n_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    E = params["w_gate"].shape[0]
+    print(f"jamba expert layer: d_model {d}, {mc.n_experts} experts top-{mc.top_k} of d_ff "
+          f"{mc.d_expert_ff} (E = {E}), {n_params / 1e9:.3f} B parameters ({n_bytes / 1e9:.2f} "
+          f"GB), random from seed {seed}; cut: the rest of the model (one MoE layer alone)")
+    xgen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    x = torch.randn((LM_BATCH, LM_PROMPT, d), generator=xgen, device="cuda",
+                    dtype=full.param_dtype)
+    x_dec = torch.randn((LM_BATCH, 1, d), generator=xgen, device="cuda",
+                        dtype=full.param_dtype)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        y, aux = apply_moe(params, x, mc)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check(not any(counts.values()), f"6h apply_moe launched {counts}")
+        pre_ms = time_ms(lambda: apply_moe(params, x, mc), 3)
+        dec_ms = time_ms(lambda: apply_moe(params, x_dec, mc), 10)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flops = 3 * 2 * E * LM_BATCH * LM_PROMPT * d * mc.d_expert_ff
+    # the check: each drawn token's own top-k experts, one expert at a time,
+    # in float32, with routing from float64 logits
+    T = LM_BATCH * LM_PROMPT
+    idx = torch.randperm(T, generator=xgen, device="cuda")[:MOE_CHECK_TOKENS]
+    xs = x.reshape(T, d)[idx].float()
+    logits = xs.double() @ params["router"].double()
+    logits[:, mc.n_experts:] = -torch.inf           # the padding experts, if any
+    top = torch.softmax(logits, dim=-1).topk(mc.top_k + 1, dim=-1)
+    gap = float((top.values[:, mc.top_k - 1] - top.values[:, mc.top_k]).min())
+    gates = (top.values[:, :mc.top_k] / top.values[:, :mc.top_k].sum(-1, keepdim=True)).float()
+    eids = top.indices[:, :mc.top_k]
+    exp = torch.zeros_like(xs)
+    for e in range(E):
+        rows, slot = torch.nonzero(eids == e, as_tuple=True)
+        if rows.numel() == 0:
+            continue
+        xe = xs[rows]
+        h = torch.nn.functional.silu(xe @ params["w_gate"][e].float()) * (
+            xe @ params["w_up"][e].float())
+        exp.index_add_(0, rows, gates[rows, slot, None] * (h @ params["w_down"][e].float()))
+    got = y.reshape(T, d)[idx].float()
+    rel = lm_rel(got, exp)
+    finite = bool(torch.isfinite(y).all()) and bool(torch.isfinite(aux))
+    print(f"6h apply_moe: prefill-sized call ({LM_BATCH}x{LM_PROMPT} tokens) {pre_ms:.2f} ms "
+          f"({flops / (pre_ms * 1e-3) / 1e12:.1f} TFLOP/s of {flops:.3e} FLOP, every expert "
+          f"on every token; {T / (pre_ms * 1e-3):.0f} tokens/s), decode batch ({LM_BATCH} "
+          f"tokens) {dec_ms:.2f} ms ({LM_BATCH / (dec_ms * 1e-3):.1f} tokens/s; "
+          f"{n_bytes / (dec_ms * 1e-3) / 1e12:.2f} TB/s of weights); peak device memory "
+          f"{peak:.2f} GiB; aux loss {float(aux):.4f}; on {smi}")
+    print(f"6h check: {MOE_CHECK_TOKENS} tokens from seed {seed + 1}, bf16 apply_moe against "
+          f"the float32 sum of each token's own top-{mc.top_k} experts: max rel "
+          f"{rel:.3e} (bound {MOE_TOL}); smallest top-{mc.top_k} probability gap {gap:.3e}; "
+          f"output finite {finite}")
+    check(finite, "6h apply_moe output not finite")
+    check(rel <= MOE_TOL, f"6h apply_moe against the per-token expert sum: rel {rel}")
+    del params, x, y, xs, exp
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 6h: {time.perf_counter() - start:.1f} s")
+    return {"counts": counts, "prefill_ms": pre_ms, "decode_ms": dec_ms,
+            "tok_s": LM_BATCH / (dec_ms * 1e-3), "params": n_params, "peak_gib": peak,
+            "prompt": LM_PROMPT}
 
 
 def serve_lm_twin_phase() -> dict:
@@ -2269,12 +2546,15 @@ def main() -> None:
     lms = {"rwkv6_3b": rwkv_phase(args.seed, dev["smi"]),
            "jamba group": jamba_phase(args.seed, dev["smi"])}
     lms |= dense_phase(args.seed, dev["smi"])
+    paths["serve_lm twin"] = serve_lm_twin_phase()
+    lms["gemma3_12b"] = gemma_phase(args.seed, dev["smi"])
+    lms |= moe_lm_phase(args.seed, dev["smi"])
+    paths["jamba expert layer"] = jamba_moe_phase(args.seed, dev["smi"])
     for name, lm in lms.items():
-        print(f"LM serving ({name}, {LM_BATCH}x{LM_PROMPT} prompt, {LM_GEN} tokens, bf16): "
+        print(f"LM serving ({name}, {LM_BATCH}x{lm['prompt']} prompt, {LM_GEN} tokens, bf16): "
               f"prefill {lm['prefill_ms']:.2f} ms, decode {lm['decode_ms']:.2f} ms per step, "
               f"{lm['tok_s']:.1f} tokens/s, {lm['params'] / 1e9:.3f} B parameters, peak "
               f"{lm['peak_gib']:.2f} GiB on {dev['smi']}")
-    paths["serve_lm twin"] = serve_lm_twin_phase()
 
     csrc = "src/repro_torch/kernels/csrc"
     source = {"fused_worker": (f"{csrc}/coded_fused.cu", "src/repro/kernels/coded_fused.py:105"),

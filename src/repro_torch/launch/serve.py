@@ -7,9 +7,11 @@ step).  Runs on the CUDA card unless ``--device cpu`` is given:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b --smoke \\
       --batch 4 --prompt-len 32 --gen 16 --device cpu
 
-The port serves ``rwkv6_3b``, ``jamba_1_5_large_398b``, ``qwen3_0_6b``,
-``qwen2_0_5b`` and ``granite_3_8b`` (``--smoke`` for the reduced configs).  Weights are random, from a ``torch.Generator`` seeded
-with ``--seed`` on the device.
+The port serves the architectures of ``configs.list_archs()``: ``rwkv6_3b``,
+``jamba_1_5_large_398b``, ``qwen3_moe_235b_a22b``, ``qwen2_moe_a2_7b``,
+``qwen3_0_6b``, ``qwen2_0_5b``, ``gemma3_12b`` and ``granite_3_8b``
+(``--smoke`` for the reduced configs).  Weights are random, from a
+``torch.Generator`` seeded with ``--seed`` on the device.
 """
 from __future__ import annotations
 

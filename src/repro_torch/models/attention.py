@@ -8,10 +8,13 @@ plain PyTorch ops (attention is not a Pallas kernel in the reference
 package either); ``scaled_dot_product_attention`` would compute another
 schedule, so it is not used.
 
-Decode attends one token to the whole ``S_max`` cache in float32, masked by
-position.  Rotary positions (``cos_sin``) rotate q and k after the qk-norm,
-so the cache holds rotated keys.  Sliding-window layers (``attn_local``)
-wait for their slice (ROADMAP.md queue 1, item 8.2).
+Decode attends one token to its cache in float32, masked by position.
+Rotary positions (``cos_sin``) rotate q and k after the qk-norm, so the
+cache holds rotated keys.  Sliding-window layers (``attn_local``) pass
+``window``: prefill then attends each q chunk to the static band
+``[q_end - window - q_chunk, q_end)`` under the mask ``qpos - kpos <
+window``, and decode reads a ring of ``window`` slots (slot ``pos % window``
+holds the newest token) or a full cache masked to the window.
 """
 from __future__ import annotations
 
@@ -95,10 +98,12 @@ def _attend_tile(q, k, v, mask):
 
 
 def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                causal: bool = True, q_chunk: int = 512,
-                kv_chunk: int = 1024) -> torch.Tensor:
+                causal: bool = True, window: Optional[int] = None,
+                q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
     """q (B,S,H,hd), k/v (B,S,KH,hd) -> (B,S,H,hd): exact-FLOPs chunked
-    causal attention, kv heads repeated to H."""
+    causal attention, kv heads repeated to H; ``window`` adds the
+    sliding-window band (each q chunk reads only the keys its band can
+    reach, tiled from ``kv_start`` as the reference tiles them)."""
     B, S, H, hd = q.shape
     G = H // k.shape[2]
     in_dtype = q.dtype
@@ -113,18 +118,21 @@ def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     outs = []
     for i in range(S // q_chunk):
         q_start, q_end = i * q_chunk, (i + 1) * q_chunk
-        kv_len = q_end if causal else S
+        kv_start = 0 if window is None else max(0, q_end - window - q_chunk)
+        kv_len = (q_end if causal else S) - kv_start
         qi = q[:, :, q_start:q_end]
         m = torch.full((B, H, q_chunk), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros((B, H, q_chunk), dtype=torch.float32, device=q.device)
         acc = torch.zeros((B, H, q_chunk, hd), dtype=torch.float32, device=q.device)
         qpos = q_start + torch.arange(q_chunk, device=q.device)
         for j in range(max(1, math.ceil(kv_len / kv_chunk))):
-            ks_, ke_ = j * kv_chunk, min((j + 1) * kv_chunk, kv_len)
+            ks_, ke_ = kv_start + j * kv_chunk, kv_start + min((j + 1) * kv_chunk, kv_len)
             kpos = ks_ + torch.arange(ke_ - ks_, device=q.device)
             mask = torch.ones((q_chunk, ke_ - ks_), dtype=torch.bool, device=q.device)
             if causal:
                 mask &= qpos[:, None] >= kpos[None, :]
+            if window is not None:
+                mask &= (qpos[:, None] - kpos[None, :]) < window
             mt, lt, ot = _attend_tile(qi, kT[:, :, ks_:ke_], vT[:, :, ks_:ke_], mask)
             m_new = torch.maximum(m, mt)
             c_old = torch.exp(m - m_new)
@@ -152,15 +160,12 @@ def attn_forward(params, x: torch.Tensor, cos_sin=None, *,
     """Full-sequence attention (prefill): x (B, S, d) -> (B, S, d), and with
     ``return_kv`` also the (k, v) the cache keeps, (B, S, KH, hd) each, the
     keys rotated.  ``cos_sin``: (cos, sin) of the positions, (S, hd/2) or
-    (B, S, hd/2), or None."""
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window attention (attn_local) is not ported yet "
-            "(ROADMAP.md queue 1, item 8.2)")
+    (B, S, hd/2), or None.  ``window``: the sliding-window band of an
+    ``attn_local`` layer, or None."""
     q, k, v = _project_qkv(params, x)
     q, k = _rotate(q, k, cos_sin)
-    o = mha_chunked(q.to(x.dtype), k.to(x.dtype), v, q_chunk=q_chunk,
-                    kv_chunk=kv_chunk)
+    o = mha_chunked(q.to(x.dtype), k.to(x.dtype), v, window=window,
+                    q_chunk=q_chunk, kv_chunk=kv_chunk)
     y = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), params["wo"])
     if return_kv:
         return y, (k.to(x.dtype), v)
@@ -170,34 +175,45 @@ def attn_forward(params, x: torch.Tensor, cos_sin=None, *,
 def attn_decode_step(params, x: torch.Tensor, cos_sin, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: int, *,
                      window: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
-    """One-token decode on the full cache: x (B, 1, d); cache_k/v (B, S_max,
-    KH, hd); ``pos`` the token's absolute position; ``cos_sin`` the
-    rotation at ``pos``, (1, hd/2) or (B, 1, hd/2), or None.
+    """One-token decode: x (B, 1, d); cache_k/v (B, S_c, KH, hd); ``pos``
+    the token's absolute position; ``cos_sin`` the rotation at ``pos``,
+    (1, hd/2) or (B, 1, hd/2), or None.
+
+    Two cache layouts, as in the reference:
+    * full (S_c = S_max > pos): the token goes to slot ``pos``; with a
+      ``window`` the keys further back than the window are masked;
+    * ring (``window`` given and S_c == window, an ``attn_local`` layer):
+      the token goes to slot ``pos % S_c``, and slot i holds the token at
+      ``pos - ((pos - i) mod S_c)``, valid when that is >= 0.
 
     The new key and value are written into ``cache_k`` / ``cache_v`` IN
-    PLACE at ``pos`` (the reference returns updated copies; writing in place
-    saves copying the whole cache every token) and the same tensors are
+    PLACE (the reference returns updated copies; writing in place saves
+    copying the whole cache every token) and the same tensors are
     returned.  Returns (y (B, 1, d), cache_k, cache_v).
     """
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window attention (attn_local) is not ported yet "
-            "(ROADMAP.md queue 1, item 8.2)")
     B = x.shape[0]
     q, k_new, v_new = _project_qkv(params, x)
     q, k_new = _rotate(q, k_new, cos_sin)
     S_c = cache_k.shape[1]
-    if not 0 <= pos < S_c:
+    ring = window is not None and S_c == window
+    if not ring and not 0 <= pos < S_c:
         raise ValueError(f"position {pos} is outside the cache of {S_c}")
-    cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
+    slot = pos % S_c if ring else pos
+    cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
 
     KH = cache_k.shape[2]
     H, hd = q.shape[2], q.shape[3]
     G = H // KH
     qh = (q * (1.0 / math.sqrt(hd))).reshape(B, KH, G, hd)
     s = torch.einsum("bhgd,bshd->bhgs", qh.float(), cache_k.float())
-    valid = torch.arange(S_c, device=x.device) <= pos
+    idx = torch.arange(S_c, device=x.device)
+    if ring:
+        valid = pos - torch.remainder(pos - idx, S_c) >= 0
+    else:
+        valid = idx <= pos
+        if window is not None:
+            valid &= (pos - idx) < window
     s = torch.where(valid[None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgs,bshd->bhgd", p, cache_v.float())

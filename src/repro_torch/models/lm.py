@@ -12,11 +12,12 @@ Two execution paths share the parameters:
                  serve cache (one dict of tensors per layer)
   decode_step  - one token, consumes and updates the cache
 
-Ported so far: mixers ``attn`` (rotary positions or none), ``mamba`` and
-``rwkv``; FFNs ``mlp`` and ``rwkv_cmix``; token input.  ``moe``,
-``attn_local``, multimodal and sinusoidal positions, the ``embeds`` input
-mode and ``train_loss`` raise ``NotImplementedError`` until their slices
-land (ROADMAP.md queue 1, item 8).
+Ported so far: mixers ``attn`` (rotary positions or none), ``attn_local``
+(sliding window, with a ring cache of ``window`` slots), ``mamba`` and
+``rwkv``; FFNs ``mlp``, ``moe`` (the dense single-device path) and
+``rwkv_cmix``; token input.  Multimodal and sinusoidal positions, the
+``embeds`` input mode and ``train_loss`` raise ``NotImplementedError``
+until their slices land (ROADMAP.md queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import rwkv6 as rwkv_mod
-from repro_torch.models.moe import MoEConfig
+from repro_torch.models.moe import MoEConfig, apply_moe, init_moe
 
 __all__ = ["ModelConfig", "Block", "LM", "init_params", "params_from_jax",
            "cache_shapes", "init_cache", "cache_from_jax", "cache_to_numpy",
@@ -100,10 +101,10 @@ class ModelConfig:
 
 def _check_supported(cfg: ModelConfig) -> None:
     for mixer, ffn in cfg.pattern:
-        if mixer not in ("attn", "mamba", "rwkv"):
+        if mixer not in ("attn", "attn_local", "mamba", "rwkv"):
             raise NotImplementedError(
                 f"{cfg.name}: the {mixer!r} mixer is not ported yet ({_ROADMAP})")
-        if ffn not in ("mlp", "rwkv_cmix"):
+        if ffn not in ("mlp", "moe", "rwkv_cmix"):
             raise NotImplementedError(
                 f"{cfg.name}: the {ffn!r} FFN is not ported yet ({_ROADMAP})")
     if cfg.input_mode != "tokens":
@@ -154,7 +155,7 @@ class LM(nn.Module):
 
 def _init_mixer(cfg: ModelConfig, mixer: str, gen: torch.Generator):
     dt = cfg.param_dtype
-    if mixer == "attn":
+    if mixer in ("attn", "attn_local"):
         return attn_mod.init_attn(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                   cfg.d_head, cfg.qk_norm, cfg.qkv_bias, dt)
     if mixer == "mamba":
@@ -168,6 +169,9 @@ def _init_mixer(cfg: ModelConfig, mixer: str, gen: torch.Generator):
 def _init_ffn(cfg: ModelConfig, ffn: str, gen: torch.Generator):
     if ffn == "mlp":
         return L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.param_dtype)
+    if ffn == "moe":
+        return init_moe(gen, cfg.d_model, cfg.moe, ep_size=cfg.tp_pad,
+                        dtype=cfg.param_dtype)
     return rwkv_mod.init_rwkv_cmix(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype)
 
 
@@ -238,8 +242,10 @@ def params_from_jax(cfg: ModelConfig, tree, *, device=None) -> LM:
 
 
 def _layer_cache_shapes(cfg: ModelConfig, mixer: str, B: int, S_max: int) -> dict:
-    if mixer == "attn":
-        kv = ((B, S_max, cfg.n_kv_heads, cfg.d_head), cfg.param_dtype)
+    if mixer in ("attn", "attn_local"):
+        # a local layer keeps a ring of the last ``window`` tokens
+        S_c = min(cfg.window, S_max) if mixer == "attn_local" else S_max
+        kv = ((B, S_c, cfg.n_kv_heads, cfg.d_head), cfg.param_dtype)
         return {"k": kv, "v": kv}
     if mixer == "mamba":
         return mamba_mod.mamba_state_shapes(B, cfg.d_model, expand=cfg.mamba_expand,
@@ -309,10 +315,31 @@ def _tokens(batch) -> torch.Tensor:
 
 
 def _ffn(cfg: ModelConfig, block: Block, h: torch.Tensor, state=None):
-    """Returns (y, new ffn state or {})."""
+    """Returns (y, new ffn state or {}, the MoE aux loss or 0.0).  Serving
+    drops the aux loss, as the reference does; training adds it to the
+    loss."""
     if block.ffn_kind == "mlp":
-        return L.apply_mlp(block.ffn, h, cfg.act), {}
-    return rwkv_mod.rwkv_cmix_forward(block.ffn, h, state=state, return_state=True)
+        return L.apply_mlp(block.ffn, h, cfg.act), {}, 0.0
+    if block.ffn_kind == "moe":
+        y, aux = apply_moe(block.ffn, h, cfg.moe)
+        return y, {}, aux
+    y, state = rwkv_mod.rwkv_cmix_forward(block.ffn, h, state=state, return_state=True)
+    return y, state, 0.0
+
+
+def _window(cfg: ModelConfig, mixer: str) -> Optional[int]:
+    return cfg.window if mixer == "attn_local" else None
+
+
+def _prime_ring(k_full: torch.Tensor, W: int) -> torch.Tensor:
+    """(B, S, KH, hd) full keys -> (B, W, KH, hd) ring holding the last W
+    tokens at slots (t mod W); slots no token reached stay zero."""
+    B, S, KH, hd = k_full.shape
+    take = min(W, S)
+    slots = torch.arange(S - take, S, device=k_full.device) % W
+    ring = k_full.new_zeros((B, W, KH, hd))
+    ring[:, slots] = k_full[:, S - take:]
+    return ring
 
 
 def _logits(params: LM, x: torch.Tensor) -> torch.Tensor:
@@ -327,10 +354,12 @@ def prefill(params: LM, cfg: ModelConfig, batch, S_max: Optional[int] = None):
     """Full-sequence forward that also builds the serve cache.
 
     batch: {"tokens": (B, S) int}.  Returns (last logits (B, vocab) f32,
-    cache); ``S_max`` sizes the attention cache (defaults to the prompt
-    length).  With ``cfg.rwkv_kernel`` / ``cfg.mamba_kernel`` the scans run
-    through the CUDA kernels (one launch per rwkv / mamba layer when the
-    tensors lie on the card).
+    cache); ``S_max`` sizes the global attention cache (defaults to the
+    prompt length), and a sliding-window layer's ring holds ``min(window,
+    S_max)`` slots, primed with the prompt's last tokens.  With
+    ``cfg.rwkv_kernel`` / ``cfg.mamba_kernel`` the scans run through the
+    CUDA kernels (one launch per rwkv / mamba layer when the tensors lie on
+    the card).
     """
     _check_supported(cfg)
     tokens = _tokens(batch)
@@ -341,14 +370,20 @@ def prefill(params: LM, cfg: ModelConfig, batch, S_max: Optional[int] = None):
     caches = []
     for block in params.blocks:
         h = L.rmsnorm(block.norm1, x, cfg.eps)
-        if block.mixer_kind == "attn":
-            y, (k, v) = attn_mod.attn_forward(block.mixer, h, cos_sin, q_chunk=cfg.q_chunk,
-                                              kv_chunk=cfg.kv_chunk, return_kv=True)
-            cache = {}
-            for name, t in (("k", k), ("v", v)):
-                full = t.new_zeros((t.shape[0], S_max) + t.shape[2:])
-                full[:, :S] = t
-                cache[name] = full
+        if block.mixer_kind in ("attn", "attn_local"):
+            window = _window(cfg, block.mixer_kind)
+            y, (k, v) = attn_mod.attn_forward(block.mixer, h, cos_sin, window=window,
+                                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                                              return_kv=True)
+            if window is not None:
+                W = min(window, S_max)
+                cache = {"k": _prime_ring(k, W), "v": _prime_ring(v, W)}
+            else:
+                cache = {}
+                for name, t in (("k", k), ("v", v)):
+                    full = t.new_zeros((t.shape[0], S_max) + t.shape[2:])
+                    full[:, :S] = t
+                    cache[name] = full
         elif block.mixer_kind == "mamba":
             y, cache = mamba_mod.mamba_forward(block.mixer, h, return_state=True,
                                                use_kernel=cfg.mamba_kernel)
@@ -359,7 +394,7 @@ def prefill(params: LM, cfg: ModelConfig, batch, S_max: Optional[int] = None):
                                                   use_kernel=cfg.rwkv_kernel)
         x = x + y
         h = L.rmsnorm(block.norm2, x, cfg.eps)
-        y, fstate = _ffn(cfg, block, h)
+        y, fstate, _ = _ffn(cfg, block, h)
         cache.update(fstate)
         x = x + y
         caches.append(cache)
@@ -382,8 +417,9 @@ def decode_step(params: LM, cfg: ModelConfig, cache: List[dict], batch, pos: int
     new_cache = []
     for block, c in zip(params.blocks, cache):
         h = L.rmsnorm(block.norm1, x, cfg.eps)
-        if block.mixer_kind == "attn":
-            y, ck, cv = attn_mod.attn_decode_step(block.mixer, h, cos_sin, c["k"], c["v"], pos)
+        if block.mixer_kind in ("attn", "attn_local"):
+            y, ck, cv = attn_mod.attn_decode_step(block.mixer, h, cos_sin, c["k"], c["v"],
+                                                  pos, window=_window(cfg, block.mixer_kind))
             nc = {"k": ck, "v": cv}
         elif block.mixer_kind == "mamba":
             y, nc = mamba_mod.mamba_decode_step(block.mixer, h, c)
@@ -392,7 +428,7 @@ def decode_step(params: LM, cfg: ModelConfig, cache: List[dict], batch, pos: int
                                                state=c, return_state=True)
         x = x + y
         h = L.rmsnorm(block.norm2, x, cfg.eps)
-        y, fstate = _ffn(cfg, block, h, state=c)
+        y, fstate, _ = _ffn(cfg, block, h, state=c)
         nc.update(fstate)
         x = x + y
         new_cache.append(nc)

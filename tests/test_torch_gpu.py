@@ -11,7 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+import ast
+import copy
 import dataclasses
+import os
+import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -21,6 +26,7 @@ from repro_torch.core import make_plan
 from repro_torch.core.partition import block_decompose
 from repro_torch.kernels import coded_decode, coded_encode, coded_fused, ops, ref, wkv_scan
 from repro_torch.models import decode_step, init_params, prefill
+from repro_torch.models.moe import MoEConfig, _route, apply_moe, init_moe
 from repro_torch.runtime import CodedMatmul
 
 pytestmark = pytest.mark.gpu
@@ -648,6 +654,92 @@ def test_smoke_model_with_kernels_matches_without(cuda, arch, dtype, tol):
     dec_off, _ = decode_step(params, cfg, off_cache, {"tokens": toks[:, 96:]}, 96)
     _close(dec_on, dec_off, tol)
     assert ops.launch_counts() == counts          # decode launches no kernel
+
+
+@pytest.mark.parametrize("arch", ["gemma3_12b", "qwen2_moe_a2_7b", "qwen3_moe_235b_a22b",
+                                  "jamba_1_5_large_398b"])
+def test_smoke_model_on_the_card_matches_the_cpu(cuda, arch):
+    """Sliding-window attention (gemma3: window 16, a 40-token prompt, the
+    band past key 0 and the ring primed past its slots, then 20 decode
+    steps around the ring) and the dense MoE FFN (the qwen MoEs, Jamba with
+    its experts), float32: the same weights and tokens on the card and on
+    the CPU, prefill and every decode step within 1e-4.  Each card step
+    starts from the CPU's cache; Jamba's conv state is stored in bf16
+    whatever the config's dtype, so it is held to one bf16 step of its
+    largest value."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", q_chunk=8)
+    on_cpu = init_params(cfg, seed=3, device="cpu")
+    on_card = copy.deepcopy(on_cpu).to(cuda)
+    gen = torch.Generator().manual_seed(15)
+    S, n_dec = 40, 20
+    toks = torch.randint(0, cfg.vocab, (2, S + n_dec), generator=gen)
+
+    def close_caches(card, cpu):
+        for a, b in zip(card, cpu):
+            for name in b:
+                tol = 2.0 ** -7 if b[name].dtype == torch.bfloat16 else 1e-4
+                _close(a[name].float().cpu(), b[name].float(), tol)
+
+    lc, cc = prefill(on_cpu, cfg, {"tokens": toks[:, :S]}, S_max=S + n_dec)
+    lg, cg = prefill(on_card, cfg, {"tokens": toks[:, :S].to(cuda)}, S_max=S + n_dec)
+    _close(lg.cpu(), lc)
+    close_caches(cg, cc)
+    for i in range(n_dec):
+        step = toks[:, S + i:S + i + 1]
+        cg = [{k: v.to(cuda) for k, v in c.items()} for c in cc]
+        lg, cg = decode_step(on_card, cfg, cg, {"tokens": step.to(cuda)}, S + i)
+        lc, cc = decode_step(on_cpu, cfg, cc, {"tokens": step}, S + i)
+        _close(lg.cpu(), lc)
+        close_caches(cg, cc)
+    if cfg.window is not None:
+        assert cc[0]["k"].shape[1] == cfg.window      # a ring, wrapped
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("n_experts,top_k,n_shared,ep_size", [
+    (4, 2, 0, 1), (6, 2, 2, 4), (60, 4, 4, 16)])
+def test_apply_moe_on_the_card_matches_the_cpu(cuda, n_experts, top_k, n_shared, ep_size,
+                                               dtype, tol):
+    """apply_moe at SMOKE width (d 64, d_ff 96): the card against the CPU
+    on the same parameters and tokens.  Expert ids and outputs are held on
+    every token whose top-k probability gap exceeds 1e-5 (two float32
+    router products may swap a nearly tied pair); the others are counted."""
+    cfg = MoEConfig(n_experts=n_experts, top_k=top_k, d_expert_ff=96, n_shared=n_shared)
+    params = init_moe(torch.Generator().manual_seed(4), 64, cfg, ep_size=ep_size, dtype=dtype)
+    x = torch.randn((2, 48, 64), generator=torch.Generator().manual_seed(5)).to(dtype)
+    y, aux = apply_moe(params, x, cfg)
+    yg, auxg = apply_moe({k: v.to(cuda) for k, v in params.items()}, x.to(cuda), cfg)
+    assert yg.dtype == dtype and yg.shape == y.shape
+    assert abs(float(auxg) - float(aux)) <= 1e-5 * abs(float(aux))
+    xf = x.reshape(-1, 64)
+    probs = torch.softmax(xf.double() @ params["router"].double(), -1)
+    top = probs[:, :n_experts].topk(top_k + 1).values
+    far = (top[:, top_k - 1] - top[:, top_k]) > 1e-5
+    print(f"{int((~far).sum())} of {len(far)} tokens within 1e-5 of a top-k tie")
+    e_cpu = _route(params["router"], xf, cfg)[1].sort(-1).values
+    e_card = _route(params["router"].to(cuda), xf.to(cuda), cfg)[1].sort(-1).values.cpu()
+    assert torch.equal(e_card[far], e_cpu[far])
+    _close(yg.reshape(-1, 64)[far.to(cuda)].float().cpu(), y.reshape(-1, 64)[far].float(), tol)
+
+
+def test_serve_cli_on_the_card_serves_gemma3():
+    """``python -m repro_torch.launch.serve --arch gemma3_12b --smoke`` on the
+    card (its default device): a 32-token prompt against a window of 16,
+    16 greedy tokens through the rings."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the serve CLI defaults to the card)")
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                           "gemma3_12b", "--smoke"], env=env, cwd=str(root),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0] == (f"arch=gemma3-smoke batch=4 prompt=32 gen=16 "
+                        f"device={torch.cuda.get_device_name(0)}")
+    sample = ast.literal_eval(lines[-1].removeprefix("sample: "))
+    assert len(sample) == 12 and all(0 <= t < 512 for t in sample)
 
 
 # -- observability on the card -------------------------------------------------
