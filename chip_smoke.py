@@ -175,6 +175,28 @@ tokens from the seed against each token's own top-2 experts summed in
 float32 (5e-2).  Each prints its parameters, bytes, times, tokens/s and
 peak memory beside the card's name and power limit.
 
+Phases 6i-6j and 12a-12d run last.  6i serves ``musicgen_medium`` whole
+and 6j ``qwen2_vl_72b`` at full width cut to 32 of 80 layers (embedding
+input through the serve CLI's stub frontend, sinusoidal and multimodal
+positions, no kernel on their path), on the traffic of phase 6; gates: the
+position table on the card against the CPU's, prefill(960) + 64 decode
+steps on the known inputs against prefill(1024) (multimodal position ids
+arange on the three axes) within 5e-2 in bf16 and 1e-3 in float32 (6j on
+its first 4 layers), finite logits.  12a holds ``WkvFused`` (kernel 7
+forward) at RWKV6-3B's shapes and ``MambaScanFused`` (kernel 6 forward) at
+a Jamba mamba layer's against autograd through the plain scans, every
+input's gradient within 1e-3, and times the forward kernel and the
+backward apart.  12b trains ``rwkv6_3b`` whole through ``make_train_step``
+(4 steps of 4 x 1024 tokens from ``make_pipeline``; per step ms, tokens/s
+and the share of the bf16 peak that ``model_flops`` makes; peak memory;
+kernel 7 twice a layer a step, remat recomputing the forward), after its
+kernel path is held against the plain one in float32 on 4 layers (loss
+1e-4, every gradient leaf 1e-3).  12c trains ``qwen3_0_6b`` whole the same
+way, and Jamba's SMOKE config through kernel 6 against its plain path.
+12d runs the trainer CLI (6 steps checkpointing every 3; resumed from step
+3, its losses equal) and ``examples/torch_train_lm.py --quick`` on the
+card.  Their launches join the ``kernels`` line.
+
 Phases 7-11 run after phase 5b and before the LM phases.  Phase 3b holds
 the WKV and selective-scan kernels against their plain versions at the LM
 prefill's shapes, at ragged shapes and (the selective
@@ -191,6 +213,7 @@ import argparse
 import contextlib
 import io
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -224,18 +247,28 @@ from repro_torch.chaos.golden import (  # noqa: E402
     golden_names,
     replay_golden,
 )
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.configs.paper_matmul import CONFIG as PAPER  # noqa: E402
 from repro_torch.control import AdaptiveServer, ExpectedLatencyPolicy, PlanLadder  # noqa: E402
 from repro_torch.core import bounds, make_plan  # noqa: E402
 from repro_torch.core.partition import block_decompose  # noqa: E402
 from repro_torch.kernels import _build, coded_decode, coded_fused, ops, ref  # noqa: E402
+from repro_torch.data import make_pipeline  # noqa: E402
 from repro_torch.launch import coded_serve  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import spawn_mesh  # noqa: E402
-from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.launch.serve import _make_batch, generate  # noqa: E402
+from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.launch.train import to_batch  # noqa: E402
 from repro_torch.models import cache_shapes, decode_step, init_params, prefill  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import train_loss  # noqa: E402
+from repro_torch.models.mamba import MambaScanFused, mamba_scan_backward  # noqa: E402
 from repro_torch.models.moe import apply_moe, init_moe  # noqa: E402
+from repro_torch.models.rwkv6 import WkvFused, wkv_backward  # noqa: E402
+from repro_torch.models.stats import model_flops, param_counts  # noqa: E402
+from repro_torch.optim import OptConfig, adamw_init, adamw_update  # noqa: E402
 from repro_torch.obs import export, report  # noqa: E402
 from repro_torch.runtime import CodedMatmul, PartialPattern, chunk_bounds  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
@@ -248,6 +281,7 @@ from repro_torch.serve import (  # noqa: E402
 )
 from repro_torch.serve.trace import golden_operands, with_golden_meta  # noqa: E402
 import torch_serve_lm  # noqa: E402  (examples/torch_serve_lm.py)
+import torch_train_lm  # noqa: E402  (examples/torch_train_lm.py)
 
 # Published H100 SXM peaks at 700 W (NVIDIA data sheet).
 PEAK_FP64_TENSOR = 67e12     # FLOP/s, FP64 on the tensor cores (DMMA)
@@ -362,6 +396,36 @@ QWEN3_MOE_F32_LAYERS = 4
 # the bf16 bound of the LM checks.
 MOE_CHECK_TOKENS = 64
 MOE_TOL = 5e-2
+# The device of phases 6i-6j and 12a-12d (a name, so the phases can be
+# rehearsed on the CPU at SMOKE size before a chip run).
+CARD = "cuda"
+# Phases 6i-6j: the embedding-input configs.  Qwen2-VL-72B at full width cut
+# in depth to fit the card (32 x 0.874 B parameters + the 1.25 B-row head,
+# 58.7 GB in bf16; 80 layers hold 143 GB), its float32 gate on its first 4
+# layers.  The gate: prefill(960) + 64 decode steps on the known inputs
+# against prefill(1024), both lengths multiples of 64 (an odd length runs the
+# chunked attention one query at a time).  The position tables on the card
+# against the CPU's: each frequency is a float32 exp or pow that the two
+# devices may round one ulp apart, which moves the angle of position p by up
+# to p * 2^-23 of the frequency (at most 1), and sin/cos by as much: the
+# bound is the largest position times 2^-22 (two ulps).
+QWEN2_VL_LAYERS = 32
+QWEN2_VL_F32_LAYERS = 4
+EMBEDS_GATE = (960, 1024)
+TABLE_ULPS = 2 ** -22
+# Phases 12a-12d: training.  The scans' gradients (kernel forward, plain
+# PyTorch backward) against autograd through the plain versions, and a
+# model's kernel train path against its plain one in float32, every
+# gradient leaf: within 1e-3 of its largest value (the reference's float32
+# tests hold its custom VJPs to 1e-4 at small sizes); the loss within 1e-4.
+# RWKV-6 3B and Qwen3-0.6B train whole, 4 steps of 4 x 1024 tokens; the
+# RWKV kernel-vs-plain gate on its first 4 layers in float32; Jamba's SMOKE
+# config through kernel 6 at 4 x 256 tokens.
+GRAD_TOL = 1e-3
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_STEPS = 4
+RWKV_GATE_LAYERS = 4
+JAMBA_SMOKE_SEQ = 256
 
 
 def phase(name: str) -> None:
@@ -957,7 +1021,7 @@ def wkv_inputs(gen, B, S, H, dk, dv=None):
     """Random f32 WKV inputs made as tests/test_kernels.py makes them:
     w = exp(-exp(N(0, 1))) in (0, 1), k, v, r, u standard normal."""
     def rand(*shape):
-        return torch.randn(shape, generator=gen, device="cuda")
+        return torch.randn(shape, generator=gen, device=gen.device)
     return (torch.exp(-torch.exp(rand(B, S, H, dk))), rand(B, S, H, dk),
             rand(B, S, H, dv or dk), rand(B, S, H, dk), rand(H, dk))
 
@@ -969,15 +1033,15 @@ def mamba_inputs(gen, B, S, d, s, jamba_init=False):
     (models/mamba.py: dt_bias -4.6, A_log = log(1..s), D = 1): dt =
     softplus(N(0, 0.25) - 4.6), near 0.01, so the decays are 0.84-0.99."""
     def rand(*shape):
-        return torch.randn(shape, generator=gen, device="cuda")
+        return torch.randn(shape, generator=gen, device=gen.device)
     if jamba_init:
-        A_log = torch.log(torch.arange(1, s + 1, dtype=torch.float32, device="cuda"))
+        A_log = torch.log(torch.arange(1, s + 1, dtype=torch.float32, device=gen.device))
         return (torch.nn.functional.softplus(0.5 * rand(B, S, d) - 4.6), rand(B, S, d),
                 rand(B, S, s), rand(B, S, s), A_log.expand(d, s).contiguous(),
-                torch.ones(d, device="cuda"))
+                torch.ones(d, device=gen.device))
     return (torch.nn.functional.softplus(rand(B, S, d)), rand(B, S, d),
             rand(B, S, s), rand(B, S, s),
-            torch.rand((d, s), generator=gen, device="cuda") * 0.9 + 0.1, rand(d))
+            torch.rand((d, s), generator=gen, device=gen.device) * 0.9 + 0.1, rand(d))
 
 
 def check_scan(name: str, out, exp) -> float:
@@ -1184,8 +1248,8 @@ def lm_phase(label: str, cfg, kernel, n_scan: int, seed: int, smi: str,
     kernel-vs-plain checks.  ``kernel`` names the scan wrapper the prefill
     must launch ``n_scan`` times; with ``kernel=None`` (attention-only
     models) nothing may launch and there is no kernel to hold.  An MoE
-    config's gate runs as ``moe_gates`` says (``f32_layers``: the depth of
-    its float32 gate)."""
+    config's gate runs as ``moe_gates`` says, an embedding-input config's as
+    ``embeds_gates`` says (``f32_layers``: the depth of the float32 gate)."""
     S = prompt
     plain_cfg = dataclasses.replace(cfg, rwkv_kernel=False, mamba_kernel=False)
     gc.collect()
@@ -1223,6 +1287,15 @@ def lm_phase(label: str, cfg, kernel, n_scan: int, seed: int, smi: str,
           f"peak device memory {peak:.2f} GiB; launches {counts}; "
           f"first tokens {tokens[0, :8].tolist()}; on {smi}")
 
+    result = {"counts": counts, "prefill_ms": stats["prefill_s"] * 1e3,
+              "decode_ms": dec_ms, "tok_s": tok_s, "params": n_params, "peak_gib": peak,
+              "prompt": S}
+    if cfg.input_mode == "embeds":
+        embeds_gates(label, cfg, params, toks, f32_layers)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return result
     # prefill(S) + one decode step against prefill(S + 1), in bf16
     scan = {kernel: n_scan} if kernel else {}
     logits_k, dec, full, flips = decode_vs_prefill(params, cfg, toks, S, label, scan)
@@ -1241,9 +1314,7 @@ def lm_phase(label: str, cfg, kernel, n_scan: int, seed: int, smi: str,
         del params
         gc.collect()
         torch.cuda.empty_cache()
-        return {"counts": counts, "prefill_ms": stats["prefill_s"] * 1e3,
-                "decode_ms": dec_ms, "tok_s": tok_s, "params": n_params, "peak_gib": peak,
-                "prompt": S}
+        return result
     del full
     # the kernel against the plain chunked path on the same weights: in bf16,
     # and in float32 with the weights upcast in place (exactly)
@@ -1274,9 +1345,7 @@ def lm_phase(label: str, cfg, kernel, n_scan: int, seed: int, smi: str,
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return {"counts": counts, "prefill_ms": stats["prefill_s"] * 1e3,
-            "decode_ms": dec_ms, "tok_s": tok_s, "params": n_params, "peak_gib": peak,
-            "prompt": S}
+    return result
 
 
 def rwkv_phase(seed: int, smi: str) -> dict:
@@ -1483,6 +1552,364 @@ def serve_lm_twin_phase() -> dict:
           f"{len(result['outs'])} ranks {nonzero(counts)}")
     return {"counts": counts}
 
+
+# ---------------------------------------------------------------------------
+# phases 6i-6j: embedding input; phases 12a-12d: training
+
+
+def grad_rel(got, exp) -> float:
+    """max |got - exp| / max |exp| of two gradients (float32)."""
+    return lm_rel(got.float(), exp.float())
+
+
+def embeds_batch(cfg, toks: torch.Tensor, pos0=None) -> dict:
+    """The stub frontend's input for ``toks`` (``launch/serve.py``'s
+    ``_make_batch``); for multimodal rope with ``pos0`` given, the position
+    ids are (t, h, w) = arange from ``pos0`` on all three axes (every section
+    rotates), else the serve CLI's zeros (decode adds the position)."""
+    batch = _make_batch(cfg, toks)
+    if cfg.pos == "mrope" and pos0 is not None:
+        B, S = toks.shape
+        batch["pos_ids"] = (torch.arange(pos0, pos0 + S, dtype=torch.int32, device=toks.device)
+                            .expand(3, B, S).contiguous())
+    return batch
+
+
+def embeds_gate(label: str, cfg, params, toks: torch.Tensor, S_pre: int, S_full: int):
+    """prefill(S_pre) then S_full - S_pre decode steps on the known inputs,
+    against prefill(S_full)'s last logits (both lengths multiples of 64:
+    an odd one would run the chunked attention one query at a time).
+    Returns (rel, logits finite)."""
+    (logits, cache), steps = counted(
+        lambda: prefill(params, cfg, embeds_batch(cfg, toks[:, :S_pre], 0), S_max=S_full))
+    check(not steps, f"{label} prefill({S_pre}) launched {steps}")
+    finite = bool(torch.isfinite(logits).all())
+    for pos in range(S_pre, S_full):
+        logits, cache = decode_step(params, cfg, cache,
+                                    embeds_batch(cfg, toks[:, pos:pos + 1]), pos)
+        finite &= bool(torch.isfinite(logits).all())
+    del cache
+    (full, _), steps = counted(lambda: prefill(params, cfg, embeds_batch(cfg, toks[:, :S_full],
+                                                                         0)))
+    check(not steps, f"{label} prefill({S_full}) launched {steps}")
+    return lm_rel(logits, full), finite and bool(torch.isfinite(full).all())
+
+
+def embeds_phase(tag: str, arch: str, n_layers, seed: int, smi: str,
+                 f32_layers=None) -> dict:
+    """6i, 6j: an embedding-input config served on the card (the CLI's stub
+    frontend: token ids as fixed pseudo-embeddings, multimodal position ids
+    zero), then its gates: the position table on the card against the
+    CPU's, decode against a longer prefill in bf16 (and, with
+    ``f32_layers``, in float32 on that many layers), finite logits."""
+    full = get_config(arch)
+    cfg = full if n_layers is None else dataclasses.replace(full, n_layers=n_layers)
+    phase(f"{tag} {arch} served {'whole' if n_layers is None else 'cut in depth'} "
+          f"(embedding input, {cfg.pos} positions)")
+    start = time.perf_counter()
+    sections = f" sections {cfg.mrope_sections}" if cfg.mrope_sections else ""
+    print(f"config {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} query "
+          f"/ {cfg.n_kv_heads} kv heads of {cfg.d_head}, d_ff {cfg.d_ff} ({cfg.act}), vocab "
+          f"{cfg.vocab}, positions {cfg.pos}{sections}, qkv_bias {cfg.qkv_bias}, input "
+          f"{cfg.input_mode} (no embed table; lm_head untied)")
+    if n_layers is not None:
+        per = (param_counts(full)["non_embedding"]) / full.n_layers
+        print(f"cut: n_layers {full.n_layers} -> {cfg.n_layers} (full width; the whole model "
+              f"holds {param_counts(full)['total'] / 1e9:.2f} B parameters, "
+              f"{param_counts(full)['total'] * 2 / 1e9:.0f} GB in bf16, beyond the card; "
+              f"{per / 1e9:.3f} B a layer)")
+    # the position tables on the card against the CPU's
+    if cfg.pos == "sinusoidal":
+        on_card = L.sinusoidal_positions(LM_PROMPT + LM_GEN, cfg.d_model, 0, device=CARD)
+        on_cpu = L.sinusoidal_positions(LM_PROMPT + LM_GEN, cfg.d_model, 0)
+        table = "sinusoidal table"
+    else:
+        pid = torch.arange(LM_PROMPT + LM_GEN, dtype=torch.int32).expand(3, 1, -1)
+        on_cpu = torch.cat(L.mrope_cos_sin(pid, cfg.mrope_sections, cfg.d_head,
+                                           cfg.rope_theta), -1)
+        on_card = torch.cat(L.mrope_cos_sin(pid.to(CARD), cfg.mrope_sections, cfg.d_head,
+                                            cfg.rope_theta), -1)
+        table = "mrope cos/sin"
+    table_err = float((on_card.cpu() - on_cpu).abs().max())
+    bound = (LM_PROMPT + LM_GEN - 1) * TABLE_ULPS
+    print(f"{arch} {table} of positions [0, {LM_PROMPT + LM_GEN}) on the card against the "
+          f"CPU: max abs diff {table_err:.3e} (bound {bound:.3e}: the largest position "
+          f"times two float32 ulps of a frequency)")
+    check(table_err <= bound, f"{arch} {table}: card vs CPU {table_err}")
+    out = lm_phase(arch, cfg, None, 0, seed, smi, f32_layers=f32_layers)
+    print(f"phase {tag}: {time.perf_counter() - start:.1f} s")
+    return out
+
+
+def embeds_gates(label: str, cfg, params, toks, f32_layers) -> None:
+    """The gates of 6i-6j after the serving run: decode against a longer
+    prefill (EMBEDS_GATE) in bf16 within LM_TOL and, cutting the model to
+    ``f32_layers`` (None: all of them) and upcasting it, in float32 within
+    LM_F32_TOL."""
+    S_pre, S_full = EMBEDS_GATE
+    rel, finite = embeds_gate(label, cfg, params, toks, S_pre, S_full)
+    print(f"{label} checks: prefill({S_pre}) + {S_full - S_pre} decode steps vs "
+          f"prefill({S_full}) rel {rel:.3e} (bound {LM_TOL}); logits finite {finite}")
+    check(finite, f"{label}: logits not finite")
+    check(rel <= LM_TOL, f"{label}: decode vs prefill({S_full}) rel {rel}")
+    n32 = f32_layers or cfg.n_layers
+    if n32 < cfg.n_layers:
+        del params.blocks[n32:]
+        print(f"cut: the float32 gate keeps the first {n32} of the {cfg.n_layers} layers "
+              f"(float32 weights of {cfg.n_layers} layers exceed the card)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params.float()      # every bf16 value is exact in float32
+    cfg32 = dataclasses.replace(cfg, n_layers=n32, dtype="float32")
+    rel32, finite = embeds_gate(label, cfg32, params, toks, S_pre, S_full)
+    print(f"{label} float32 gate ({n32} layers): prefill({S_pre}) + {S_full - S_pre} decode "
+          f"steps vs prefill({S_full}) rel {rel32:.3e} (bound {LM_F32_TOL}); logits finite "
+          f"{finite}")
+    check(finite, f"{label}: float32 logits not finite")
+    check(rel32 <= LM_F32_TOL, f"{label}: float32 decode vs prefill({S_full}) rel {rel32}")
+
+
+def scan_grads_phase(gen, smi: str) -> dict:
+    """12a: the two scans' custom backward passes at full width, each forward
+    through its kernel: ``WkvFused`` at RWKV6-3B's shapes and
+    ``MambaScanFused`` at a Jamba mamba layer's (the Jamba initialisation's
+    regime), against autograd through the plain versions, every input's
+    gradient; then the forward kernel and the backward timed apart."""
+    phase("12a scan gradients at full width (kernels 7 and 6 forward)")
+    start = time.perf_counter()
+    out = {"counts": dict.fromkeys(KERNELS, 0)}
+    cases = (("wkv_scan", WkvFused, ref.wkv_scan_ref, wkv_backward, "wkvru",
+              wkv_inputs(gen, **WKV_SHAPE)),
+             ("mamba_scan", MambaScanFused, ref.mamba_scan_ref, mamba_scan_backward,
+              ("dt", "x", "Bm", "Cm", "A_log", "D"),
+              mamba_inputs(gen, **MAMBA_SHAPE, jamba_init=True)))
+    for kernel, fused, plain, backward, names, x in cases:
+        y0, fin0, bounds = getattr(ops, kernel)(*x)
+        y_bar = torch.randn(y0.shape, generator=gen, device=CARD)
+        fin_bar = torch.randn(fin0.shape, generator=gen, device=CARD)
+        ts = [t.clone().requires_grad_() for t in x]
+        ops.reset_launch_counts()
+        y, fin = fused.apply(*ts)
+        (torch.sum(y * y_bar) + torch.sum(fin * fin_bar)).backward()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check(counts == dict.fromkeys(counts, 0) | {kernel: 1},
+              f"12a {fused.__name__} launched {counts}")
+        out["counts"][kernel] += 1
+        got = [t.grad for t in ts]
+        del y, fin, ts
+        tp = [t.clone().requires_grad_() for t in x]
+        t0 = time.perf_counter()
+        yp, finp, _ = plain(*tp)
+        (torch.sum(yp * y_bar) + torch.sum(finp * fin_bar)).backward()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        rels = {n: grad_rel(g, t.grad) for n, g, t in zip(names, got, tp)}
+        del yp, finp, tp
+        gc.collect()
+        torch.cuda.empty_cache()
+        fwd_ms = time_ms(lambda: getattr(ops, kernel)(*x), 5)
+        bwd_ms = time_ms(lambda: backward(*x, bounds, y_bar, fin_bar), 3)
+        shape = ", ".join(f"{k}={v}" for k, v in (WKV_SHAPE if kernel == "wkv_scan"
+                                                  else MAMBA_SHAPE).items())
+        print(f"12a {fused.__name__} ({shape}): gradients against autograd through the "
+              f"plain version: " + ", ".join(f"{n} {r:.3e}" for n, r in rels.items())
+              + f" (bound {GRAD_TOL}); forward kernel {fwd_ms:.4f} ms, backward "
+              f"{bwd_ms:.3f} ms (plain PyTorch reverse chunk scan), plain forward + "
+              f"autograd {plain_s * 1e3:.1f} ms (host clock); on {smi}")
+        check(all(r <= GRAD_TOL for r in rels.values()), f"12a {fused.__name__} {rels}")
+        out[kernel] = {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
+        del x, got, y0, fin0, bounds, y_bar, fin_bar
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 12a: {time.perf_counter() - start:.1f} s")
+    return out
+
+
+def train_loss_grads(params, cfg, batch) -> tuple:
+    """(loss, {name: gradient}) of ``train_loss``."""
+    params.requires_grad_(True)
+    named = dict(params.named_parameters())
+    loss = train_loss(params, cfg, batch)
+    grads = torch.autograd.grad(loss, list(named.values()))
+    return loss.detach(), dict(zip(named, grads))
+
+
+def kernel_vs_plain_train(label: str, cfg, kernel: str, seed: int, batch) -> dict:
+    """The kernel's train path against the plain one on the same float32
+    weights and batch: the loss within TRAIN_LOSS_TOL, every gradient leaf
+    within GRAD_TOL of its largest value; the kernel launched twice a scan
+    layer (the forward and remat's recomputation)."""
+    params = init_params(cfg, seed=seed, device=CARD)
+    plain_cfg = dataclasses.replace(cfg, rwkv_kernel=False, mamba_kernel=False)
+    ops.reset_launch_counts()
+    loss_k, grads_k = train_loss_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    n_scan = 2 * sum(m in ("rwkv", "mamba") for m, _ in cfg.pattern) * cfg.n_groups
+    check(counts == dict.fromkeys(counts, 0) | {kernel: n_scan},
+          f"{label} kernel train step launched {counts}, not {n_scan} x {kernel}")
+    loss_p, grads_p = train_loss_grads(params, plain_cfg, batch)
+    rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    rels = {n: grad_rel(grads_k[n], grads_p[n]) for n in grads_p}
+    worst = max(rels, key=rels.get)
+    print(f"{label} kernel vs plain train step (float32, {cfg.n_layers} layers, full width): "
+          f"loss {float(loss_k):.6f} vs {float(loss_p):.6f}, rel {rel_loss:.3e} (bound "
+          f"{TRAIN_LOSS_TOL}); {len(rels)} gradient leaves, worst {worst} {rels[worst]:.3e} "
+          f"(bound {GRAD_TOL}); launches {nonzero(counts)}")
+    check(rel_loss <= TRAIN_LOSS_TOL, f"{label}: kernel vs plain loss rel {rel_loss}")
+    check(rels[worst] <= GRAD_TOL, f"{label}: kernel vs plain gradient {worst} {rels[worst]}")
+    del params, grads_k, grads_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_phase(label: str, cfg, kernel, seed: int, smi: str, batch: int = LM_BATCH,
+                seq: int = LM_PROMPT, steps: int = TRAIN_STEPS) -> dict:
+    """Train ``cfg`` on the card through ``make_train_step``, as the trainer
+    builds it: random weights from the seed, AdamW with float32 masters,
+    ``steps`` steps on the pipeline's batches; per step the host time
+    (ended by reading the loss), tokens/s and the share of the bf16 tensor
+    peak that ``model_flops`` makes of it; peak memory and the kernel's
+    launches (twice a scan layer a step: the forward and remat's
+    recomputation)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=CARD)
+    opt_state = adamw_init(params)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    state_gb = sum(p.numel() * (p.element_size() + 12) for p in params.parameters()) / 1e9
+    flops = model_flops(cfg, "train", batch, seq)
+    print(f"{label}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B parameters ({cfg.dtype}) "
+          f"+ float32 master, mu, nu: {state_gb:.1f} GB; random from seed {seed} in "
+          f"{time.perf_counter() - t0:.1f} s; {steps} steps of {batch} x {seq} tokens from "
+          f"make_pipeline; model_flops(train) {flops:.4e} FLOP a step; remat {cfg.remat}")
+    opt_cfg = OptConfig(lr=3e-4, warmup_steps=max(2, steps // 20), total_steps=steps)
+    step_fn = make_train_step(cfg, opt_cfg)
+    pipe = make_pipeline(cfg.vocab, seq, batch, seed=seed)
+    ops.reset_launch_counts()
+    walls, losses = [], []
+    for t in range(steps):
+        data = to_batch(cfg, pipe.batch(t), CARD)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, data)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss)
+        print(f"{label} step {t}: {walls[-1] * 1e3:.2f} ms, {batch * seq / walls[-1]:.1f} "
+              f"tokens/s, {flops / walls[-1] / PEAK_BF16_TENSOR:.2%} of the bf16 tensor peak "
+              f"(model_flops); loss {loss:.4f}, grad norm {gnorm:.4f}, lr "
+              f"{float(metrics['lr']):.3e}")
+        check(np.isfinite(loss) and np.isfinite(gnorm), f"{label} step {t}: loss {loss}, "
+              f"grad norm {gnorm}")
+    counts = ops.launch_counts()
+    n_scan = 2 * sum(m in ("rwkv", "mamba") for m, _ in cfg.pattern) * cfg.n_groups
+    want = dict.fromkeys(counts, 0) | ({kernel: n_scan * steps} if kernel else {})
+    check(counts == want, f"{label} training launched {counts}, not {want}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = float(np.median(walls[1:])) * 1e3
+    # where a step's time goes: one more step taken apart (host clocks, each
+    # part ended by a synchronize)
+    data = to_batch(cfg, pipe.batch(steps), CARD)
+    named = dict(params.named_parameters())
+    marks = [time.perf_counter()]
+    loss = train_loss(params, cfg, data)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    grads = torch.autograd.grad(loss, list(named.values()))
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    adamw_update(opt_cfg, dict(zip(named, grads)), opt_state)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    parts = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    print(f"{label} one step taken apart: forward and loss {parts[0]:.2f} ms, backward "
+          f"(remat's recomputed forward included) {parts[1]:.2f} ms, AdamW "
+          f"{parts[2]:.2f} ms")
+    del grads, loss
+    print(f"{label} train: median of steps 1-{steps - 1} {ms:.2f} ms a step, "
+          f"{batch * seq / ms * 1e3:.1f} tokens/s, {flops / (ms * 1e-3) / PEAK_BF16_TENSOR:.2%} "
+          f"of the bf16 tensor peak ({PEAK_BF16_TENSOR / 1e12:.1f} TFLOP/s); first step "
+          f"{walls[0] * 1e3:.2f} ms; peak device memory {peak:.2f} GiB; launches "
+          f"{nonzero(counts)}; on {smi}")
+    del params, opt_state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": counts, "step_ms": ms, "tok_s": batch * seq / ms * 1e3,
+            "flop_share": flops / (ms * 1e-3) / PEAK_BF16_TENSOR, "peak_gib": peak,
+            "parts_ms": parts, "losses": losses}
+
+
+def rwkv_train_phase(seed: int, smi: str) -> dict:
+    """12b: RWKV-6 3B whole, trained through the WKV kernel."""
+    phase("12b RWKV-6 3B trained whole (kernel 7 in the forward)")
+    start = time.perf_counter()
+    cfg = dataclasses.replace(get_config("rwkv6_3b"), rwkv_kernel=True)
+    print(f"config rwkv6_3b: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab}; "
+          f"nothing cut; rwkv_kernel=True")
+    # the gate first, on 4 layers in float32 (the same pipeline batch)
+    cfg4 = dataclasses.replace(cfg, n_layers=RWKV_GATE_LAYERS, dtype="float32")
+    data = to_batch(cfg4, make_pipeline(cfg.vocab, LM_PROMPT, LM_BATCH, seed=seed).batch(0),
+                    CARD)
+    counts = kernel_vs_plain_train("12b rwkv6_3b", cfg4, "wkv_scan", seed, data)
+    out = train_phase("12b rwkv6_3b", cfg, "wkv_scan", seed, smi)
+    out["counts"] = {k: out["counts"][k] + counts[k] for k in counts}
+    print(f"phase 12b: {time.perf_counter() - start:.1f} s")
+    return out
+
+
+def train_more_phase(seed: int, smi: str) -> dict:
+    """12c: Qwen3-0.6B whole (the attention backward at full width), then
+    Jamba's SMOKE config through the selective-scan kernel against its plain
+    path, and its train step's launches."""
+    phase("12c Qwen3-0.6B trained whole; Jamba SMOKE through kernel 6")
+    start = time.perf_counter()
+    out = {"qwen3_0_6b": train_phase("12c qwen3_0_6b", get_config("qwen3_0_6b"), None, seed,
+                                     smi)}
+    cfg = dataclasses.replace(get_smoke_config("jamba_1_5_large_398b"), mamba_kernel=True)
+    print(f"config jamba SMOKE: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}; mamba_kernel=True; batch "
+          f"{LM_BATCH} x {JAMBA_SMOKE_SEQ}")
+    data = to_batch(cfg, make_pipeline(cfg.vocab, JAMBA_SMOKE_SEQ, LM_BATCH, seed=seed).batch(0),
+                    CARD)
+    counts = kernel_vs_plain_train("12c jamba SMOKE", dataclasses.replace(cfg, dtype="float32"),
+                                   "mamba_scan", seed, data)
+    out["jamba smoke"] = train_phase("12c jamba SMOKE", cfg, "mamba_scan", seed, smi,
+                                     seq=JAMBA_SMOKE_SEQ, steps=2)
+    out["jamba smoke"]["counts"] = {k: out["jamba smoke"]["counts"][k] + counts[k]
+                                    for k in counts}
+    print(f"phase 12c: {time.perf_counter() - start:.1f} s")
+    return out
+
+
+def train_cli_phase() -> dict:
+    """12d: the trainer's CLI (``launch/train.py``): a 6-step run checkpointing
+    every 3 steps, then, its last checkpoint removed, ``--resume`` from step
+    3: the resumed losses equal the run's; then the ``train_lm`` twin's quick
+    run on the card must learn."""
+    phase("12d the trainer CLI and examples/torch_train_lm.py on the card")
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ck:
+        args = ["--arch", "qwen3_0_6b", "--smoke", "--log-every", "100", "--ckpt-dir", ck]
+        full = train_cli.main(args + ["--steps", "6", "--ckpt-every", "3"])
+        shutil.rmtree(Path(ck) / "step_000000006")
+        resumed = train_cli.main(args + ["--steps", "6", "--resume"])
+    print(f"12d resume: full run losses {full}; resumed from step 3 {resumed}")
+    check(resumed == full[3:], f"12d resumed losses {resumed} != {full[3:]}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        losses = torch_train_lm.main(["--quick"])
+    tail = out.getvalue().strip().splitlines()[-2:]
+    print("\n".join(f"  | {line}" for line in tail))
+    check(tail[-1] == "learned successfully.", f"12d train_lm twin: {tail}")
+    print(f"phase 12d: {time.perf_counter() - start:.1f} s; the twin's loss {losses[0]:.3f} -> "
+          f"{losses[-1]:.3f}")
+    return {"counts": dict.fromkeys(KERNELS, 0)}
 
 def drive(label: str, requests, C_ref, cm, per_request: dict) -> dict:
     """Serve ``requests`` [(name, call)] through one path, each C exact and
@@ -2550,11 +2977,22 @@ def main() -> None:
     lms["gemma3_12b"] = gemma_phase(args.seed, dev["smi"])
     lms |= moe_lm_phase(args.seed, dev["smi"])
     paths["jamba expert layer"] = jamba_moe_phase(args.seed, dev["smi"])
+    lms["musicgen_medium"] = embeds_phase("6i", "musicgen_medium", None, args.seed, dev["smi"])
+    lms["qwen2_vl_72b 32 layers"] = embeds_phase("6j", "qwen2_vl_72b", QWEN2_VL_LAYERS,
+                                                 args.seed, dev["smi"], QWEN2_VL_F32_LAYERS)
+    paths["scan gradients"] = scan_grads_phase(gen, dev["smi"])
+    trains = {"rwkv6_3b": rwkv_train_phase(args.seed, dev["smi"])}
+    trains |= train_more_phase(args.seed, dev["smi"])
+    paths["train cli"] = train_cli_phase()
     for name, lm in lms.items():
         print(f"LM serving ({name}, {LM_BATCH}x{lm['prompt']} prompt, {LM_GEN} tokens, bf16): "
               f"prefill {lm['prefill_ms']:.2f} ms, decode {lm['decode_ms']:.2f} ms per step, "
               f"{lm['tok_s']:.1f} tokens/s, {lm['params'] / 1e9:.3f} B parameters, peak "
               f"{lm['peak_gib']:.2f} GiB on {dev['smi']}")
+    for name, tr in trains.items():
+        print(f"LM training ({name}): {tr['step_ms']:.2f} ms a step, {tr['tok_s']:.1f} "
+              f"tokens/s, {tr['flop_share']:.2%} of the bf16 tensor peak (model_flops), peak "
+              f"{tr['peak_gib']:.2f} GiB, launches {nonzero(tr['counts'])} on {dev['smi']}")
 
     csrc = "src/repro_torch/kernels/csrc"
     source = {"fused_worker": (f"{csrc}/coded_fused.cu", "src/repro/kernels/coded_fused.py:105"),
@@ -2565,7 +3003,8 @@ def main() -> None:
               "matmul_t": (f"{csrc}/block_matmul.cu", "src/repro/kernels/block_matmul.py:62"),
               "mamba_scan": (f"{csrc}/mamba_scan.cu", "src/repro/kernels/mamba_scan.py:91"),
               "wkv_scan": (f"{csrc}/wkv_scan.cu", "src/repro/kernels/wkv_scan.py:82")}
-    launches = {k: sum(run["counts"][k] for run in (*paths.values(), *lms.values()))
+    launches = {k: sum(run["counts"][k] for run in (*paths.values(), *lms.values(),
+                                                    *trains.values()))
                 for k in KERNELS}
     kernels = [dict(name=name, route="cuda", source=source[name][0],
                     replaces=source[name][1], launches=launches[name],

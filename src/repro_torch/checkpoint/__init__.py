@@ -1,0 +1,4 @@
+"""Checkpoint substrate: atomic npz-shard save and restore with a manifest."""
+from repro_torch.checkpoint.store import latest_step, restore_checkpoint, save_checkpoint
+
+__all__ = ["latest_step", "restore_checkpoint", "save_checkpoint"]

@@ -1,11 +1,4 @@
 """Architecture registry of the port: the configurations it serves."""
-from repro_torch.configs.base import (
-    ARCH_IDS,
-    PORTED_ARCHS,
-    get_config,
-    get_smoke_config,
-    list_archs,
-)
+from repro_torch.configs.base import ARCH_IDS, get_config, get_smoke_config, list_archs
 
-__all__ = ["ARCH_IDS", "PORTED_ARCHS", "get_config", "get_smoke_config",
-           "list_archs"]
+__all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "list_archs"]

@@ -2,14 +2,12 @@
 
 Every architecture module defines CONFIG (the published geometry) and SMOKE
 (a reduced same-family config for CPU tests), field for field as the
-reference package's ``configs/`` define them.  The port serves the
-architectures in ``PORTED_ARCHS``; the others (``musicgen_medium`` and
-``qwen2_vl_72b``, which need embedding input, sinusoidal or multimodal
-positions) raise ``NotImplementedError`` until their slice lands
-(ROADMAP.md queue 1, item 8.4).  ``paper_matmul`` is
-the paper's own coded-matmul experiment (``PaperMatmulConfig``, not a
-``ModelConfig``): ``get_config`` serves it and ``list_archs`` leaves it out,
-as in the reference package.
+reference package's ``configs/`` define them.  The port trains and serves
+all ten LM architectures; ``paper_matmul`` is the paper's own coded-matmul
+experiment (``PaperMatmulConfig``, not a ``ModelConfig``): ``get_config``
+serves it and ``list_archs`` leaves it out, as in the reference package.
+A module registered as ``repro_torch.configs.<name>`` (as
+``examples/torch_train_lm.py`` registers its own) loads by that name too.
 """
 from __future__ import annotations
 
@@ -18,8 +16,7 @@ from typing import List
 
 from repro_torch.models import ModelConfig
 
-__all__ = ["ARCH_IDS", "PORTED_ARCHS", "get_config", "get_smoke_config",
-           "list_archs"]
+__all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "list_archs"]
 
 ARCH_IDS = (
     "jamba_1_5_large_398b",
@@ -34,19 +31,13 @@ ARCH_IDS = (
     "qwen2_vl_72b",
     "paper_matmul",
 )
-PORTED_ARCHS = ("jamba_1_5_large_398b", "qwen3_moe_235b_a22b", "qwen2_moe_a2_7b",
-                "qwen3_0_6b", "qwen2_0_5b", "gemma3_12b", "granite_3_8b",
-                "rwkv6_3b", "paper_matmul")
 
 
 def _module(arch: str):
-    if arch not in PORTED_ARCHS:
-        if arch in ARCH_IDS:
-            raise NotImplementedError(
-                f"{arch} is not ported to repro_torch yet; the port serves "
-                f"{PORTED_ARCHS} (see ROADMAP.md, queue 1, item 8.4)")
-        raise ValueError(f"unknown architecture {arch!r}")
-    return importlib.import_module(f"repro_torch.configs.{arch}")
+    try:
+        return importlib.import_module(f"repro_torch.configs.{arch}")
+    except ModuleNotFoundError:
+        raise ValueError(f"unknown architecture {arch!r}") from None
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -58,5 +49,5 @@ def get_smoke_config(arch: str) -> ModelConfig:
 
 
 def list_archs() -> List[str]:
-    """The model architectures the port serves."""
-    return [a for a in PORTED_ARCHS if a != "paper_matmul"]
+    """The model architectures (every entry but ``paper_matmul``)."""
+    return [a for a in ARCH_IDS if a != "paper_matmul"]

@@ -130,15 +130,14 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> tuple:
 
     The reference evaluates this with ``lax.associative_scan`` (a tree of
     combines); here it is a loop over the steps, so the two agree to float32
-    rounding, not bit for bit.  ``a`` broadcasts against ``b``.
+    rounding, not bit for bit.  ``a`` broadcasts against ``b``.  Autograd
+    runs through it (no ``out=`` writes).
     """
-    A_cum = torch.empty_like(a)
-    B_cum = torch.empty_like(b)
-    A_cum[:, 0], B_cum[:, 0] = a[:, 0], b[:, 0]
+    A_cum, B_cum = [a[:, 0]], [b[:, 0]]
     for t in range(1, b.shape[1]):
-        torch.mul(A_cum[:, t - 1], a[:, t], out=A_cum[:, t])
-        torch.addcmul(b[:, t], B_cum[:, t - 1], a[:, t], out=B_cum[:, t])
-    return A_cum, B_cum
+        A_cum.append(A_cum[-1] * a[:, t])
+        B_cum.append(torch.addcmul(b[:, t], B_cum[-1], a[:, t]))
+    return torch.stack(A_cum, 1), torch.stack(B_cum, 1)
 
 
 def wkv_chunked(w, k, v, r, u, S0, chunk: int) -> tuple:
@@ -193,21 +192,19 @@ def mamba_scan_ref(dt, x, Bm, Cm, A_log, D, chunk: int = 128) -> tuple:
         h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t,   A = -exp(A_log)
         y_t = h_t . C_t + D x_t
     Returns (y (B,S,d), h_fin (B,d,s), h_bounds (B,nc,d,s)), zero initial
-    state.
+    state.  Autograd runs through it.
     """
     Bsz, S, d = dt.shape
     s = A_log.shape[1]
     chunk = scan_chunk(S, chunk)
     A = -torch.exp(A_log)
     h = torch.zeros((Bsz, d, s), dtype=torch.float32, device=dt.device)
-    y = torch.empty((Bsz, S, d), dtype=torch.float32, device=dt.device)
-    bounds = torch.empty((Bsz, S // chunk, d, s), dtype=torch.float32,
-                         device=dt.device)
+    ys, bounds = [], []
     for t in range(S):
         if t % chunk == 0:
-            bounds[:, t // chunk] = h
+            bounds.append(h)
         dt_t, x_t = dt[:, t], x[:, t]
         a = torch.exp(dt_t[:, :, None] * A[None])
         h = a * h + (dt_t * x_t)[:, :, None] * Bm[:, t, None, :]
-        y[:, t] = torch.sum(h * Cm[:, t, None, :], -1) + D[None] * x_t
-    return y, h, bounds
+        ys.append(torch.sum(h * Cm[:, t, None, :], -1) + D[None] * x_t)
+    return torch.stack(ys, 1), h, torch.stack(bounds, 1)

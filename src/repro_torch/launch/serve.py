@@ -7,11 +7,11 @@ step).  Runs on the CUDA card unless ``--device cpu`` is given:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b --smoke \\
       --batch 4 --prompt-len 32 --gen 16 --device cpu
 
-The port serves the architectures of ``configs.list_archs()``: ``rwkv6_3b``,
-``jamba_1_5_large_398b``, ``qwen3_moe_235b_a22b``, ``qwen2_moe_a2_7b``,
-``qwen3_0_6b``, ``qwen2_0_5b``, ``gemma3_12b`` and ``granite_3_8b``
-(``--smoke`` for the reduced configs).  Weights are random, from a
-``torch.Generator`` seeded with ``--seed`` on the device.
+It serves every architecture of ``configs.list_archs()`` (``--smoke`` for
+the reduced configs).  Weights are random, from a ``torch.Generator``
+seeded with ``--seed`` on the device.  The embedding-input configs
+(``musicgen_medium``, ``qwen2_vl_72b``) take the reference CLI's stubbed
+frontend: token ids become fixed pseudo-embeddings (:func:`_make_batch`).
 """
 from __future__ import annotations
 
@@ -25,7 +25,30 @@ from repro_torch.core.numerics import resolve_device
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import ModelConfig, init_params
 
-__all__ = ["generate", "main"]
+__all__ = ["generate", "main", "stub_embeds"]
+
+
+def stub_embeds(tokens: torch.Tensor, d: int) -> torch.Tensor:
+    """The frontend stub of the embedding-input configs (it stands in for
+    EnCodec frames or ViT patches): token ids (B, S) -> the pseudo-embeddings
+    ``sin(tok * 0.01 + arange(d) * 0.1) * 0.1`` (B, S, d), float32 math
+    rounded to bf16."""
+    base = torch.arange(d, dtype=torch.float32, device=tokens.device)
+    return (torch.sin(tokens[..., None].float() * 0.01 + base * 0.1) * 0.1).to(torch.bfloat16)
+
+
+def _make_batch(cfg: ModelConfig, tokens: torch.Tensor) -> dict:
+    """The model input for token ids (B, S), as the reference CLI makes it:
+    the tokens themselves, or for embedding input their
+    :func:`stub_embeds`, with ``pos_ids`` all zeros (3, B, S) int32 for
+    multimodal rope (decode adds the position)."""
+    if cfg.input_mode == "tokens":
+        return {"tokens": tokens}
+    B, S = tokens.shape
+    out = {"embeds": stub_embeds(tokens, cfg.d_model)}
+    if cfg.pos == "mrope":
+        out["pos_ids"] = torch.zeros((3, B, S), dtype=torch.int32, device=tokens.device)
+    return out
 
 
 def _sync(device: torch.device) -> None:
@@ -47,13 +70,13 @@ def generate(cfg: ModelConfig, params, prompts: torch.Tensor, gen: int) -> tuple
     dev = prompts.device
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill_fn(params, {"tokens": prompts})
+    logits, cache = prefill_fn(params, _make_batch(cfg, prompts))
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     out = [logits.argmax(-1)]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        logits, cache = serve_fn(params, cache, {"tokens": out[-1][:, None]}, S + i)
+        logits, cache = serve_fn(params, cache, _make_batch(cfg, out[-1][:, None]), S + i)
         out.append(logits.argmax(-1))
     _sync(dev)
     t_decode = time.perf_counter() - t0

@@ -1,4 +1,4 @@
-"""LM substrate of the port: pattern-based stacks served by prefill + decode."""
+"""LM substrate of the port: pattern-based stacks, trained and served."""
 from repro_torch.models.lm import (
     LM,
     Block,
@@ -7,8 +7,11 @@ from repro_torch.models.lm import (
     cache_shapes,
     cache_to_numpy,
     decode_step,
+    forward_hidden,
+    grads_to_numpy,
     init_cache,
     init_params,
+    param_shapes,
     params_from_jax,
     prefill,
     train_loss,
@@ -17,6 +20,6 @@ from repro_torch.models.moe import MoEConfig
 
 __all__ = [
     "LM", "Block", "ModelConfig", "MoEConfig", "cache_from_jax", "cache_shapes",
-    "cache_to_numpy", "decode_step", "init_cache", "init_params",
-    "params_from_jax", "prefill", "train_loss",
+    "cache_to_numpy", "decode_step", "forward_hidden", "grads_to_numpy", "init_cache",
+    "init_params", "param_shapes", "params_from_jax", "prefill", "train_loss",
 ]

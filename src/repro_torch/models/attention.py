@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.models.layers import apply_rope, normal, rms_head_norm
 
-__all__ = ["NEG_INF", "init_attn", "repeat_kv", "mha_chunked", "attn_forward",
+__all__ = ["NEG_INF", "init_attn", "attn_shapes", "repeat_kv", "mha_chunked", "attn_forward",
            "attn_decode_step"]
 
 NEG_INF = -1e30
@@ -50,6 +50,25 @@ def init_attn(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
     if qk_norm:
         p["q_norm"] = torch.ones((d_head,), dtype=torch.float32, device=dev)
         p["k_norm"] = torch.ones((d_head,), dtype=torch.float32, device=dev)
+    return p
+
+
+def attn_shapes(d: int, n_heads: int, n_kv: int, d_head: int, qk_norm: bool = False,
+                qkv_bias: bool = False, dtype=torch.bfloat16) -> dict:
+    """{name: (shape, dtype)} of :func:`init_attn`'s parameters."""
+    p = {
+        "wq": ((d, n_heads, d_head), dtype),
+        "wk": ((d, n_kv, d_head), dtype),
+        "wv": ((d, n_kv, d_head), dtype),
+        "wo": ((n_heads, d_head, d), dtype),
+    }
+    if qkv_bias:
+        p["bq"] = ((n_heads, d_head), dtype)
+        p["bk"] = ((n_kv, d_head), dtype)
+        p["bv"] = ((n_kv, d_head), dtype)
+    if qk_norm:
+        p["q_norm"] = ((d_head,), torch.float32)
+        p["k_norm"] = ((d_head,), torch.float32)
     return p
 
 

@@ -3,19 +3,23 @@ MLPs.
 
 Pure-function style as in the reference package: ``init_*`` returns a dict of
 tensors, the apply functions take (params, x).  Every ``init_*`` takes an
-explicit ``torch.Generator`` and device.  Multimodal rope and sinusoidal
-positions wait for their architectures (ROADMAP.md queue 1, item 8.4).
+explicit ``torch.Generator`` and device.  Also the positions (rotary,
+multimodal rotary, sinusoidal) and the loss: cross entropy fused with the
+head's product, by sequence chunks.
 """
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["normal", "init_rmsnorm", "rmsnorm", "rms_head_norm", "rope_freqs",
-           "rope_cos_sin", "apply_rope", "init_mlp", "apply_mlp",
-           "init_embedding", "embed"]
+           "rope_cos_sin", "apply_rope", "mrope_cos_sin", "sinusoidal_positions",
+           "init_mlp", "mlp_shapes", "apply_mlp", "init_embedding", "embed",
+           "lm_head_logits_chunk", "chunked_ce_loss"]
 
 
 def normal(gen: torch.Generator, shape, dtype, scale: float) -> torch.Tensor:
@@ -80,6 +84,34 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([r1, r2], dim=-1).to(x.dtype)
 
 
+def mrope_cos_sin(pos_ids: torch.Tensor, sections: Tuple[int, ...], d_rot: int,
+                  theta: float):
+    """Multimodal RoPE (Qwen2-VL): pos_ids (3, B, S) for (t, h, w).
+
+    The d_rot/2 frequency slots are split into ``len(sections)`` contiguous
+    groups; group g rotates by ``pos_ids[g]``.  Returns cos/sin (B, S,
+    d_rot/2) float32."""
+    if sum(sections) != d_rot // 2:
+        raise ValueError(f"mrope sections {sections} do not cover d_rot/2 = {d_rot // 2}")
+    inv = rope_freqs(d_rot, theta, pos_ids.device)
+    ang_all = pos_ids[..., None].float() * inv               # (3, B, S, d_rot/2)
+    starts = [sum(sections[:g]) for g in range(len(sections))]
+    ang = torch.cat([ang_all[g, ..., st:st + sec]
+                     for g, (st, sec) in enumerate(zip(starts, sections))], dim=-1)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def sinusoidal_positions(S: int, d: int, offset=0, device=None) -> torch.Tensor:
+    """MusicGen's fixed sinusoidal position embeddings of positions
+    ``offset + [0, S)``: (S, d) float32, sines then cosines."""
+    pos = torch.arange(S, dtype=torch.float32, device=device) + offset
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=device) / half)
+    ang = pos[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 
@@ -92,6 +124,14 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, act: str,
     }
     if act == "swiglu":
         p["w_gate"] = normal(gen, (d, d_ff), dtype, 1.0 / math.sqrt(d))
+    return p
+
+
+def mlp_shapes(d: int, d_ff: int, act: str, dtype=torch.bfloat16) -> dict:
+    """{name: (shape, dtype)} of :func:`init_mlp`'s parameters."""
+    p = {"w_up": ((d, d_ff), dtype), "w_down": ((d_ff, d), dtype)}
+    if act == "swiglu":
+        p["w_gate"] = ((d, d_ff), dtype)
     return p
 
 
@@ -121,3 +161,47 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) int -> (B, S, d)."""
     return params["table"][tokens]
+
+
+# ---------------------------------------------------------------------------
+# loss
+
+
+def lm_head_logits_chunk(table_f32: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x (B, C, d) against the head ``table_f32`` (V, d), already upcast to
+    float32 -> (B, C, V) float32 logits: float32 sums of the products, as the
+    reference's ``preferred_element_type=f32`` asks (a bf16 product is exact
+    in float32, so upcasting the operands first computes the same sum)."""
+    return x.float() @ table_f32.T
+
+
+def _ce_chunk(table_f32, x, labels, z_loss: float) -> torch.Tensor:
+    logits = lm_head_logits_chunk(table_f32, x)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = (lse - gold).sum()
+    if z_loss:
+        loss = loss + z_loss * lse.square().sum()
+    return loss
+
+
+def chunked_ce_loss(table: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
+                    chunk: int = 512, z_loss: float = 0.0) -> torch.Tensor:
+    """Cross entropy fused with the head's product, by sequence chunks:
+    x (B, S, d), labels (B, S) int -> the mean loss over B * S, float32.
+
+    The head table is upcast to float32 once per call.  Each chunk runs
+    under ``torch.utils.checkpoint``, so its (B, chunk, V) logits are
+    recomputed in the backward and the (B, S, V) logits are never all held
+    (152064 x 4096 x 4 bytes = 2.5 GB a sequence for Qwen2-VL)."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the loss chunk {chunk}")
+    table_f32 = table.float()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(S // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        total = total + checkpoint(_ce_chunk, table_f32, x[:, sl], labels[:, sl], z_loss,
+                                   use_reentrant=False)
+    return total / (B * S)

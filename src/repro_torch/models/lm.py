@@ -7,39 +7,50 @@ parameters; here the model is an ``nn.Module`` holding one ``Block`` per
 layer, in execution order (layer ``g * len(pattern) + p`` is pattern
 position p of group g), walked by a Python loop.
 
-Two execution paths share the parameters:
+Three execution paths share the parameters:
+  train_loss   - full-sequence forward and the chunked cross entropy, each
+                 pattern group checkpointed (``cfg.remat``)
   prefill      - full-sequence forward, returns the last logits and the
                  serve cache (one dict of tensors per layer)
   decode_step  - one token, consumes and updates the cache
 
-Ported so far: mixers ``attn`` (rotary positions or none), ``attn_local``
-(sliding window, with a ring cache of ``window`` slots), ``mamba`` and
-``rwkv``; FFNs ``mlp``, ``moe`` (the dense single-device path) and
-``rwkv_cmix``; token input.  Multimodal and sinusoidal positions, the
-``embeds`` input mode and ``train_loss`` raise ``NotImplementedError``
-until their slices land (ROADMAP.md queue 1, item 8).
+Mixers: ``attn`` and ``attn_local`` (sliding window, with a ring cache of
+``window`` slots), ``mamba``, ``rwkv``.  FFNs: ``mlp``, ``moe`` (the dense
+single-device path), ``rwkv_cmix``.  Positions: ``rope``, ``mrope``
+(three position ids a token), ``sinusoidal`` (added to the input) or none.
+Input: token ids, or embeddings (``input_mode="embeds"``: the stubbed
+frontends of MusicGen and Qwen2-VL, with an untied ``lm_head`` and no
+``embed`` table).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.core.numerics import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import rwkv6 as rwkv_mod
-from repro_torch.models.moe import MoEConfig, apply_moe, init_moe
+from repro_torch.models.moe import MoEConfig, apply_moe, init_moe, moe_shapes
 
-__all__ = ["ModelConfig", "Block", "LM", "init_params", "params_from_jax",
-           "cache_shapes", "init_cache", "cache_from_jax", "cache_to_numpy",
-           "prefill", "decode_step", "train_loss"]
+__all__ = ["ModelConfig", "Block", "LM", "init_params", "param_shapes",
+           "params_from_jax", "grads_to_numpy", "cache_shapes", "init_cache",
+           "cache_from_jax", "cache_to_numpy", "forward_hidden", "train_loss",
+           "prefill", "decode_step"]
 
-_ROADMAP = "ROADMAP.md queue 1, item 8"
+_MIXERS = ("attn", "attn_local", "mamba", "rwkv")
+_FFNS = ("mlp", "moe", "rwkv_cmix")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,22 +110,16 @@ class ModelConfig:
         return self.d_head
 
 
-def _check_supported(cfg: ModelConfig) -> None:
+def _check(cfg: ModelConfig) -> None:
+    """Raises ValueError on a block kind, position or input mode the stack
+    does not know."""
     for mixer, ffn in cfg.pattern:
-        if mixer not in ("attn", "attn_local", "mamba", "rwkv"):
-            raise NotImplementedError(
-                f"{cfg.name}: the {mixer!r} mixer is not ported yet ({_ROADMAP})")
-        if ffn not in ("mlp", "moe", "rwkv_cmix"):
-            raise NotImplementedError(
-                f"{cfg.name}: the {ffn!r} FFN is not ported yet ({_ROADMAP})")
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.input_mode!r} input mode is not ported yet "
-            f"({_ROADMAP})")
-    if cfg.pos not in ("rope", "none"):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.pos!r} positions are not ported yet "
-            f"({_ROADMAP}.4)")
+        if mixer not in _MIXERS or ffn not in _FFNS:
+            raise ValueError(f"{cfg.name}: unknown block ({mixer!r}, {ffn!r})")
+    if cfg.pos not in ("rope", "mrope", "sinusoidal", "none"):
+        raise ValueError(f"{cfg.name}: unknown positions {cfg.pos!r}")
+    if cfg.input_mode not in ("tokens", "embeds"):
+        raise ValueError(f"{cfg.name}: unknown input mode {cfg.input_mode!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -138,19 +143,33 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """The model's parameters: ``embed`` (and ``lm_head`` when the
-    embeddings are not tied), ``blocks`` in execution order, and
-    ``final_norm``."""
+    """The model's parameters: ``embed`` (token input only), ``lm_head``
+    (embedding input, or untied embeddings), ``blocks`` in execution order,
+    and ``final_norm``.  Built with ``requires_grad=False``; training turns
+    gradients on (``make_train_step``)."""
 
     def __init__(self, embed, lm_head, blocks: List[Block], final_norm):
         super().__init__()
-        self.embed = _param_dict(embed)
+        self.embed = None if embed is None else _param_dict(embed)
         self.lm_head = None if lm_head is None else _param_dict(lm_head)
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = _param_dict(final_norm)
 
-    def head_table(self) -> torch.Tensor:
-        return (self.embed if self.lm_head is None else self.lm_head)["table"]
+
+def _has_embed(cfg: ModelConfig) -> bool:
+    return cfg.input_mode == "tokens"
+
+
+def _has_lm_head(cfg: ModelConfig) -> bool:
+    return cfg.input_mode == "embeds" or not cfg.tie_embeddings
+
+
+def _head_table(params: LM, cfg: ModelConfig) -> torch.Tensor:
+    """The output head: the embedding table when tied to token input, else
+    ``lm_head``."""
+    if cfg.tie_embeddings and cfg.input_mode == "tokens":
+        return params.embed["table"]
+    return params.lm_head["table"]
 
 
 def _init_mixer(cfg: ModelConfig, mixer: str, gen: torch.Generator):
@@ -183,15 +202,16 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> LM:
 
     Raises:
         RuntimeError: with no device given and no CUDA card present.
-        NotImplementedError: for a config with parts not ported yet.
+        ValueError: for a config with an unknown block kind or mode.
     """
-    _check_supported(cfg)
+    _check(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
-    embed = L.init_embedding(gen, cfg.vocab, d, cfg.param_dtype)
-    lm_head = (None if cfg.tie_embeddings
-               else L.init_embedding(gen, cfg.vocab, d, cfg.param_dtype))
+    embed = (L.init_embedding(gen, cfg.vocab, d, cfg.param_dtype)
+             if _has_embed(cfg) else None)
+    lm_head = (L.init_embedding(gen, cfg.vocab, d, cfg.param_dtype)
+               if _has_lm_head(cfg) else None)
     blocks = []
     for _ in range(cfg.n_groups):
         for mixer, ffn in cfg.pattern:
@@ -202,6 +222,56 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> LM:
                 "ffn": _init_ffn(cfg, ffn, gen),
             }))
     return LM(embed, lm_head, blocks, L.init_rmsnorm(d, device=dev))
+
+
+def _mixer_shapes(cfg: ModelConfig, mixer: str) -> dict:
+    dt = cfg.param_dtype
+    if mixer in ("attn", "attn_local"):
+        return attn_mod.attn_shapes(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                                    cfg.qk_norm, cfg.qkv_bias, dt)
+    if mixer == "mamba":
+        return mamba_mod.mamba_shapes(cfg.d_model, expand=cfg.mamba_expand,
+                                      d_state=cfg.mamba_d_state, dconv=cfg.mamba_dconv,
+                                      dtype=dt)
+    return rwkv_mod.rwkv_tmix_shapes(cfg.d_model, head_dim=cfg.rwkv_head_dim,
+                                     tp_pad=cfg.tp_pad, dtype=dt)
+
+
+def _ffn_shapes(cfg: ModelConfig, ffn: str) -> dict:
+    if ffn == "mlp":
+        return L.mlp_shapes(cfg.d_model, cfg.d_ff, cfg.act, cfg.param_dtype)
+    if ffn == "moe":
+        return moe_shapes(cfg.d_model, cfg.moe, ep_size=cfg.tp_pad, dtype=cfg.param_dtype)
+    return rwkv_mod.rwkv_cmix_shapes(cfg.d_model, cfg.d_ff, cfg.param_dtype)
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameters as meta-device tensors (no memory), in the reference's
+    tree: ``embed`` / ``lm_head`` / ``final_norm`` dicts and ``blocks``, one
+    dict per pattern position with leaves stacked ``(n_groups, ...)``.  The
+    blocks' dicts list their keys sorted, as the reference's stacking
+    (``jax.tree.map``) leaves them, so sums over the leaves add in its
+    order."""
+    _check(cfg)
+
+    def meta(shapes: dict, lead=()) -> dict:
+        return {k: torch.empty(lead + tuple(shape), dtype=dt, device="meta")
+                for k, (shape, dt) in sorted(shapes.items())}
+
+    vd = {"table": ((cfg.vocab, cfg.d_model), cfg.param_dtype)}
+    norm = {"scale": ((cfg.d_model,), torch.float32)}
+    tree = {}
+    if _has_embed(cfg):
+        tree["embed"] = meta(vd)
+    if _has_lm_head(cfg):
+        tree["lm_head"] = meta(vd)
+    G = (cfg.n_groups,)
+    tree["blocks"] = tuple(
+        {"ffn": meta(_ffn_shapes(cfg, ffn), G), "mixer": meta(_mixer_shapes(cfg, mixer), G),
+         "norm1": meta(norm, G), "norm2": meta(norm, G)}
+        for mixer, ffn in cfg.pattern)
+    tree["final_norm"] = meta(norm)
+    return tree
 
 
 def _from_numpy(x, device) -> torch.Tensor:
@@ -220,7 +290,7 @@ def params_from_jax(cfg: ModelConfig, tree, *, device=None) -> LM:
     pattern position with leaves stacked ``(n_groups, ...)``.  Layer
     ``g * len(pattern) + p`` of the port is group g of position p.  Every
     value comes across bit for bit."""
-    _check_supported(cfg)
+    _check(cfg)
     dev = resolve_device(device)
 
     def leaves(d, g=None):
@@ -233,8 +303,29 @@ def params_from_jax(cfg: ModelConfig, tree, *, device=None) -> LM:
             pos = tree["blocks"][p]
             blocks.append(Block(mixer, ffn, {name: leaves(pos[name], g)
                                              for name in ("norm1", "mixer", "norm2", "ffn")}))
+    embed = leaves(tree["embed"]) if "embed" in tree else None
     lm_head = leaves(tree["lm_head"]) if "lm_head" in tree else None
-    return LM(leaves(tree["embed"]), lm_head, blocks, leaves(tree["final_norm"]))
+    return LM(embed, lm_head, blocks, leaves(tree["final_norm"]))
+
+
+def grads_to_numpy(cfg: ModelConfig, params: LM) -> dict:
+    """The parameters' gradients (``.grad``) in the reference's tree, the
+    inverse of :func:`params_from_jax`'s layout: ``blocks`` one dict per
+    pattern position with leaves stacked ``(n_groups, ...)``, as float32
+    numpy arrays (bf16 gradients convert exactly)."""
+    def grad(p: torch.Tensor) -> np.ndarray:
+        return p.grad.float().cpu().numpy()
+
+    tree = {top: {k: grad(v) for k, v in getattr(params, top).items()}
+            for top in ("embed", "lm_head", "final_norm") if getattr(params, top) is not None}
+    P = len(cfg.pattern)
+    tree["blocks"] = tuple(
+        {part: {name: np.stack([grad(getattr(params.blocks[g * P + p], part)[name])
+                                for g in range(cfg.n_groups)])
+                for name in getattr(params.blocks[p], part)}
+         for part in ("norm1", "mixer", "norm2", "ffn")}
+        for p in range(P))
+    return tree
 
 
 # ---------------------------------------------------------------------------
@@ -257,7 +348,7 @@ def _layer_cache_shapes(cfg: ModelConfig, mixer: str, B: int, S_max: int) -> dic
 
 def cache_shapes(cfg: ModelConfig, B: int, S_max: int) -> List[dict]:
     """Per layer, {name: (shape, dtype)} of the serve cache."""
-    _check_supported(cfg)
+    _check(cfg)
     return [_layer_cache_shapes(cfg, mixer, B, S_max)
             for _ in range(cfg.n_groups) for mixer, _ in cfg.pattern]
 
@@ -290,31 +381,43 @@ def cache_to_numpy(cfg: ModelConfig, cache: List[dict]) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# position embeddings
+# input and position embeddings
 
 
-def _cos_sin(cfg: ModelConfig, S: int, device, pos_offset: int = 0):
+def _embed_input(cfg: ModelConfig, params: LM, batch, pos_offset: int = 0) -> torch.Tensor:
+    """The first residual (B, S, d): the token embeddings, or
+    ``batch["embeds"]`` cast to the param dtype; with sinusoidal positions
+    the table of positions ``pos_offset + [0, S)``, float32 cast to x's
+    dtype, is added."""
+    if cfg.input_mode == "tokens":
+        x = L.embed(params.embed, batch["tokens"])
+    else:
+        x = batch["embeds"].to(cfg.param_dtype)
+    if cfg.pos == "sinusoidal":
+        pe = L.sinusoidal_positions(x.shape[1], cfg.d_model, pos_offset, device=x.device)
+        x = x + pe.to(x.dtype)[None]
+    return x
+
+
+def _cos_sin(cfg: ModelConfig, batch, S: int, device, pos_offset: int = 0):
     """The rotation of positions ``pos_offset + [0, S)``: cos/sin (S,
-    d_head/2) float32 for ``rope``, (None, None) without positions.  (The
-    reference's ``mrope`` and ``sinusoidal`` are refused by
-    ``_check_supported``.)"""
-    if cfg.pos != "rope":
-        return None, None
-    positions = torch.arange(S, device=device) + pos_offset
-    return L.rope_cos_sin(positions, cfg.d_head, cfg.rope_theta)
+    d_head/2) float32 for ``rope``; for ``mrope`` of ``batch["pos_ids"]``
+    (3, B, S) plus ``pos_offset``, (B, S, d_head/2); (None, None) otherwise
+    (sinusoidal positions are added at the input)."""
+    if cfg.pos == "rope":
+        positions = torch.arange(S, device=device) + pos_offset
+        return L.rope_cos_sin(positions, cfg.d_head, cfg.rope_theta)
+    if cfg.pos == "mrope":
+        return L.mrope_cos_sin(batch["pos_ids"] + pos_offset, cfg.mrope_sections,
+                               cfg.d_head, cfg.rope_theta)
+    return None, None
 
 
 # ---------------------------------------------------------------------------
-# serving
+# training
 
 
-def _tokens(batch) -> torch.Tensor:
-    if "tokens" not in batch:
-        raise NotImplementedError(f"only token input is ported ({_ROADMAP})")
-    return batch["tokens"]
-
-
-def _ffn(cfg: ModelConfig, block: Block, h: torch.Tensor, state=None):
+def _ffn(cfg: ModelConfig, block: "Block", h: torch.Tensor, state=None):
     """Returns (y, new ffn state or {}, the MoE aux loss or 0.0).  Serving
     drops the aux loss, as the reference does; training adds it to the
     loss."""
@@ -331,6 +434,83 @@ def _window(cfg: ModelConfig, mixer: str) -> Optional[int]:
     return cfg.window if mixer == "attn_local" else None
 
 
+def _mixer_train(cfg: ModelConfig, block: "Block", h: torch.Tensor, cos_sin):
+    if block.mixer_kind in ("attn", "attn_local"):
+        return attn_mod.attn_forward(block.mixer, h, cos_sin,
+                                     window=_window(cfg, block.mixer_kind),
+                                     q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    if block.mixer_kind == "mamba":
+        return mamba_mod.mamba_forward(block.mixer, h, use_kernel=cfg.mamba_kernel)
+    return rwkv_mod.rwkv_tmix_forward(block.mixer, h, head_dim=cfg.rwkv_head_dim,
+                                      use_kernel=cfg.rwkv_kernel)
+
+
+def _group_train(cfg: ModelConfig, blocks, cos_sin, x: torch.Tensor):
+    """One pattern group: (x, the group's MoE aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for block in blocks:
+        h = L.rmsnorm(block.norm1, x, cfg.eps)
+        x = x + _mixer_train(cfg, block, h, cos_sin)
+        h = L.rmsnorm(block.norm2, x, cfg.eps)
+        y, _, a = _ffn(cfg, block, h)
+        x = x + y
+        aux = aux + a
+    return x, aux
+
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the matrix products' outputs, recompute
+    the rest (the reference's ``dots_with_no_batch_dims_saveable``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def forward_hidden(params: LM, cfg: ModelConfig, batch):
+    """Full-sequence forward to the final norm: (x (B, S, d), the MoE aux
+    loss summed over layers, float32).  With ``cfg.remat`` each pattern
+    group runs under ``torch.utils.checkpoint`` (non-reentrant), as the
+    reference checkpoints its scan body: the backward reruns the group's
+    forward, the scan kernels included, and ``remat_policy="dots"`` keeps
+    the matrix products' outputs instead of recomputing them."""
+    _check(cfg)
+    x = _embed_input(cfg, params, batch)
+    cos_sin = _cos_sin(cfg, batch, x.shape[1], x.device)
+    P = len(cfg.pattern)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(cfg.n_groups):
+        body = functools.partial(_group_train, cfg, params.blocks[g * P:(g + 1) * P], cos_sin)
+        if cfg.remat:
+            kw = {}
+            if cfg.remat_policy == "dots":
+                kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                     _save_dots)
+            x, a = checkpoint(body, x, use_reentrant=False, **kw)
+        else:
+            x, a = body(x)
+        aux = aux + a
+    return L.rmsnorm(params.final_norm, x, cfg.eps), aux
+
+
+def train_loss(params: LM, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Scalar LM loss (float32): the chunked cross entropy of ``batch
+    ["labels"]`` plus, for MoE configs, ``aux_coef`` times the aux loss per
+    layer.  batch: {"tokens" (B, S)} or {"embeds" (B, S, d)} (+ "pos_ids"
+    (3, B, S) for mrope), and "labels" (B, S)."""
+    x, aux = forward_hidden(params, cfg, batch)
+    loss = L.chunked_ce_loss(_head_table(params, cfg), x, batch["labels"],
+                             chunk=cfg.loss_chunk)
+    if cfg.moe is not None:
+        loss = loss + cfg.aux_coef * aux / max(1, cfg.n_layers)
+    return loss
+
+
+# ---------------------------------------------------------------------------
+# serving
+
+
 def _prime_ring(k_full: torch.Tensor, W: int) -> torch.Tensor:
     """(B, S, KH, hd) full keys -> (B, W, KH, hd) ring holding the last W
     tokens at slots (t mod W); slots no token reached stay zero."""
@@ -342,31 +522,31 @@ def _prime_ring(k_full: torch.Tensor, W: int) -> torch.Tensor:
     return ring
 
 
-def _logits(params: LM, x: torch.Tensor) -> torch.Tensor:
+def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x (B, d) -> (B, vocab) float32: the head's products accumulated in
     float32, as the reference's ``preferred_element_type=f32`` asks (bf16
     products are exact in float32, so upcasting first gives the same sum)."""
-    return x.float() @ params.head_table().float().T
+    return x.float() @ _head_table(params, cfg).float().T
 
 
 @torch.no_grad()
 def prefill(params: LM, cfg: ModelConfig, batch, S_max: Optional[int] = None):
     """Full-sequence forward that also builds the serve cache.
 
-    batch: {"tokens": (B, S) int}.  Returns (last logits (B, vocab) f32,
-    cache); ``S_max`` sizes the global attention cache (defaults to the
+    batch: {"tokens": (B, S) int} or {"embeds": (B, S, d)} (+ "pos_ids" (3,
+    B, S) for mrope).  Returns (last logits (B, vocab) f32, cache); ``S_max``
+    sizes the global attention cache (defaults to the
     prompt length), and a sliding-window layer's ring holds ``min(window,
     S_max)`` slots, primed with the prompt's last tokens.  With
     ``cfg.rwkv_kernel`` / ``cfg.mamba_kernel`` the scans run through the
     CUDA kernels (one launch per rwkv / mamba layer when the tensors lie on
     the card).
     """
-    _check_supported(cfg)
-    tokens = _tokens(batch)
-    S = tokens.shape[1]
+    _check(cfg)
+    x = _embed_input(cfg, params, batch)
+    S = x.shape[1]
     S_max = S_max or S
-    x = L.embed(params.embed, tokens)
-    cos_sin = _cos_sin(cfg, S, tokens.device)
+    cos_sin = _cos_sin(cfg, batch, S, x.device)
     caches = []
     for block in params.blocks:
         h = L.rmsnorm(block.norm1, x, cfg.eps)
@@ -399,21 +579,21 @@ def prefill(params: LM, cfg: ModelConfig, batch, S_max: Optional[int] = None):
         x = x + y
         caches.append(cache)
     x = L.rmsnorm(params.final_norm, x, cfg.eps)
-    return _logits(params, x[:, -1]), caches
+    return _logits(params, cfg, x[:, -1]), caches
 
 
 @torch.no_grad()
 def decode_step(params: LM, cfg: ModelConfig, cache: List[dict], batch, pos: int):
-    """One-token serve step: batch {"tokens": (B, 1)}, ``pos`` the absolute
-    position of this token.  Returns (logits (B, vocab) f32, new cache).
+    """One-token serve step: batch {"tokens": (B, 1)} or {"embeds": (B, 1,
+    d)} (+ "pos_ids" (3, B, 1) for mrope, to which ``pos`` is added), ``pos``
+    the absolute position of this token.  Returns (logits (B, vocab) f32, new cache).
     Attention layers write their key and value into the cache tensors in
     place; the recurrent layers' states are new tensors.  No kernel runs
     here: the scans step from a carried state on the plain path, as in the
     reference."""
-    _check_supported(cfg)
-    tokens = _tokens(batch)
-    x = L.embed(params.embed, tokens)
-    cos_sin = _cos_sin(cfg, 1, tokens.device, pos_offset=pos)
+    _check(cfg)
+    x = _embed_input(cfg, params, batch, pos_offset=pos)
+    cos_sin = _cos_sin(cfg, batch, 1, x.device, pos_offset=pos)
     new_cache = []
     for block, c in zip(params.blocks, cache):
         h = L.rmsnorm(block.norm1, x, cfg.eps)
@@ -433,9 +613,4 @@ def decode_step(params: LM, cfg: ModelConfig, cache: List[dict], batch, pos: int
         x = x + y
         new_cache.append(nc)
     x = L.rmsnorm(params.final_norm, x, cfg.eps)
-    return _logits(params, x[:, 0]), new_cache
-
-
-def train_loss(params: LM, cfg: ModelConfig, batch):
-    """Not ported yet: training comes with its own slice."""
-    raise NotImplementedError(f"train_loss is not ported yet ({_ROADMAP})")
+    return _logits(params, cfg, x[:, 0]), new_cache

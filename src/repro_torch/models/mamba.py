@@ -3,12 +3,15 @@
 Selective SSM recurrence per channel d and state s:
     h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t * x_t
     y_t = C_t . h_t + D x_t
-From a zero state with ``use_kernel`` (prefill), the scan runs through the
-selective-scan kernel (``ops.mamba_scan``), which folds ``D`` in.  Otherwise,
-and always from a carried state (decode), the sequence is processed in
-chunks: within a chunk the (decay, update) pairs are scanned step by step
+From a zero state with ``use_kernel`` (training and prefill), the scan runs
+through the selective-scan kernel (``ops.mamba_scan``, which folds ``D``
+in) in the forward of :class:`MambaScanFused`, whose backward is a reverse
+chunk scan restarting from the kernel's chunk-entry states.  Otherwise, and
+always from a carried state (decode), the sequence is processed in chunks:
+within a chunk the (decay, update) pairs are scanned step by step
 (``kernels.ref.linear_scan``), chunks chained by a Python loop carrying the
-(d_inner, d_state) state, and ``D x`` is added after.
+(d_inner, d_state) state, and ``D x`` is added after; autograd runs through
+it.
 """
 from __future__ import annotations
 
@@ -22,8 +25,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import linear_scan, scan_chunk
 from repro_torch.models.layers import normal
 
-__all__ = ["init_mamba", "mamba_forward", "mamba_decode_step",
-           "mamba_state_shapes"]
+__all__ = ["init_mamba", "mamba_shapes", "mamba_forward", "mamba_decode_step",
+           "mamba_state_shapes", "MambaScanFused", "mamba_scan_backward"]
 
 
 def _dims(d_model: int, expand: int):
@@ -48,6 +51,23 @@ def init_mamba(gen: torch.Generator, d_model: int, *, expand: int = 2,
         "A_log": torch.log(A),
         "D": torch.ones((d_inner,), dtype=torch.float32, device=dev),
         "w_out": normal(gen, (d_inner, d_model), dtype, sci),
+    }
+
+
+def mamba_shapes(d_model: int, *, expand: int = 2, d_state: int = 16,
+                 dconv: int = 4, dtype=torch.bfloat16) -> dict:
+    """{name: (shape, dtype)} of :func:`init_mamba`'s parameters."""
+    d_inner, dt_rank = _dims(d_model, expand)
+    return {
+        "w_in": ((d_model, 2 * d_inner), dtype),
+        "conv_w": ((dconv, d_inner), dtype),
+        "conv_b": ((d_inner,), dtype),
+        "w_x": ((d_inner, dt_rank + 2 * d_state), dtype),
+        "w_dt": ((dt_rank, d_inner), dtype),
+        "dt_bias": ((d_inner,), torch.float32),
+        "A_log": ((d_inner, d_state), torch.float32),
+        "D": ((d_inner,), torch.float32),
+        "w_out": ((d_inner, d_model), dtype),
     }
 
 
@@ -88,6 +108,79 @@ def _ssm_scan_chunked(params, dt_raw, Bm, Cm, x, h0, chunk: int):
     return y, h
 
 
+def mamba_scan_backward(dt, x, Bm, Cm, A_log, D, h_bounds, y_bar, hfin_bar) -> tuple:
+    """The selective scan's backward, the reference's ``_fused_bwd``: the
+    gradients of (dt, x, Bm, Cm, A_log, D) from those of y (B, S, d) and of
+    the final state (B, d, s), given the inputs and the chunk-entry states
+    ``h_bounds`` (B, nc, d, s) the forward wrote.
+
+    Chunks run in reverse, each restarting from its entry state.  Within a
+    chunk the states and the state gradients
+        G_t = dL/dh_t = ybar_t C_t + a_{t+1} G_{t+1},   a_t = exp(dt_t A)
+    (plus the carry from the chunk after at its last step) are scanned step
+    by step: a product of decays is never divided out.  The (B, c, d, s)
+    tensors exist one chunk at a time."""
+    Bsz, S, d = dt.shape
+    nc = h_bounds.shape[1]
+    c = S // nc
+    A = -torch.exp(A_log)                                       # (d, s)
+    grads = {name: torch.empty_like(t) for name, t in (("dt", dt), ("x", x), ("B", Bm),
+                                                       ("C", Cm))}
+    A_bar = torch.zeros_like(A_log)
+    gbar = hfin_bar
+    for ci in reversed(range(nc)):
+        sl = slice(ci * c, (ci + 1) * c)
+        dt_i, x_i, B_i, C_i, yb_i = (t[:, sl] for t in (dt, x, Bm, Cm, y_bar))
+        a = torch.exp(dt_i[..., None] * A[None, None])           # (B,c,d,s)
+        b = (dt_i * x_i)[..., None] * B_i[:, :, None, :]
+        hs = [h_bounds[:, ci]]                                   # the state before step 0
+        for t in range(c):
+            hs.append(torch.addcmul(b[:, t], a[:, t], hs[-1]))
+        h_prev = torch.stack(hs[:-1], 1)                         # the state before each step
+        h = torch.stack(hs[1:], 1)                               # the state after it
+        del hs, b
+        e = yb_i[..., None] * C_i[:, :, None, :]                 # dL/dh_t through y_t
+        Gs = [e[:, -1] + gbar]
+        for t in range(c - 2, -1, -1):
+            Gs.append(torch.addcmul(e[:, t], a[:, t + 1], Gs[-1]))
+        G = torch.stack(Gs[::-1], 1)                             # (B,c,d,s)
+        del Gs, e
+        ga = G * h_prev * a                                      # dL/d(dt A) per state
+        GB = torch.einsum("bcds,bcs->bcd", G, B_i)
+        grads["dt"][:, sl] = torch.einsum("bcds,ds->bcd", ga, A) + GB * x_i
+        grads["x"][:, sl] = GB * dt_i + D[None, None] * yb_i
+        grads["B"][:, sl] = torch.einsum("bcds,bcd->bcs", G, dt_i * x_i)
+        grads["C"][:, sl] = torch.einsum("bcd,bcds->bcs", yb_i, h)
+        A_bar += torch.einsum("bcds,bcd->ds", ga, dt_i)
+        gbar = a[:, 0] * G[:, 0]
+    # dA/dA_log = -exp(A_log) = A
+    D_bar = torch.einsum("bsd,bsd->d", y_bar, x)
+    return grads["dt"], grads["x"], grads["B"], grads["C"], A_bar * A, D_bar
+
+
+class MambaScanFused(torch.autograd.Function):
+    """The selective scan from a zero state, ``D`` folded in, with a custom
+    backward, the reference's ``mamba_scan_fused``: dt, x (B, S, d) float32
+    (dt after the softplus), Bm, Cm (B, S, s), A_log (d, s), D (d,) -> (y
+    (B, S, d), h_fin (B, d, s)).
+
+    The forward is ``ops.mamba_scan`` (the selective-scan kernel on the
+    card, its plain version on the CPU), which also returns the chunk-entry
+    states the backward (:func:`mamba_scan_backward`) restarts from.  Under
+    ``torch.utils.checkpoint`` the recomputed forward launches the kernel
+    again and saves its own states."""
+
+    @staticmethod
+    def forward(ctx, dt, x, Bm, Cm, A_log, D):
+        y, h_fin, h_bounds = ops.mamba_scan(dt, x, Bm, Cm, A_log, D)
+        ctx.save_for_backward(dt, x, Bm, Cm, A_log, D, h_bounds)
+        return y, h_fin
+
+    @staticmethod
+    def backward(ctx, y_bar, hfin_bar):
+        return mamba_scan_backward(*ctx.saved_tensors, y_bar.contiguous(), hfin_bar)
+
+
 def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             state: Optional[torch.Tensor] = None):
     """Depthwise causal conv: x (B, S, d), w (dconv, d).  ``state`` holds the
@@ -121,8 +214,8 @@ def _ssm_inner(params, xz: torch.Tensor, conv_state, h0, chunk: int,
     dt_raw, Bm, Cm = proj.split([dt_rank, d_state, d_state], dim=-1)
     if use_kernel:
         dt = _softplus((dt_raw @ params["w_dt"]).float() + params["dt_bias"])
-        y, h_last, _ = ops.mamba_scan(dt, x.float(), Bm.float(), Cm.float(),
-                                      params["A_log"], params["D"])
+        y, h_last = MambaScanFused.apply(dt, x.float(), Bm.float(), Cm.float(),
+                                         params["A_log"], params["D"])
     else:
         y, h_last = _ssm_scan_chunked(params, dt_raw, Bm, Cm, x, h0, chunk)
         y = y + params["D"][None, None] * x.float()

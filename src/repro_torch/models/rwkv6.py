@@ -3,10 +3,12 @@
 The WKV recurrence per head (state S is a (dk, dv) matrix):
     S_t = diag(w_t) S_{t-1} + k_t^T v_t            (w_t in (0,1), data-dep.)
     y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
-From a zero state with ``use_kernel`` (prefill), it runs through the WKV
-kernel (``ops.wkv_scan``); otherwise, and always from a carried state
-(decode), by chunks: within a chunk the (decay, update) pairs are scanned
-step by step, chunks chained by a Python loop (``kernels.ref.wkv_chunked``).
+From a zero state with ``use_kernel`` (training and prefill), it runs
+through the WKV kernel in the forward of :class:`WkvFused`, whose backward
+is a reverse chunk scan restarting from the kernel's chunk-entry states;
+otherwise, and always from a carried state (decode), by chunks: within a
+chunk the (decay, update) pairs are scanned step by step, chunks chained by
+a Python loop (``kernels.ref.wkv_chunked``), and autograd runs through it.
 
 As in the reference, the decay w_t is data-dependent through a LoRA and the
 five token-shift lerp factors are learned per-channel constants.
@@ -23,8 +25,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import wkv_chunked
 from repro_torch.models.layers import normal
 
-__all__ = ["init_rwkv_tmix", "rwkv_tmix_forward", "init_rwkv_cmix",
-           "rwkv_cmix_forward", "rwkv_state_shapes"]
+__all__ = ["init_rwkv_tmix", "rwkv_tmix_shapes", "rwkv_tmix_forward",
+           "init_rwkv_cmix", "rwkv_cmix_shapes", "rwkv_cmix_forward",
+           "rwkv_state_shapes", "WkvFused", "wkv_backward"]
 
 LORA_RANK = 64
 
@@ -57,6 +60,26 @@ def init_rwkv_tmix(gen: torch.Generator, d_model: int, *, head_dim: int = 64,
     }
 
 
+def rwkv_tmix_shapes(d_model: int, *, head_dim: int = 64, tp_pad: int = 1,
+                     dtype=torch.bfloat16) -> dict:
+    """{name: (shape, dtype)} of :func:`init_rwkv_tmix`'s parameters."""
+    H = _heads(d_model, head_dim, tp_pad)
+    d_attn = H * head_dim
+    return {
+        "mu": ((5, d_model), dtype),
+        "w_r": ((d_model, d_attn), dtype),
+        "w_k": ((d_model, d_attn), dtype),
+        "w_v": ((d_model, d_attn), dtype),
+        "w_g": ((d_model, d_attn), dtype),
+        "w_o": ((d_attn, d_model), dtype),
+        "w_decay_base": ((d_attn,), torch.float32),
+        "w_decay_a": ((d_model, LORA_RANK), dtype),
+        "w_decay_b": ((LORA_RANK, d_attn), dtype),
+        "u": ((H, head_dim), torch.float32),
+        "ln_scale": ((d_attn,), torch.float32),
+    }
+
+
 def rwkv_state_shapes(B: int, d_model: int, *, head_dim: int = 64,
                       tp_pad: int = 1) -> dict:
     """{name: (shape, dtype)} of one layer's serve state."""
@@ -85,6 +108,79 @@ def _wkv_chunked(w, k, v, r, u, S0, chunk: int):
     return y, S_fin
 
 
+def wkv_backward(w, k, v, r, u, s_bounds, y_bar, sfin_bar) -> tuple:
+    """The WKV scan's backward, the reference's ``_wkv_bwd``: the gradients
+    of (w, k, v, r, u) from those of y (B, S, H, dv) and of the final state
+    (B, H, dk, dv), given the inputs and the chunk-entry states ``s_bounds``
+    (B, nc, H, dk, dv) the forward wrote.
+
+    Chunks run in reverse, each restarting from its entry state.  Within a
+    chunk, the states before each step and the state gradients
+        G_t = dL/dS_t = r_{t+1} (x) ybar_{t+1} + w_{t+1} G_{t+1}
+    (G at the chunk's last step is the carry from the chunk after) are
+    scanned step by step: a product of decays is never divided out, since
+    w = exp(-exp(.)) underflows within a chunk.  The (B, c, H, dk, dv)
+    tensors exist one chunk at a time."""
+    B, S, H, dk = k.shape
+    nc = s_bounds.shape[1]
+    c = S // nc
+    uk = u[None, None, :, :]                                    # (1,1,H,dk)
+    grads = {name: torch.empty_like(t) for name, t in (("w", w), ("k", k), ("v", v),
+                                                       ("r", r))}
+    u_bar = torch.zeros_like(u)
+    gbar = sfin_bar
+    for ci in reversed(range(nc)):
+        sl = slice(ci * c, (ci + 1) * c)
+        w_i, k_i, v_i, r_i, yb_i = (t[:, sl] for t in (w, k, v, r, y_bar))
+        a = w_i[..., None]                                       # (B,c,H,dk,1)
+        # the state before each step of the chunk, from its entry state
+        b = k_i[..., None] * v_i[..., None, :]                   # (B,c,H,dk,dv)
+        states = [s_bounds[:, ci]]
+        for t in range(c - 1):
+            states.append(torch.addcmul(b[:, t], a[:, t], states[-1]))
+        S_prev = torch.stack(states, 1)
+        del states, b
+        # G_t, from the carry at the chunk's last step backwards
+        P = r_i[..., None] * yb_i[..., None, :]                  # dL/d(S_prev_t + u b_t)
+        Gs = [gbar]
+        for t in range(c - 1, 0, -1):
+            Gs.append(torch.addcmul(P[:, t], a[:, t], Gs[-1]))
+        G = torch.stack(Gs[::-1], 1)                             # (B,c,H,dk,dv)
+        del Gs
+        vy = (v_i * yb_i).sum(-1, keepdim=True)                  # (B,c,H,1)
+        grads["w"][:, sl] = torch.einsum("bchkv,bchkv->bchk", G, S_prev)
+        grads["k"][:, sl] = torch.einsum("bchkv,bchv->bchk", G, v_i) + uk * r_i * vy
+        grads["v"][:, sl] = (torch.einsum("bchkv,bchk->bchv", G, k_i)
+                             + (uk * r_i * k_i).sum(-1, keepdim=True) * yb_i)
+        grads["r"][:, sl] = torch.einsum("bchkv,bchv->bchk", S_prev, yb_i) + uk * k_i * vy
+        u_bar += (r_i * k_i * vy).sum((0, 1))
+        # dL/d(the chunk's entry state): through step 0's update and its output
+        gbar = torch.addcmul(P[:, 0], a[:, 0], G[:, 0])
+    return grads["w"], grads["k"], grads["v"], grads["r"], u_bar
+
+
+class WkvFused(torch.autograd.Function):
+    """The WKV scan from a zero state with a custom backward, the reference's
+    ``wkv_fused``: w, k, r (B, S, H, dk), v (B, S, H, dv), u (H, dk), float32
+    -> (y (B, S, H, dv), S_fin (B, H, dk, dv)).
+
+    The forward is ``ops.wkv_scan`` (the WKV kernel on the card, its plain
+    version on the CPU), which also returns the chunk-entry states the
+    backward (:func:`wkv_backward`) restarts from.  Under
+    ``torch.utils.checkpoint`` the recomputed forward launches the kernel
+    again and saves its own states."""
+
+    @staticmethod
+    def forward(ctx, w, k, v, r, u):
+        y, s_fin, s_bounds = ops.wkv_scan(w, k, v, r, u)
+        ctx.save_for_backward(w, k, v, r, u, s_bounds)
+        return y, s_fin
+
+    @staticmethod
+    def backward(ctx, y_bar, sfin_bar):
+        return wkv_backward(*ctx.saved_tensors, y_bar.contiguous(), sfin_bar)
+
+
 def rwkv_tmix_forward(params, x: torch.Tensor, *, head_dim: int = 64,
                       chunk: int = 16, state=None, return_state: bool = False,
                       use_kernel: bool = False):
@@ -108,7 +204,7 @@ def rwkv_tmix_forward(params, x: torch.Tensor, *, head_dim: int = 64,
     H = params["u"].shape[0]
     heads = [t.reshape(B, S, H, head_dim).float() for t in (w, k, v, r)]
     if use_kernel and state is None:
-        y, S_fin, _ = ops.wkv_scan(*heads, params["u"])
+        y, S_fin = WkvFused.apply(*heads, params["u"])
     else:
         S0 = (torch.zeros((B, H, head_dim, head_dim), dtype=torch.float32,
                           device=x.device) if state is None else state["wkv"])
@@ -138,6 +234,16 @@ def init_rwkv_cmix(gen: torch.Generator, d_model: int, d_ff: int,
         "w_k": normal(gen, (d_model, d_ff), dtype, sc),
         "w_v": normal(gen, (d_ff, d_model), dtype, 1.0 / math.sqrt(d_ff)),
         "w_r": normal(gen, (d_model, d_model), dtype, sc),
+    }
+
+
+def rwkv_cmix_shapes(d_model: int, d_ff: int, dtype=torch.bfloat16) -> dict:
+    """{name: (shape, dtype)} of :func:`init_rwkv_cmix`'s parameters."""
+    return {
+        "mu": ((2, d_model), dtype),
+        "w_k": ((d_model, d_ff), dtype),
+        "w_v": ((d_ff, d_model), dtype),
+        "w_r": ((d_model, d_model), dtype),
     }
 
 

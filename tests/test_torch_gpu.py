@@ -25,7 +25,9 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import make_plan
 from repro_torch.core.partition import block_decompose
 from repro_torch.kernels import coded_decode, coded_encode, coded_fused, ops, ref, wkv_scan
-from repro_torch.models import decode_step, init_params, prefill
+from repro_torch.models import decode_step, init_params, prefill, train_loss
+from repro_torch.models.mamba import MambaScanFused
+from repro_torch.models.rwkv6 import WkvFused
 from repro_torch.models.moe import MoEConfig, _route, apply_moe, init_moe
 from repro_torch.runtime import CodedMatmul
 
@@ -654,6 +656,61 @@ def test_smoke_model_with_kernels_matches_without(cuda, arch, dtype, tol):
     dec_off, _ = decode_step(params, cfg, off_cache, {"tokens": toks[:, 96:]}, 96)
     _close(dec_on, dec_off, tol)
     assert ops.launch_counts() == counts          # decode launches no kernel
+
+
+@pytest.mark.parametrize("scan,S", [("wkv", 200), ("wkv", 128), ("mamba", 200), ("mamba", 256)])
+def test_scan_backward_through_the_kernel_matches_autograd(cuda, scan, S):
+    """WkvFused / MambaScanFused on the card (the kernel forward, the plain
+    PyTorch reverse chunk scan backward) against autograd through the plain
+    scans, every input's gradient within 1e-4 of its largest value, at
+    chunks of the kernel's size and at S = 200 (chunks halved to 8); one
+    launch each."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+    if scan == "wkv":
+        x = (torch.exp(-torch.exp(rand(2, S, 3, 64))), rand(2, S, 3, 64), rand(2, S, 3, 40),
+             rand(2, S, 3, 64), rand(3, 64))
+        fused, plain = WkvFused.apply, ref.wkv_scan_ref
+    else:
+        x = (torch.nn.functional.softplus(rand(2, S, 300) - 2.0), rand(2, S, 300),
+             rand(2, S, 16), rand(2, S, 16), torch.rand((300, 16), generator=gen, device=cuda),
+             rand(300))
+        fused, plain = MambaScanFused.apply, ref.mamba_scan_ref
+    grads = []
+    for fn in (fused, plain):
+        ts = [t.clone().requires_grad_() for t in x]
+        y, fin = fn(*ts)[:2]
+        torch.sum(y * torch.cos(y)).add(torch.sum(fin)).backward()
+        grads.append([t.grad for t in ts])
+    for g, e in zip(*grads):
+        _close(g, e)
+    assert ops.launch_counts() == dict(_NONE, **{f"{scan}_scan": 1})
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_3b", "jamba_1_5_large_398b"])
+def test_smoke_train_step_with_kernels_matches_without(cuda, arch):
+    """A SMOKE model's loss and every gradient on the card, float32, through
+    the scan kernels against the plain path on the same weights: the loss
+    within 1e-5, each leaf within 1e-3 of its largest value; the kernel
+    launched twice a scan layer (the forward and remat's recomputation)."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    on = dataclasses.replace(cfg, rwkv_kernel=True, mamba_kernel=True)
+    params = init_params(cfg, seed=4, device=cuda)
+    params.requires_grad_(True)
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    toks = torch.randint(0, cfg.vocab, (2, 128), generator=gen, device=cuda)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    out = []
+    for c in (on, cfg):
+        loss = train_loss(params, c, batch)
+        out.append((loss.item(), torch.autograd.grad(loss, list(params.parameters()))))
+    n_scan = sum(m in ("rwkv", "mamba") for m, _ in cfg.pattern) * cfg.n_groups
+    assert sum(ops.launch_counts().values()) == 2 * n_scan
+    assert abs(out[0][0] - out[1][0]) <= 1e-5 * abs(out[1][0])
+    for g, e in zip(out[0][1], out[1][1]):
+        _close(g, e, 1e-3)
 
 
 @pytest.mark.parametrize("arch", ["gemma3_12b", "qwen2_moe_a2_7b", "qwen3_moe_235b_a22b",

@@ -35,9 +35,8 @@ from repro.models import prefill as jprefill
 from repro.models import rwkv6 as jrwkv
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels import ops
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import (
-    ModelConfig,
     attention,
     cache_from_jax,
     cache_to_numpy,
@@ -49,7 +48,6 @@ from repro_torch.models import (
     params_from_jax,
     prefill,
     rwkv6,
-    train_loss,
 )
 
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
@@ -141,7 +139,7 @@ def _perturbed_params(jcfg, seed=0):
 
 
 def test_configs_match_the_reference_field_for_field():
-    for arch in ARCHS:
+    for arch in ARCHS + ("musicgen_medium", "qwen2_vl_72b"):
         for port_cfg, jax_cfg in ((get_config(arch), jget_config(arch)),
                                   (get_smoke_config(arch), jget_smoke_config(arch))):
             a, b = dataclasses.asdict(port_cfg), dataclasses.asdict(jax_cfg)
@@ -151,11 +149,12 @@ def test_configs_match_the_reference_field_for_field():
     assert get_smoke_config("granite_3_8b").vocab == 515
     assert get_config("gemma3_12b").window == 1024
     assert get_config("qwen3_moe_235b_a22b").moe.n_experts == 128
-    # what is still unported: embedding input, sinusoidal and multimodal rope
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("qwen2_vl_72b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_smoke_config("musicgen_medium")
+    # the two embedding-input configs: sinusoidal and multimodal positions
+    assert get_config("musicgen_medium").pos == "sinusoidal"
+    assert get_smoke_config("qwen2_vl_72b").mrope_sections == (4, 2, 2)
+    assert get_config("qwen2_vl_72b").input_mode == "embeds"
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config("gpt2")
 
 
 @pytest.mark.parametrize("act", ["swiglu", "gelu"])
@@ -530,25 +529,23 @@ def test_smoke_decode_matches_full_forward(arch):
 
 
 def test_unported_parts_raise_naming_the_roadmap():
-    """What is still unported: the musicgen and qwen2-vl configs (their
-    registry entries and the configs themselves), multimodal and sinusoidal
-    positions, embedding input, and training."""
-    for arch in ("musicgen_medium", "qwen2_vl_72b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_smoke_config(arch)
-        jcfg = jget_smoke_config(arch)
-        assert jcfg.moe is None
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            init_params(ModelConfig(**dataclasses.asdict(jcfg)), device="cpu")
-    dense = _dense(get_smoke_config("jamba_1_5_large_398b"))
-    for bad in (dataclasses.replace(dense, pos="sinusoidal"),
-                dataclasses.replace(dense, pos="mrope"),
-                dataclasses.replace(dense, input_mode="embeds")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            init_params(bad, device="cpu")
-    params = init_params(dense, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_loss(params, dense, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    """What is still unported: sharding (ROADMAP.md queue 1, item 8.6).  The
+    expert-parallel MoE path (``apply_moe`` given sharding rules) and the
+    trainer's ``build`` given a mesh refuse, naming the item; everything
+    else of the LM substrate (embedding input, sinusoidal and multimodal
+    positions, training) runs."""
+    cfg = get_smoke_config("qwen2_moe_a2_7b")
+    params = init_params(cfg, device="cpu")
+    x = torch.zeros((1, 4, cfg.d_model), dtype=cfg.param_dtype)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8.6"):
+        moe.apply_moe(params.blocks[0].ffn, x, cfg.moe, rules=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8.6"):
+        train.build("qwen3_0_6b", True, 32, 2, 1e-3, 4, mesh=object())
+    cfg_t, step_fn, pipe = train.build("qwen3_0_6b", True, 32, 2, 1e-3, 4)
+    assert cfg_t == get_smoke_config("qwen3_0_6b") and callable(step_fn)
+    assert pipe.batch(0)["tokens"].shape == (2, 32)
+    with pytest.raises(ValueError, match="unknown block"):
+        init_params(dataclasses.replace(cfg, pattern=(("conv", "mlp"),)), device="cpu")
 
 
 def test_entry_points_need_a_card_unless_asked(monkeypatch):

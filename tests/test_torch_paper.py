@@ -141,7 +141,8 @@ def test_paper_config_equals_reference():
     assert "paper_matmul" not in list_archs()
     assert set(list_archs()) == {"jamba_1_5_large_398b", "rwkv6_3b", "qwen3_0_6b",
                                  "qwen2_0_5b", "granite_3_8b", "gemma3_12b",
-                                 "qwen2_moe_a2_7b", "qwen3_moe_235b_a22b"}
+                                 "qwen2_moe_a2_7b", "qwen3_moe_235b_a22b",
+                                 "musicgen_medium", "qwen2_vl_72b"}
 
 
 # -- the deprecated shims -----------------------------------------------------

@@ -280,7 +280,7 @@ import benchmarks.torch_fig1_latency, benchmarks.torch_tradeoff_sweep
 import benchmarks.torch_control_bench, benchmarks.torch_serve_bench
 import benchmarks.torch_fused_breakdown, benchmarks.torch_encode_breakdown
 sys.path.insert(0, {examples!r})
-import torch_serve_lm, torch_straggler_sim
+import torch_serve_lm, torch_straggler_sim, torch_train_lm
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
