@@ -193,9 +193,45 @@ kernel 7 twice a layer a step, remat recomputing the forward), after its
 kernel path is held against the plain one in float32 on 4 layers (loss
 1e-4, every gradient leaf 1e-3).  12c trains ``qwen3_0_6b`` whole the same
 way, and Jamba's SMOKE config through kernel 6 against its plain path.
-12d runs the trainer CLI (6 steps checkpointing every 3; resumed from step
-3, its losses equal) and ``examples/torch_train_lm.py --quick`` on the
-card.  Their launches join the ``kernels`` line.
+12d runs the trainer CLI (6 steps checkpointing every 3; the checkpoint of
+step 3 checked to be the reference's layout, its manifest keys and one leaf
+per stacked leaf; resumed from it, its losses equal) and
+``examples/torch_train_lm.py --quick`` on the card.  Their launches join
+the ``kernels`` line.
+
+Phase 3c (after 3b) holds, on the card, each shape past a cap the kernels
+once had (not the TPU kernels) against its plain version: the polycode K=100 plan's
+(64, 100) float64 decode panel (51,200 bytes) and a (300, 100) one past the
+card's per-block shared memory through kernels 2 and 3 (row slabs), 200
+chunks through kernel 3 (groups of 128, aligned, odd and stacked bounds),
+P = Q = 80 blocks through kernels 1 and 4 in float64 and bf16 (kernel 4
+also with a 256,000-byte panel: slabs of workers), WKV at dk 128, 256, 96
+and 320 and dv 256, and the selective scan at s 64, 24 and 100; the decode
+bit for bit, the rest within phase 3/3b's tolerances; its launches (each
+row slab, chunk group, worker slab and scan group counts) join the
+``kernels`` line.
+
+Phases 13a-13b run last, on ranks sharing the card over gloo
+(``launch/mesh.py``; the all_to_all and the DTensor collectives cross host
+memory: a stand-in for NCCL).  13a runs Jamba-1.5-Large's expert layer at
+full width expert-parallel on a (1, 4) mesh (4 of the 16 experts a rank,
+CUDA IPC views of the parent's weights) on 6h's 4 x 1024 tokens
+(sequence-sharded four ways) and a 4-token decode batch: at
+capacity_factor E/k no token-slot drops and the output holds to
+``_moe_dense``'s on the same tokens (5e-2, 6h's bound); at the config's
+1.25 the dropped share is printed; the all_to_all and the expert products
+are timed apart, and each rank's peak memory printed.  13b runs one
+``make_train_step(cfg, ocfg, rules)`` step on a (2, 2) mesh of four ranks
+(FSDP + TP + EP by the reference's rules, float32, 4 x 1024 tokens from
+``make_pipeline``) of Qwen3-0.6B at full width cut to 4 of 28 layers,
+RWKV6-3B at full width cut to 2 of 32 layers (kernel 7 per shard) and
+Jamba's SMOKE config (kernel 6 per shard, EP; aux_coef 0, as the EP aux
+loss is by definition not the dense one), each against the single-device
+step on the card: the loss and the gradient norm within 1e-4 relative,
+each gradient leaf (taken in a pass of its own before the step) within
+1e-3 of its largest value, every parameter after the step within 1e-2; it
+prints the step times, the peak memory and the scan launches per rank,
+which join the ``kernels`` line.
 
 Phases 7-11 run after phase 5b and before the LM phases.  Phase 3b holds
 the WKV and selective-scan kernels against their plain versions at the LM
@@ -252,7 +288,7 @@ from repro_torch.configs.paper_matmul import CONFIG as PAPER  # noqa: E402
 from repro_torch.control import AdaptiveServer, ExpectedLatencyPolicy, PlanLadder  # noqa: E402
 from repro_torch.core import bounds, make_plan  # noqa: E402
 from repro_torch.core.partition import block_decompose  # noqa: E402
-from repro_torch.kernels import _build, coded_decode, coded_fused, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, coded_decode, coded_fused, mamba_scan, ops, ref  # noqa: E402
 from repro_torch.data import make_pipeline  # noqa: E402
 from repro_torch.launch import coded_serve  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
@@ -261,6 +297,7 @@ from repro_torch.launch.serve import _make_batch, generate  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.launch.train import to_batch  # noqa: E402
 from repro_torch.models import cache_shapes, decode_step, init_params, prefill  # noqa: E402
+from repro_torch.models import param_shapes  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import train_loss  # noqa: E402
@@ -426,6 +463,19 @@ TRAIN_LOSS_TOL = 1e-4
 TRAIN_STEPS = 4
 RWKV_GATE_LAYERS = 4
 JAMBA_SMOKE_SEQ = 256
+# Phases 13a-13b: the mesh paths on ranks sharing the card over gloo.
+EP_RANKS = 4
+EP_TIMEOUT_S = 600
+SHARDED_QWEN_LAYERS = 4
+SHARDED_RWKV_LAYERS = 2
+SHARDED_SEQ = 1024
+SHARDED_PARAM_TOL = 1e-2
+# 13b's gradients: the norm within 1e-4 relative (the CPU tests' bound); each
+# leaf's largest |difference| within 1e-3 of its largest |gradient|, which a
+# halved (0.5), zeroed or doubled (1) or sign-flipped (2) leaf fails
+SHARDED_GRAD_NORM_TOL = 1e-4
+SHARDED_GRAD_TOL = 1e-3
+SHARDED_TIMEOUT_S = 600
 
 
 def phase(name: str) -> None:
@@ -504,7 +554,10 @@ def build_phase() -> None:
             if "<double" in kernel:
                 counts[kernel] = section.count("DMMA")
         print(f"{entry}: DMMA instructions per float64 kernel {counts}")
-        check(len(counts) == 2 and all(counts.values()),
+        # two copy widths; kernel 1 also with a head of block offsets of
+        # compile-time (64) or run-time (0) size
+        want = 4 if name == "coded_fused" else 2
+        check(len(counts) == want and all(counts.values()),
               f"{entry}: a float64 kernel without DMMA instructions: {counts}")
     for name in ("wkv_scan", "mamba_scan"):
         print(f"{name}: {ptxas_summary(logs[name]) or 'built before this run'}")
@@ -546,7 +599,8 @@ def build_phase() -> None:
     ex2 = {kernel_name(section.split("\n", 1)[0]): section.count("MUFU.EX2")
            for section in _build.sass("mamba_scan").split("Function : ")[1:]}
     print(f"mamba_scan: MUFU.EX2 instructions per kernel {ex2}")
-    check(len(ex2) == 4 and all(ex2.values()), f"mamba_scan: a kernel without MUFU.EX2: {ex2}")
+    check(len(ex2) == len(mamba_scan.S_INSTANCES) and all(ex2.values()),
+          f"mamba_scan: a kernel without MUFU.EX2: {ex2}")
     # kernel 3's bulk-copy form must copy through the bulk-copy engine
     print(f"coded_decode: {ptxas_summary(logs['coded_decode']) or 'built before this run'}")
     blk = {kernel_name(head): section.count("UBLKCP")
@@ -1054,6 +1108,92 @@ def check_scan(name: str, out, exp) -> float:
         check(o.shape == e.shape and rel <= SCAN_TOL, f"{name} {label} rel err {rel}")
         worst = max(worst, err)
     return worst
+
+
+def caps_phase(gen, smi: str) -> dict:
+    """Phase 3c: each shape just past a cap the kernels once had,
+    against its plain version on the same inputs: the decode bit for bit
+    (integer panels and products, so every sum is exact in any order),
+    the float kernels within phase 3/3b's tolerances.  Returns the launches
+    (the counts are set to 0 first)."""
+    phase("3c shapes past the old caps against their plain versions")
+    print(f"on {smi}")
+    ops.reset_launch_counts()
+
+    def ints(shape, lo, hi, dtype=torch.float64):
+        return torch.randint(lo, hi + 1, shape, generator=gen, device="cuda").to(dtype)
+
+    # kernels 2 and 3: the polycode K=100 plan's panel, (64, 100) float64 =
+    # 51,200 bytes (past the old 48 KB), and a (300, 100) panel (240,000
+    # bytes) past the card's per-block shared memory: decoded in row slabs
+    poly = make_plan("polycode", 1, 8, 8, K=100, L=16)
+    mn, K = poly.scheme.grid.m * poly.scheme.grid.n, poly.K
+    E = 3 * 4096 + 5
+    for rows in (mn, 300):
+        W, Y = ints((rows, K), -4, 4), ints((K, E), -1000, 1000)
+        for extract in (True, False):
+            check_exact(f"decode panel ({rows}, {K}) {W.numel() * 8} bytes extract={extract}",
+                        ops.decode(W, Y, poly.s, extract=extract),
+                        ref.decode_ref(W, Y, poly.s, extract))
+        W_stack = ints((4, rows, K), -4, 4)
+        for bounds in ([0, 4096, 8192, 10000, E], [0, 4095, 8191, 10001, E]):
+            check_exact(f"decode_partial panel ({rows}, {K}) Q=4 bounds {bounds}",
+                        ops.decode_partial(W_stack, Y, poly.s, bounds=bounds),
+                        ref.decode_partial_ref(W_stack, Y, poly.s, True, bounds))
+    # kernel 3: sub_tasks = 200 chunks (past the old 128), aligned and odd
+    W_stack = ints((200, 4, 10), -4, 4)
+    Y = ints((10, 200 * 512 + 7), -1000, 1000)
+    E = Y.shape[1]
+    for label, bounds in (("aligned", [0, *range(512, 200 * 512, 512), E]),
+                          ("odd", [0, *range(511, 199 * 512, 512), E])):
+        check_exact(f"decode_partial Q=200 {label} bounds",
+                    ops.decode_partial(W_stack, Y, 2.0 ** 20, bounds=bounds),
+                    ref.decode_partial_ref(W_stack, Y, 2.0 ** 20, True, bounds))
+    Ys = ints((200, 10, 640), -1000, 1000)
+    check_exact("decode_partial Q=200 stacked", ops.decode_partial(W_stack, Ys, 2.0 ** 20),
+                ref.decode_partial_ref(W_stack, Ys, 2.0 ** 20, True))
+    # kernels 1 and 4: P = Q = 80 blocks a side (past the old 64), float64
+    # and bf16; kernel 4 also with a float64 panel past the card's shared
+    # memory (K = 400: 256,000 bytes, encoded in slabs of workers)
+    for dtype in (torch.float64, torch.bfloat16):
+        for data in ("random", "integer"):
+            def make(*shape):
+                if data == "integer":
+                    return ints(shape, -3, 3, dtype)
+                return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            ca, cb = make(6, 80), make(6, 80)
+            a, b = make(8, 10, 64, 96), make(10, 8, 64, 80)
+            out, exp = ops.fused_worker(ca, cb, a, b), ref.fused_worker_ref(ca, cb, a, b)
+            name = f"fused_worker P=Q=80 {data}"
+            if dtype == torch.bfloat16:
+                half_check(f"{name} bf16", out, exp, data)
+            elif data == "integer":
+                check_exact(f"{name} float64", out, exp)
+            else:
+                check_close(name, out, exp, dtype)
+            for Kc in (7, 400):
+                c = make(Kc, 80)
+                out = ops.encode(c, a)
+                exp = ref.encode_ref(c, a.reshape(80, -1)).reshape(out.shape)
+                name = f"encode P=80 K={Kc} ({Kc * 80 * a.element_size()}-byte panel) {data}"
+                if dtype == torch.bfloat16:
+                    half_check(f"{name} bf16", out, exp, data)
+                elif data == "integer":
+                    check_exact(f"{name} float64", out, exp)
+                else:
+                    check_close(name, out, exp, dtype)
+    # kernel 7: dk = 128 and 256 (new instances), 96 (padded to 128), 320
+    # (rows in groups of 256), dv = 256 (past the old 128)
+    for dk, dv in ((128, 64), (64, 256), (128, 256), (96, 80), (320, 64)):
+        x = wkv_inputs(gen, B=2, S=200, H=3, dk=dk, dv=dv)
+        check_scan(f"wkv_scan dk={dk} dv={dv}", ops.wkv_scan(*x), ref.wkv_scan_ref(*x))
+    # kernel 6: s = 64 (a new instance), 24 (padded to 32), 100 (in groups)
+    for s_ in (64, 24, 100):
+        x = mamba_inputs(gen, B=2, S=300, d=200, s=s_)
+        check_scan(f"mamba_scan s={s_}", ops.mamba_scan(*x), ref.mamba_scan_ref(*x))
+    counts = ops.launch_counts()
+    print(f"3c launches {nonzero(counts)}")
+    return {"counts": counts}
 
 
 def scan_kernels_phase(gen) -> dict:
@@ -1898,7 +2038,18 @@ def train_cli_phase() -> dict:
         args = ["--arch", "qwen3_0_6b", "--smoke", "--log-every", "100", "--ckpt-dir", ck]
         full = train_cli.main(args + ["--steps", "6", "--ckpt-every", "3"])
         shutil.rmtree(Path(ck) / "step_000000006")
+        # the checkpoint resumed from is the reference's layout: its manifest
+        # keys, and one leaf per stacked parameter leaf in each of params,
+        # master, mu and nu, plus the step
+        manifest = json.loads((Path(ck) / "step_000000003" / "manifest.json").read_text())
+        n_stacked = len(jax_leaves(param_shapes(get_smoke_config("qwen3_0_6b"))))
+        check(sorted(manifest) == ["dtypes", "extra", "index", "n_leaves", "step", "treedef"]
+              and manifest["n_leaves"] == 4 * n_stacked + 1,
+              f"12d checkpoint manifest {sorted(manifest)}, {manifest['n_leaves']} leaves")
         resumed = train_cli.main(args + ["--steps", "6", "--resume"])
+    print(f"12d checkpoint of step 3 in the reference's layout: manifest keys "
+          f"{sorted(manifest)}, {manifest['n_leaves']} leaves (4 x {n_stacked} stacked "
+          f"parameter leaves + the step)")
     print(f"12d resume: full run losses {full}; resumed from step 3 {resumed}")
     check(resumed == full[3:], f"12d resumed losses {resumed} != {full[3:]}")
     out = io.StringIO()
@@ -1910,6 +2061,16 @@ def train_cli_phase() -> dict:
     print(f"phase 12d: {time.perf_counter() - start:.1f} s; the twin's loss {losses[0]:.3f} -> "
           f"{losses[-1]:.3f}")
     return {"counts": dict.fromkeys(KERNELS, 0)}
+
+
+def jax_leaves(tree) -> list:
+    """A tree's leaves in ``jax.tree.leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in jax_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in jax_leaves(v)]
+    return [tree]
+
 
 def drive(label: str, requests, C_ref, cm, per_request: dict) -> dict:
     """Serve ``requests`` [(name, call)] through one path, each C exact and
@@ -2923,6 +3084,285 @@ def mesh_phase(seed: int, smi: str) -> dict:
     return {"counts": counts}
 
 
+def ep_rank(mesh, params, x, x_dec, cf_cfg, cfg_full):
+    """13a on one rank: the expert layer's EP path on this rank's shards of
+    the parent's weights and tokens (CUDA IPC views, no copies), at no drops
+    (capacity_factor E/k) and at the config's own; returns rank 0's whole
+    outputs, each rank's time split, kept share and peak memory."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.distributed.sharding import axis_rules, default_rules
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rules = default_rules(mesh)
+    E = params["w_gate"].shape[0]
+    ep = mesh.size(1)
+    e0, e1 = mesh.get_local_rank("model") * (E // ep), (mesh.get_local_rank("model") + 1) * (E // ep)
+    local = {"router": DTensor.from_local(params["router"], mesh, [Replicate(), Replicate()],
+                                          run_check=False)}
+    for name in ("w_gate", "w_up", "w_down"):
+        local[name] = DTensor.from_local(params[name][e0:e1], mesh, [Replicate(), Shard(0)],
+                                         run_check=False)
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    with torch.inference_mode(), axis_rules(rules):
+        for label, mc in (("no drops", cf_cfg), ("config", cfg_full.moe)):
+            with moe_mod.ep_timing() as split:
+                y, aux = apply_moe(local, x, mc)
+                torch.cuda.synchronize()
+            with moe_mod.ep_timing() as dec_split:
+                y_dec, _ = apply_moe(local, x_dec, mc)
+                torch.cuda.synchronize()
+            # timed again, off the first call's set-up
+            with moe_mod.ep_timing() as timed:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                apply_moe(local, x, mc)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            out[label] = {"y": y.cpu() if mesh.get_rank() == 0 else None,
+                          "y_dec": y_dec.cpu() if mesh.get_rank() == 0 else None,
+                          "aux": float(aux), "kept": split["kept"], "slots": split["slots"],
+                          "dec_kept": dec_split["kept"], "dec_slots": dec_split["slots"],
+                          "wall_ms": wall * 1e3, "a2a_ms": timed["all_to_all"] * 1e3,
+                          "experts_ms": timed["experts"] * 1e3}
+            del y, y_dec
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def ep_phase(seed: int, smi: str) -> dict:
+    """13a: Jamba-1.5-Large's expert layer at full width, expert-parallel on
+    a (1, 4) mesh of four ranks sharing the card over gloo (4 of the 16
+    experts a rank), on 6h's 4 x 1024 prefill tokens (sequence-sharded four
+    ways) and a 4-token decode batch.  At capacity_factor E/k (no drops) it
+    is held against ``_moe_dense`` on the same tokens, computed here before
+    the ranks start; at the config's 1.25 the dropped share is printed.  The
+    all_to_all runs over gloo through host memory: a stand-in for NCCL."""
+    phase("13a Jamba-1.5-Large expert layer, expert-parallel on four ranks")
+    start = time.perf_counter()
+    full = get_config("jamba_1_5_large_398b")
+    mc, d = full.moe, full.d_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_moe(gen, d, mc, ep_size=full.tp_pad, dtype=full.param_dtype)
+    E = params["w_gate"].shape[0]
+    xgen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    x = torch.randn((LM_BATCH, LM_PROMPT, d), generator=xgen, device="cuda",
+                    dtype=full.param_dtype)
+    x_dec = torch.randn((LM_BATCH, 1, d), generator=xgen, device="cuda",
+                        dtype=full.param_dtype)
+    no_drop = dataclasses.replace(mc, capacity_factor=E / mc.top_k)
+    with torch.inference_mode():
+        dense, _ = moe_mod._moe_dense(params, x, mc)
+        dense_dec, _ = moe_mod._moe_dense(params, x_dec, mc)
+    dense, dense_dec = dense.cpu(), dense_dec.cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    print(f"13a: {E} experts top-{mc.top_k}, d {d}, d_ff {mc.d_expert_ff}, "
+          f"{n_bytes / 1e9:.2f} GB bf16 from seed {seed}; dense reference computed and "
+          f"moved to the host; spawning (1, {EP_RANKS}) ranks on the card", flush=True)
+    outs = spawn_mesh(ep_rank, data=1, model=EP_RANKS, device="cuda",
+                      args=(params, x, x_dec, no_drop, full), timeout_s=EP_TIMEOUT_S)
+    first = outs[0].result
+    res = {}
+    for label in ("no drops", "config"):
+        r = first[label]
+        kept = sum(o.result[label]["kept"] for o in outs)
+        slots = sum(o.result[label]["slots"] for o in outs)
+        dec_kept = sum(o.result[label]["dec_kept"] for o in outs)
+        dec_slots = sum(o.result[label]["dec_slots"] for o in outs)
+        rel = lm_rel(r["y"].float(), dense.float())
+        rel_dec = lm_rel(r["y_dec"].float(), dense_dec.float())
+        cf = no_drop.capacity_factor if label == "no drops" else mc.capacity_factor
+        print(f"13a capacity_factor {cf}: prefill {LM_BATCH}x{LM_PROMPT} tokens wall "
+              f"{r['wall_ms']:.2f} ms (rank 0) = all_to_all over gloo (host-staged stand-in, "
+              f"not NCCL) {r['a2a_ms']:.2f} ms + expert products {r['experts_ms']:.2f} ms + "
+              f"routing and scatter {r['wall_ms'] - r['a2a_ms'] - r['experts_ms']:.2f} ms; "
+              f"token-slots kept {kept}/{slots} ({1 - kept / slots:.3%} dropped), decode "
+              f"{dec_kept}/{dec_slots}; against _moe_dense: prefill rel {rel:.3e}, decode rel "
+              f"{rel_dec:.3e}; aux {r['aux']:.4f}; on {smi}")
+        if label == "no drops":
+            check(kept == slots and dec_kept == dec_slots,
+                  f"13a dropped tokens at capacity_factor E/k: {kept}/{slots}")
+            check(rel <= MOE_TOL and rel_dec <= MOE_TOL,
+                  f"13a EP against _moe_dense: rel {rel}, decode {rel_dec}")
+        res[label] = {"wall_ms": r["wall_ms"], "a2a_ms": r["a2a_ms"],
+                      "experts_ms": r["experts_ms"], "dropped": 1 - kept / slots, "rel": rel}
+    peaks = [round(o.result["peak_gib"], 3) for o in outs]
+    print(f"13a peak device memory per rank (GiB, the shared weights not counted): {peaks}")
+    counts = {k: sum(o.launches[k] for o in outs) for k in outs[0].launches}
+    check(not any(counts.values()), f"13a launched {counts}")
+    del params, x, x_dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 13a: {time.perf_counter() - start:.1f} s")
+    return {"counts": counts, **res}
+
+
+def sharded_cfgs() -> list:
+    """13b's configs: (label, config, kernel)."""
+    def f32(cfg, **kw):
+        return dataclasses.replace(cfg, dtype="float32", **kw)
+    qwen = get_config("qwen3_0_6b")
+    rwkv = get_config("rwkv6_3b")
+    jamba = get_smoke_config("jamba_1_5_large_398b")
+    return [
+        (f"qwen3_0_6b {SHARDED_QWEN_LAYERS}/{qwen.n_layers} layers",
+         f32(qwen, n_layers=SHARDED_QWEN_LAYERS), None),
+        (f"rwkv6_3b {SHARDED_RWKV_LAYERS}/{rwkv.n_layers} layers",
+         f32(rwkv, n_layers=SHARDED_RWKV_LAYERS, rwkv_kernel=True), "wkv_scan"),
+        ("jamba SMOKE + EP", f32(jamba, mamba_kernel=True, aux_coef=0.0), "mamba_scan"),
+    ]
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value (partial sums reduced), a tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def step_grads(params, cfg, data: dict, rules) -> dict:
+    """Each parameter's gradient of the train loss on ``data``, whole and on
+    the host, computed as ``make_train_step`` computes it (the batch placed
+    by the rules on a mesh)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed.sharding import axis_rules
+    from repro_torch.launch.steps import place_batch
+    with axis_rules(rules), (implicit_replication() if rules is not None
+                             else contextlib.nullcontext()):
+        batch = place_batch(cfg, data, rules, "train")
+        params.requires_grad_(True)
+        named = dict(params.named_parameters())
+        grads = torch.autograd.grad(train_loss(params, cfg, batch), list(named.values()))
+        return {n: whole(g).detach().cpu() for n, g in zip(named, grads)}
+
+
+def sharded_step(cfg, seed: int, mesh, steps: int, device="cuda"):
+    """``steps`` train steps of ``cfg`` (on ``mesh`` when given), on
+    4 x ``SHARDED_SEQ`` tokens from make_pipeline, after the gradients of
+    step 0's batch taken alone (which also warm the step's path up):
+    {"loss": of step 0, "grad_norm": of step 0, "grads": the gradients,
+    "params": the parameters after step 0 (both on the host), "wall": of
+    the last step, "peak_gib"}."""
+    from repro_torch.distributed.param_sharding import shard_params
+    from repro_torch.distributed.sharding import default_rules
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats()
+    rules = None if mesh is None else default_rules(mesh)
+    params = init_params(cfg, seed=seed, device=device)
+    if rules is not None:
+        shard_params(params, rules)
+    opt_state = adamw_init(params)
+    step_fn = make_train_step(cfg, OptConfig(lr=3e-4, warmup_steps=1, total_steps=10), rules)
+    pipe = make_pipeline(cfg.vocab, SHARDED_SEQ, LM_BATCH, seed=seed)
+    out = {"grads": step_grads(params, cfg, to_batch(cfg, pipe.batch(0), device), rules)}
+    for t in range(steps):
+        data = to_batch(cfg, pipe.batch(t), device)
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, data)
+        loss = float(metrics["loss"])
+        out["wall"] = time.perf_counter() - t0
+        if t == 0:
+            out |= {"loss": loss, "grad_norm": float(metrics["grad_norm"]),
+                    "params": {n: whole(p).detach().cpu()
+                               for n, p in params.named_parameters()}}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    return out
+
+
+def sharded_rank(mesh, cfg, seed: int, device="cuda"):
+    """13b on one rank: the gradients and one step on the (2, 2) mesh; rank
+    0 hands back the gradients and the parameters after the step."""
+    ops.reset_launch_counts()
+    out = sharded_step(cfg, seed, mesh, 1, device)
+    if mesh.get_rank() != 0:
+        out["grads"] = out["params"] = None
+    return out | {"launches": ops.launch_counts()}
+
+
+def sharded_compare(mesh_out: dict, single: dict) -> dict:
+    """13b's comparisons of a mesh run (rank 0) with the one-device run:
+    the loss and the gradient norm (relative), each gradient leaf (largest
+    |difference| over its largest |gradient|) and each parameter after the
+    step (largest |difference|), the worst leaf named."""
+    def worst(errs):
+        return max((e, n) for n, e in errs.items())
+    rel_g = {n: float((mesh_out["grads"][n] - g).abs().max())
+             / max(float(g.abs().max()), 1e-30) for n, g in single["grads"].items()}
+    diff_p = {n: float((mesh_out["params"][n] - p).abs().max())
+              for n, p in single["params"].items()}
+    return {"loss_rel": abs(mesh_out["loss"] - single["loss"]) / abs(single["loss"]),
+            "norm_rel": abs(mesh_out["grad_norm"] - single["grad_norm"]) / single["grad_norm"],
+            "grad": worst(rel_g), "param": worst(diff_p)}
+
+
+def sharded_train_phase(seed: int, smi: str) -> dict:
+    """13b: one train step on a (2, 2) mesh of four ranks sharing the card
+    (FSDP + TP + EP by the reference's rules, over gloo), held against the
+    single-device step on the card: loss within 1e-4 relative, every
+    parameter within 1e-2 (the reference's TestShardedTraining bounds), and
+    the gradients (which one AdamW step at lr 3e-4 cannot show: it moves a
+    parameter by about lr * sign(g)): their norm within 1e-4 relative and
+    every leaf within 1e-3 of its largest |gradient|."""
+    phase("13b sharded train steps on a (2, 2) mesh")
+    start = time.perf_counter()
+    counts = dict.fromkeys(KERNELS, 0)
+    out = {}
+    for label, cfg, kernel in sharded_cfgs():
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        single = sharded_step(cfg, seed, None, 1)
+        single_launches = ops.launch_counts()
+        gc.collect()
+        torch.cuda.empty_cache()
+        outs = spawn_mesh(sharded_rank, data=2, model=2, device="cuda", args=(cfg, seed),
+                          timeout_s=SHARDED_TIMEOUT_S)
+        r0 = outs[0].result
+        c = sharded_compare(r0, single)
+        per_rank = [o.launches.get(kernel, 0) for o in outs] if kernel else []
+        print(f"13b {label}: {LM_BATCH}x{SHARDED_SEQ} tokens, float32; loss mesh "
+              f"{r0['loss']:.6f} vs one device {single['loss']:.6f} (rel {c['loss_rel']:.3e}, "
+              f"bound {TRAIN_LOSS_TOL}); gradient norm {r0['grad_norm']:.6e} vs "
+              f"{single['grad_norm']:.6e} (rel {c['norm_rel']:.3e}, bound "
+              f"{SHARDED_GRAD_NORM_TOL}); worst gradient leaf rel {c['grad'][0]:.3e} "
+              f"({c['grad'][1]}; bound {SHARDED_GRAD_TOL}); worst parameter |diff| "
+              f"{c['param'][0]:.3e} ({c['param'][1]}; bound {SHARDED_PARAM_TOL}); step wall "
+              f"(after the gradients' pass) mesh {r0['wall'] * 1e3:.2f} ms (rank 0) vs one "
+              f"device "
+              f"{single['wall'] * 1e3:.2f} ms; peak memory per rank (GiB) "
+              f"{[round(o.result['peak_gib'], 2) for o in outs]} vs {single['peak_gib']:.2f}; "
+              f"{kernel or 'no kernel'} launches per rank {per_rank} (one device "
+              f"{single_launches.get(kernel, 0) if kernel else 0}; gradients + 1 step); "
+              f"on {smi}")
+        check(c["loss_rel"] <= TRAIN_LOSS_TOL, f"13b {label}: loss rel {c['loss_rel']}")
+        check(c["norm_rel"] <= SHARDED_GRAD_NORM_TOL,
+              f"13b {label}: gradient norm rel {c['norm_rel']}")
+        check(c["grad"][0] <= SHARDED_GRAD_TOL,
+              f"13b {label}: gradient {c['grad'][1]} rel {c['grad'][0]}")
+        check(c["param"][0] <= SHARDED_PARAM_TOL,
+              f"13b {label}: parameter {c['param'][1]} by {c['param'][0]}")
+        if kernel:
+            check(all(n > 0 for n in per_rank), f"13b {label}: {kernel} per rank {per_rank}")
+        for o in outs:
+            for k in counts:
+                counts[k] += o.launches[k]
+        out[label] = {"mesh_ms": r0["wall"] * 1e3, "single_ms": single["wall"] * 1e3,
+                      "rel": c["loss_rel"], "norm_rel": c["norm_rel"], "grad": c["grad"][0],
+                      "worst": c["param"][0], "peaks": [o.result["peak_gib"] for o in outs],
+                      "per_rank": per_rank}
+        del single, outs, r0
+    print(f"phase 13b: {time.perf_counter() - start:.1f} s, launches over the ranks "
+          f"{nonzero(counts)}")
+    return {"counts": counts, **out}
+
+
 def tensor_rate(name: str, flops: float, t: dict) -> None:
     """Print a kernel's achieved FP64 rate, its share of the tensor peak and
     whether it meets its floor."""
@@ -2948,6 +3388,7 @@ def main() -> None:
                      points=MAIN.points)
     errs = kernels_phase(plan, A, B, gen)
     errs |= scan_kernels_phase(gen)
+    caps = caps_phase(gen, dev["smi"])
     errs |= half_kernels_phase(gen)
     C_ref = A.T @ B  # exact: every partial sum is an integer below 2^53
     paths = {"fused": main_phase(plan, A, B, C_ref),
@@ -2961,6 +3402,7 @@ def main() -> None:
         wall = path["walls"]
         print(f"request wall time ({name}, 8000^2, float64): first {wall[0]:.2f} ms, "
               f"median of the rest {float(np.median(wall[1:])):.2f} ms on {dev['smi']}")
+    paths["caps"] = caps
     paths["obs"] = obs_phase(plan, A, B, C_ref, times, dev["smi"])
     del A, B, C_ref
     torch.cuda.empty_cache()
@@ -2984,6 +3426,8 @@ def main() -> None:
     trains = {"rwkv6_3b": rwkv_train_phase(args.seed, dev["smi"])}
     trains |= train_more_phase(args.seed, dev["smi"])
     paths["train cli"] = train_cli_phase()
+    paths["expert parallel"] = ep_phase(args.seed, dev["smi"])
+    paths["sharded train"] = sharded_train_phase(args.seed, dev["smi"])
     for name, lm in lms.items():
         print(f"LM serving ({name}, {LM_BATCH}x{lm['prompt']} prompt, {LM_GEN} tokens, bf16): "
               f"prefill {lm['prefill_ms']:.2f} ms, decode {lm['decode_ms']:.2f} ms per step, "

@@ -11,12 +11,14 @@ A module registered as ``repro_torch.configs.<name>`` (as
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
-from typing import List
+from typing import Dict, List
 
 from repro_torch.models import ModelConfig
 
-__all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "list_archs"]
+__all__ = ["ARCH_IDS", "ShapeSpec", "SHAPES", "get_config", "get_smoke_config",
+           "list_archs"]
 
 ARCH_IDS = (
     "jamba_1_5_large_398b",
@@ -31,6 +33,24 @@ ARCH_IDS = (
     "qwen2_vl_72b",
     "paper_matmul",
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One (batch, sequence, step kind) cell of the reference's dry-run
+    grid (``launch/specs.py`` builds its abstract inputs)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 def _module(arch: str):

@@ -1,10 +1,5 @@
-"""Distribution: the elastic pool policy, the coded on-mesh layer and
-integer-grid gradient compression.
-
-The reference's ``sharding.py`` and ``param_sharding.py`` (logical axis
-rules mapping LM parameters onto mesh axes) belong with the sharded LM
-paths and are not ported here.
-"""
+"""Distribution: mesh axes and sharding rules, the elastic pool policy, the
+coded on-mesh layer and integer-grid gradient compression."""
 from repro_torch.distributed.coded import CodedLinearPlan, coded_matmul_mesh
 from repro_torch.distributed.compression import (
     compressed_psum,
@@ -13,7 +8,15 @@ from repro_torch.distributed.compression import (
     quantize_tree,
 )
 from repro_torch.distributed.elastic import CodedElasticPolicy, plan_shrink
+from repro_torch.distributed.sharding import (
+    AxisRules,
+    axis_rules,
+    current_rules,
+    logical_sharding,
+    shard,
+)
 
-__all__ = ["CodedElasticPolicy", "plan_shrink", "CodedLinearPlan",
+__all__ = ["AxisRules", "axis_rules", "current_rules", "logical_sharding", "shard",
+           "CodedElasticPolicy", "plan_shrink", "CodedLinearPlan",
            "coded_matmul_mesh", "quantize_tree", "dequantize_tree",
            "compressed_psum", "error_feedback_update"]

@@ -6,8 +6,8 @@ decode_pallas`` (the TPU kernel).  ``X = W @ Y`` followed in registers by the
 paper's Sec. III-C extraction (round half-to-even -> mod s -> recentre into
 (-s/2, s/2]); ``extract=False`` only rounds (``csrc/coded_decode.cu``).
 :func:`decode_partial_cuda` replaces ``decode_partial_pallas``: the same
-decode per output-row chunk with chunk q's panel, in one launch for all
-chunks, on Y as the runtime holds it (chunks of unequal width) or on the
+decode per output-row chunk with chunk q's panel, in one launch for up to
+128 chunks, on Y as the runtime holds it (chunks of unequal width) or on the
 reference package's equal-width (Q, K, Ec) stack.
 
 What bounds both on the card: device-memory bytes.  At the paper's geometry
@@ -44,8 +44,13 @@ from repro_torch.kernels.ref import decode_partial_ref, decode_ref
 __all__ = ["decode_cuda", "decode_ref", "decode_partial_cuda",
            "decode_partial_ref", "bulk_copies", "MAX_PANEL_BYTES", "MAX_CHUNKS"]
 
-MAX_PANEL_BYTES = 48 * 1024  # the panel lives in (static-limit) shared memory
-MAX_CHUNKS = 128             # kMaxChunks in csrc/coded_decode.cu
+# The panel sits in shared memory: above 48 KB (the default) a launch opts in
+# to more, and a panel past the card's per-block limit is decoded in slabs
+# of its rows, one launch each (the same sums, so the same bits).
+MAX_PANEL_BYTES = 48 * 1024
+# Chunks a launch of the per-chunk kernel takes (kMaxChunks in
+# csrc/coded_decode.cu); more go in groups of this many, a launch each.
+MAX_CHUNKS = 128
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 _SYMBOLS = {torch.float64: "repro_decode_f64", torch.float32: "repro_decode_f32"}
@@ -55,14 +60,14 @@ _PARTIAL_SYMBOLS = {torch.float64: "repro_decode_partial_f64",
 
 def _function(dtype: torch.dtype):
     fn = getattr(_build.load("coded_decode"), _SYMBOLS[dtype])
-    fn.argtypes = [_P, _P, _P, _I, _I, _L, _D, _I, _P]
+    fn.argtypes = [_P, _P, _P, _I, _I, _L, _D, _I, _P, _P]
     fn.restype = _I
     return fn
 
 
 def _partial_function(dtype: torch.dtype):
     fn = getattr(_build.load("coded_decode"), _PARTIAL_SYMBOLS[dtype])
-    fn.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _L, _L, _D, _I, _I, _P]
+    fn.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _L, _L, _D, _I, _I, _P, _P]
     fn.restype = _I
     return fn
 
@@ -85,15 +90,18 @@ def _check_operands(W: torch.Tensor, Y: torch.Tensor, what: str) -> None:
 
 
 def decode_cuda(W: torch.Tensor, Y: torch.Tensor, s: float,
-                extract: bool = True) -> torch.Tensor:
+                extract: bool = True) -> tuple:
     """Launch the kernel: W (mn, K), Y (K, E), CUDA tensors of one real dtype
-    (float64 or float32) -> (mn, E).
+    (float64 or float32) -> ((mn, E), the kernel launches made).
+
+    Any panel: past the card's shared memory it decodes in slabs of rows,
+    a launch each.
 
     Raises:
-        ValueError: on mismatched shapes, devices or dtypes, or a panel
-            larger than ``MAX_PANEL_BYTES``.
+        ValueError: on mismatched shapes, devices or dtypes.
         NotImplementedError: for dtypes other than float64 / float32.
-        RuntimeError: if the launch fails.
+        RuntimeError: if the launch fails (one row of K values past the
+            card's per-block shared memory, K > 29000 in float64).
     """
     _check_operands(W, Y, "decode")
     dtype = W.dtype
@@ -101,36 +109,37 @@ def decode_cuda(W: torch.Tensor, Y: torch.Tensor, s: float,
     K2, E = Y.shape
     if K != K2:
         raise ValueError(f"shape mismatch: W {tuple(W.shape)}, Y {tuple(Y.shape)}")
-    if W.numel() * W.element_size() > MAX_PANEL_BYTES:
-        raise ValueError(f"decode panel {tuple(W.shape)} exceeds "
-                         f"{MAX_PANEL_BYTES} bytes of shared memory")
     out = torch.empty((mn, E), dtype=dtype, device=W.device)
     if out.numel() == 0 or K == 0:
-        return out.zero_()
+        return out.zero_(), 0
     Wc = W.contiguous()
     Yc = Y.contiguous()
     stream = torch.cuda.current_stream(W.device).cuda_stream
+    launches = ctypes.c_int(0)
     err = _function(dtype)(Wc.data_ptr(), Yc.data_ptr(), out.data_ptr(), mn, K,
-                           E, float(s), int(bool(extract)), stream)
+                           E, float(s), int(bool(extract)), ctypes.byref(launches), stream)
     if err != 0:
         raise RuntimeError(f"decode kernel launch failed: cudaError {err}")
-    return out
+    return out, launches.value
 
 
 def decode_partial_cuda(W_stack: torch.Tensor, Y: torch.Tensor, s: float,
-                        extract: bool = True, bounds=None) -> torch.Tensor:
-    """Launch the per-chunk kernel once for all Q chunks: W_stack (Q, mn, K)
-    and Y, CUDA tensors of one real dtype (float64 or float32).
+                        extract: bool = True, bounds=None) -> tuple:
+    """Launch the per-chunk kernel for all Q chunks: W_stack (Q, mn, K) and
+    Y, CUDA tensors of one real dtype (float64 or float32) -> (the result,
+    the kernel launches made).
 
     With ``bounds=None``, Y is the (Q, K, Ec) stack and the result
     (Q, mn, Ec).  With ``bounds`` (Q + 1 nondecreasing column offsets from 0
     to E), Y is (K, E), chunk q is columns ``bounds[q]:bounds[q + 1]``, and
     the kernel writes the (mn, E) result with every chunk in place.
 
+    Any Q and any panel: chunks go ``MAX_CHUNKS`` to a launch, and a panel
+    that leaves no room for the copy ring decodes in slabs of rows (one
+    launch per group and slab).
+
     Raises:
-        ValueError: on mismatched shapes, devices or dtypes, bad bounds,
-            more than ``MAX_CHUNKS`` chunks, or a panel larger than
-            ``MAX_PANEL_BYTES``.
+        ValueError: on mismatched shapes, devices or dtypes, or bad bounds.
         NotImplementedError: for dtypes other than float64 / float32.
         RuntimeError: if the launch fails.
     """
@@ -161,24 +170,19 @@ def decode_partial_cuda(W_stack: torch.Tensor, Y: torch.Tensor, s: float,
         y_off = out_off = bounds[:-1]
         width = [b1 - b0 for b0, b1 in zip(bounds, bounds[1:])]
         ys = os_ = E
-    if Q > MAX_CHUNKS:
-        raise ValueError(f"the partial decode kernel takes at most {MAX_CHUNKS} "
-                         f"chunks, got Q={Q}")
-    if mn * K * W_stack.element_size() > MAX_PANEL_BYTES:
-        raise ValueError(f"decode panel ({mn}, {K}) exceeds {MAX_PANEL_BYTES} "
-                         f"bytes of shared memory")
     if out.numel() == 0 or K == 0:
-        return out.zero_()
+        return out.zero_(), 0
     Wc = W_stack.contiguous()
     Yc = Y.contiguous()
     bulk = bulk_copies(Yc.element_size(), (Yc.data_ptr(), out.data_ptr()),
                        (*y_off, *out_off), (ys, os_), width)
     offsets = [(_L * Q)(*x) for x in (y_off, out_off, width)]
     stream = torch.cuda.current_stream(Y.device).cuda_stream
+    launches = ctypes.c_int(0)
     err = _partial_function(dtype)(
         Wc.data_ptr(), Yc.data_ptr(), out.data_ptr(), Q, mn, K,
         *(ctypes.addressof(x) for x in offsets), ys, os_, float(s),
-        int(bool(extract)), int(bulk), stream)
+        int(bool(extract)), int(bulk), ctypes.byref(launches), stream)
     if err != 0:
         raise RuntimeError(f"decode_partial kernel launch failed: cudaError {err}")
-    return out
+    return out, launches.value

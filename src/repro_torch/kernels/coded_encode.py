@@ -35,14 +35,20 @@ from repro_torch.kernels.coded_fused import (
     _block_offsets,
     _unit_column_stride,
     _unsupported,
+    device_offsets,
     encode_width,
 )
 from repro_torch.kernels.ref import encode_ref
 
 __all__ = ["encode_cuda", "encode_ref", "MAX_BLOCKS", "MAX_PANEL_BYTES"]
 
-MAX_BLOCKS = 64              # kMaxBlocks in csrc/coded_encode.cu
-MAX_PANEL_BYTES = 48 * 1024  # the (K, P) panel lives in shared memory
+# Block offsets travel by value up to this many blocks (kMaxBlocks in
+# csrc/coded_encode.cu); above it they go through device memory.
+MAX_BLOCKS = 64
+# The panel sits in shared memory: above 48 KB (the default) the launch opts
+# in to more, and a panel past the card's per-block limit is encoded in
+# slabs of its K workers, one launch each.
+MAX_PANEL_BYTES = 48 * 1024
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SYMBOLS = {torch.float64: "repro_encode_f64", torch.float32: "repro_encode_f32",
@@ -51,23 +57,26 @@ _SYMBOLS = {torch.float64: "repro_encode_f64", torch.float32: "repro_encode_f32"
 
 def _function(dtype: torch.dtype):
     fn = getattr(_build.load("coded_encode"), _SYMBOLS[dtype])
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _L, _L, _L, _I, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _L, _L, _L, _I, _P, _P]
     fn.restype = _I
     return fn
 
 
-def encode_cuda(coeff: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
+def encode_cuda(coeff: torch.Tensor, blocks: torch.Tensor) -> tuple:
     """Launch the kernel: coeff (K, P) and blocks (*grid, rows, cols) with
     prod(grid) = P, CUDA tensors of one real dtype (float64, float32,
-    bfloat16 or float16) -> the contiguous (K, rows, cols) coded stack in
-    that dtype (bf16/f16 summed in FP32).
+    bfloat16 or float16) -> (the contiguous (K, rows, cols) coded stack in
+    that dtype (bf16/f16 summed in FP32), the kernel launches made).
 
     The blocks may be strided views; only the last dimension must be
     unit-stride, else it is made contiguous.
 
+    Any number of blocks and any panel: above ``MAX_BLOCKS`` blocks their
+    offsets reach the kernel through device memory, and a panel past the
+    card's shared memory is encoded in slabs of workers (the same sums).
+
     Raises:
-        ValueError: on mismatched shapes, devices or dtypes, more than
-            ``MAX_BLOCKS`` blocks, or a panel larger than ``MAX_PANEL_BYTES``.
+        ValueError: on mismatched shapes, devices or dtypes.
         NotImplementedError: for other dtypes.
         RuntimeError: if the launch fails.
     """
@@ -82,25 +91,22 @@ def encode_cuda(coeff: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     if P != math.prod(grid):
         raise ValueError(f"shape mismatch: coeff {tuple(coeff.shape)}, blocks "
                          f"{tuple(blocks.shape)}")
-    if P > MAX_BLOCKS:
-        raise ValueError(f"the encode kernel takes at most {MAX_BLOCKS} blocks, "
-                         f"got P={P}")
-    if coeff.numel() * coeff.element_size() > MAX_PANEL_BYTES:
-        raise ValueError(f"coefficient panel {tuple(coeff.shape)} exceeds "
-                         f"{MAX_PANEL_BYTES} bytes of shared memory")
     out = torch.empty((K, rows, cols), dtype=dtype, device=coeff.device)
     if out.numel() == 0:
-        return out
+        return out, 0
     if P == 0:
-        return out.zero_()
+        return out.zero_(), 0
     c = coeff.contiguous()
     x = _unit_column_stride(blocks)
     offsets, row_stride = _block_offsets(x)
     width = encode_width(x.element_size(), cols, (x.data_ptr(), offsets, row_stride))
+    offs = device_offsets(offsets, device=x.device) if P > MAX_BLOCKS else None
     stream = torch.cuda.current_stream(coeff.device).cuda_stream
+    launches = ctypes.c_int(0)
     err = _function(dtype)(c.data_ptr(), x.data_ptr(), out.data_ptr(),
-                           ctypes.addressof(offsets), K, P, rows, cols,
-                           row_stride, width, stream)
+                           ctypes.addressof(offsets),
+                           None if offs is None else offs.data_ptr(), K, P, rows, cols,
+                           row_stride, width, ctypes.byref(launches), stream)
     if err != 0:
         raise RuntimeError(f"encode kernel launch failed: cudaError {err}")
-    return out
+    return out, launches.value

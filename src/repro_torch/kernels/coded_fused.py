@@ -42,9 +42,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import fused_worker_ref
 
 __all__ = ["fused_worker_cuda", "fused_worker_ref", "copy_bytes", "encode_width",
-           "tma_layout", "TmaLayout", "MAX_BLOCKS", "DTYPES"]
+           "tma_layout", "TmaLayout", "TMA_MAX_BLOCKS", "DTYPES", "device_offsets"]
 
-MAX_BLOCKS = 64  # kMaxBlocks in csrc/coded_fused.cu
+# Block offsets travel by value up to this many blocks a side (kMaxBlocks in
+# csrc/coded_fused.cu); above it they go through device memory.  It is also
+# the TMA form's most blocks: bf16/f16 above it take the one-element form.
+TMA_MAX_BLOCKS = 64
 TMA_MAX_RANK = 5  # the Tensor Memory Accelerator's largest tensor rank
 _HALF = (torch.bfloat16, torch.float16)
 DTYPES = (torch.float64, torch.float32, *_HALF)
@@ -80,8 +83,8 @@ def _unsupported(dtype: torch.dtype, what: str) -> NotImplementedError:
 
 def _function(dtype: torch.dtype, out_dtype: torch.dtype):
     fn = getattr(_build.load("coded_fused"), _SYMBOLS[dtype, out_dtype])
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L,
-                   _I, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L,
+                   _L, _I, _P]
     fn.restype = _I
     return fn
 
@@ -195,6 +198,16 @@ def _packed(layout: TmaLayout):
     return (_L * (len(head) + len(body)))(*head, *body)
 
 
+def device_offsets(*offsets, device) -> torch.Tensor:
+    """The blocks' element offsets (host arrays, concatenated) as an int64
+    tensor on ``device``, for a kernel that takes more blocks than its
+    by-value argument holds.  The copy and the launch that reads it are
+    ordered on the current stream, so the tensor may be freed after the
+    launch."""
+    flat = [o for arr in offsets for o in arr]
+    return torch.tensor(flat, dtype=torch.int64).to(device)
+
+
 def _unit_column_stride(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride(-1) == 1 or x.shape[-1] == 1 else x.contiguous()
 
@@ -209,12 +222,15 @@ def fused_worker_cuda(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
 
     The blocks may be strided views (e.g. from ``block_decompose``); only
     the last dimension must be unit-stride, else it is made contiguous.
+    Above ``TMA_MAX_BLOCKS`` blocks a side the offsets reach the kernel
+    through device memory, and bf16/f16 take the one-element form.
 
     Raises:
-        ValueError: on mismatched shapes, devices or dtypes, or more than
-            ``MAX_BLOCKS`` blocks per operand.
+        ValueError: on mismatched shapes, devices or dtypes.
         NotImplementedError: for other dtypes.
-        RuntimeError: if the launch fails.
+        RuntimeError: if the launch fails, e.g. with so many blocks that
+            their offsets and coefficients leave no room for the ring in the
+            card's shared memory (about 1900 a side in float64).
     """
     tensors = (coeff_a, coeff_b, a_blocks, b_blocks)
     dtype = coeff_a.dtype
@@ -232,9 +248,6 @@ def fused_worker_cuda(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
         raise ValueError(f"shape mismatch: coeff_a {tuple(coeff_a.shape)}, "
                          f"coeff_b {tuple(coeff_b.shape)}, a_blocks "
                          f"{tuple(a_blocks.shape)}, b_blocks {tuple(b_blocks.shape)}")
-    if P > MAX_BLOCKS or Q > MAX_BLOCKS:
-        raise ValueError(f"the fused kernel takes at most {MAX_BLOCKS} blocks "
-                         f"per operand, got P={P}, Q={Q}")
     written = _kernel_out_dtype(dtype, out_dtype)
     out = torch.empty((K, r, t), dtype=written, device=coeff_a.device)
     if out.numel() == 0:
@@ -248,9 +261,11 @@ def fused_worker_cuda(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
     itemsize = a.element_size()
     width = copy_bytes(itemsize, (a.data_ptr(), a_off, a_sv), (b.data_ptr(), b_off, b_sv))
     a_tma = b_tma = None
+    many = max(P, Q) > TMA_MAX_BLOCKS
+    offs = device_offsets(a_off, b_off, device=a.device) if many else None
     if dtype in _HALF and width == 16:
         # the TMA form where TMA can describe both grids, else one element
-        if any(_tma_refusal(x.shape, x.stride(), itemsize) for x in (a, b)):
+        if many or any(_tma_refusal(x.shape, x.stride(), itemsize) for x in (a, b)):
             width = itemsize
         else:
             a_tma, b_tma = (_packed(tma_layout(x.shape, x.stride(), itemsize))
@@ -259,6 +274,7 @@ def fused_worker_cuda(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
     err = _function(dtype, written)(
         ca.data_ptr(), cb.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
         ctypes.addressof(a_off), ctypes.addressof(b_off),
+        None if offs is None else offs.data_ptr(),
         None if a_tma is None else ctypes.addressof(a_tma),
         None if b_tma is None else ctypes.addressof(b_tma), K, P, Q, v, r, t,
         a_sv, b_sv, width, stream)

@@ -69,8 +69,7 @@ constexpr int kThreads = 256;
 constexpr int kRows = 16;        // useful rows held in registers per pass
 constexpr int kLoads = 8;        // worker rows of Y loaded together (kernel 2)
 constexpr int kMaxGrid = 4096;   // blocks; a grid-stride loop covers the rest
-constexpr int kMaxChunks = 128;  // chunk offsets travel by value (< 4 KB)
-constexpr size_t kMaxPanelBytes = 48 * 1024;
+constexpr int kMaxChunks = 128;  // chunk offsets a launch takes by value (< 4 KB)
 // kernel 3: the ring's depth, its most rows of Y a stage for mn <=
 // kShortPass (see launch_partial), threads a block, the useful rows summed
 // per register pass for mn <= kShortPass (else kRows), and the blocks an
@@ -203,9 +202,9 @@ template <typename T, bool kBulk, int kPassRows>
 __global__ void __launch_bounds__(kPartialThreads,
                                   kPassRows == kShortPass ? kShortPassBlocks : 1)
 decode_partial_kernel(const T* __restrict__ W_stack, const T* __restrict__ Y,
-                      T* __restrict__ out, int mn, int K, int group_rows,
-                      ChunkOffsets chunks, int Q, long long ys, long long os, T s,
-                      int extract) {
+                      T* __restrict__ out, int mn, int K, long long panel_stride,
+                      int group_rows, ChunkOffsets chunks, int Q, long long ys,
+                      long long os, T s, int extract) {
   using V = Vec<T>;
   constexpr int kVec = V::n;
   constexpr int kTile = tile_cols<T>();
@@ -283,7 +282,7 @@ decode_partial_kernel(const T* __restrict__ W_stack, const T* __restrict__ Y,
     if (q != panel_q) {       // the same for every thread of the block
       panel_q = q;
       __syncthreads();        // every thread done with the last panel
-      const T* W = W_stack + static_cast<long long>(q) * mn * K;
+      const T* W = W_stack + static_cast<long long>(q) * panel_stride;
       for (int j = tid; j < mn * K; j += kPartialThreads) w_s[j] = W[j];
       __syncthreads();
     }
@@ -353,61 +352,74 @@ decode_partial_kernel(const T* __restrict__ W_stack, const T* __restrict__ Y,
   }
 }
 
-template <typename T>
-int launch(const T* W, const T* Y, T* out, int mn, int K, long long E, T s,
-           int extract, void* stream) {
-  const size_t smem = static_cast<size_t>(mn) * K * sizeof(T);
-  if (mn < 1 || K < 1 || E < 1 || smem > kMaxPanelBytes) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// The card's per-block shared-memory limit (opt-in), in bytes.
+inline cudaError_t smem_optin(int* bytes) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   }
-  long long blocks = (E + kThreads - 1) / kThreads;
-  if (blocks > kMaxGrid) blocks = kMaxGrid;
-  decode_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(W, Y, out, mn, K, E,
-                                                          s, extract);
-  return static_cast<int>(cudaGetLastError());
+  return err;
 }
 
+// Kernel 2.  The panel lives in dynamic shared memory, opted in above the
+// 48 KB default up to the card's per-block limit; a panel larger than that
+// is decoded in slabs of its rows, one launch each.  A row's sum is the
+// same chain of FMAs in any slab, so the output does not depend on the
+// split.  Adds the launches made to *launches.
 template <typename T>
-int launch_partial(const T* W_stack, const T* Y, T* out, int Q, int mn, int K,
-                   const long long* y_off, const long long* out_off,
-                   const long long* width, long long ys, long long os, T s,
-                   int extract, int bulk, void* stream) {
-  constexpr int kVec = Vec<T>::n;
+int launch(const T* W, const T* Y, T* out, int mn, int K, long long E, T s,
+           int extract, int* launches, void* stream) {
+  if (mn < 1 || K < 1 || E < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int smem_max = 0;
+  cudaError_t err = smem_optin(&smem_max);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t row_bytes = static_cast<size_t>(K) * sizeof(T);
+  const int slab = static_cast<int>(static_cast<size_t>(smem_max) / row_bytes < static_cast<size_t>(mn)
+                                        ? static_cast<size_t>(smem_max) / row_bytes
+                                        : static_cast<size_t>(mn));
+  if (slab < 1) return static_cast<int>(cudaErrorInvalidValue);  // one row of K exceeds it
+  err = cudaFuncSetAttribute(decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(slab * row_bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  long long blocks = (E + kThreads - 1) / kThreads;
+  if (blocks > kMaxGrid) blocks = kMaxGrid;
+  for (int u0 = 0; u0 < mn; u0 += slab) {
+    const int rows = mn - u0 < slab ? mn - u0 : slab;
+    decode_kernel<T><<<static_cast<unsigned>(blocks), kThreads, rows * row_bytes,
+                       static_cast<cudaStream_t>(stream)>>>(
+        W + static_cast<long long>(u0) * K, Y, out + static_cast<long long>(u0) * E, rows, K,
+        E, s, extract);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ++*launches;
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+// One launch of kernel 3: chunks [0, Q) with Q <= kMaxChunks, each chunk's
+// panel rows [0, mn) at W_stack + q * panel_stride (the caller offsets
+// W_stack, out and the chunk offsets to a group of chunks or a slab of rows).
+// Adds one to *launches if it launched (a group of empty chunks does not).
+template <typename T>
+int launch_partial_group(const T* W_stack, long long panel_stride, const T* Y, T* out,
+                         int Q, int mn, int K, const long long* y_off,
+                         const long long* out_off, const long long* width, long long ys,
+                         long long os, T s, int extract, int bulk, int smem_max, int sms,
+                         int* launches, cudaStream_t stream) {
   constexpr int kTile = tile_cols<T>();
   const size_t panel = static_cast<size_t>(mn) * K * sizeof(T);
-  if (Q < 1 || Q > kMaxChunks || mn < 1 || K < 1 || panel > kMaxPanelBytes) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  // the bulk form's contract: every address, offset, stride and width
-  // 16 bytes wide (the wrapper checks it first; this guards the C entry)
-  bool aligned = reinterpret_cast<uintptr_t>(Y) % 16 == 0 &&
-                 reinterpret_cast<uintptr_t>(out) % 16 == 0 && ys % kVec == 0 &&
-                 os % kVec == 0;
   ChunkOffsets chunks{};
   long long tiles = 0;
   for (int q = 0; q < Q; ++q) {
-    if (width[q] < 0) return static_cast<int>(cudaErrorInvalidValue);
     chunks.y[q] = y_off[q];
     chunks.out[q] = out_off[q];
     chunks.width[q] = width[q];
     tiles += (width[q] + kTile - 1) / kTile;
     chunks.tile_end[q] = static_cast<int>(tiles);
-    aligned = aligned && y_off[q] % kVec == 0 && out_off[q] % kVec == 0 &&
-              width[q] % kVec == 0;
   }
-  if (tiles < 1 || tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  if (bulk && !aligned) return static_cast<int>(cudaErrorMisalignedAddress);
-
-  int device = 0, sms = 0, smem_max = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (tiles < 1) return static_cast<int>(cudaSuccess);  // every chunk of the group is empty
 
   // the stage: K in balanced row groups, in ascending k.  The short-pass
   // instance (several blocks an SM) takes at most kStageRows rows a stage;
@@ -419,6 +431,7 @@ int launch_partial(const T* W_stack, const T* Y, T* out, int Q, int mn, int K,
   const size_t row_bytes = static_cast<size_t>(kTile) * sizeof(T);
   const size_t room = static_cast<size_t>(smem_max) > head ? smem_max - head : 0;
   const size_t fit = room / (kStages * row_bytes);
+  if (bulk && fit < 1) return static_cast<int>(cudaErrorInvalidValue);  // the caller slabs first
   const int max_rows = mn <= kShortPass ? kStageRows
                        : fit < 1        ? 1
                                         : static_cast<int>(fit);
@@ -430,8 +443,9 @@ int launch_partial(const T* W_stack, const T* Y, T* out, int Q, int mn, int K,
                             : decode_partial_kernel<T, false, kShortPass>)
                     : (bulk ? decode_partial_kernel<T, true, kRows>
                             : decode_partial_kernel<T, false, kRows>);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  int per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
@@ -444,44 +458,117 @@ int launch_partial(const T* W_stack, const T* Y, T* out, int Q, int mn, int K,
   const long long blocks = static_cast<long long>(sms) * per_sm < tiles
                                ? static_cast<long long>(sms) * per_sm
                                : tiles;
-  kernel<<<static_cast<unsigned>(blocks), kPartialThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      W_stack, Y, out, mn, K, group_rows, chunks, Q, ys, os, s, extract);
-  return static_cast<int>(cudaGetLastError());
+  kernel<<<static_cast<unsigned>(blocks), kPartialThreads, smem, stream>>>(
+      W_stack, Y, out, mn, K, panel_stride, group_rows, chunks, Q, ys, os, s, extract);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launches;
+  return static_cast<int>(err);
+}
+
+// Kernel 3.  Chunks go kMaxChunks to a launch, each group with its own
+// offsets and tile prefix.  A panel that leaves no room in shared memory
+// for the ring beside it is decoded in slabs of its rows, one launch per
+// (slab, group); every output element is the same chain of FMAs in any
+// split, so the bits do not depend on it.  Adds the launches made to
+// *launches.
+template <typename T>
+int launch_partial(const T* W_stack, const T* Y, T* out, int Q, int mn, int K,
+                   const long long* y_off, const long long* out_off,
+                   const long long* width, long long ys, long long os, T s,
+                   int extract, int bulk, int* launches, void* stream) {
+  constexpr int kVec = Vec<T>::n;
+  constexpr int kTile = tile_cols<T>();
+  if (Q < 1 || mn < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // the bulk form's contract: every address, offset, stride and width
+  // 16 bytes wide (the wrapper checks it first; this guards the C entry)
+  bool aligned = reinterpret_cast<uintptr_t>(Y) % 16 == 0 &&
+                 reinterpret_cast<uintptr_t>(out) % 16 == 0 && ys % kVec == 0 &&
+                 os % kVec == 0;
+  long long tiles = 0;
+  for (int q = 0; q < Q; ++q) {
+    if (width[q] < 0) return static_cast<int>(cudaErrorInvalidValue);
+    tiles += (width[q] + kTile - 1) / kTile;
+    aligned = aligned && y_off[q] % kVec == 0 && out_off[q] % kVec == 0 &&
+              width[q] % kVec == 0;
+  }
+  if (tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (bulk && !aligned) return static_cast<int>(cudaErrorMisalignedAddress);
+
+  int device = 0, sms = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) err = smem_optin(&smem_max);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // rows of the panel a launch holds: all of them when the panel leaves
+  // room for a ring of one-row stages (bulk form) or fits (element form)
+  const size_t row_bytes = static_cast<size_t>(K) * sizeof(T);
+  const size_t ring = bulk ? kStages * static_cast<size_t>(kTile) * sizeof(T) : 0;
+  const size_t usable = static_cast<size_t>(smem_max) > kHeadBytes + 128 + ring
+                            ? smem_max - kHeadBytes - 128 - ring
+                            : 0;
+  const int slab = usable / row_bytes < static_cast<size_t>(mn)
+                       ? static_cast<int>(usable / row_bytes)
+                       : mn;
+  if (slab < 1) return static_cast<int>(cudaErrorInvalidValue);  // one row of K exceeds it
+  const long long panel_stride = static_cast<long long>(mn) * K;
+  long long y_g[kMaxChunks], out_g[kMaxChunks];
+  for (int u0 = 0; u0 < mn; u0 += slab) {
+    const int rows = mn - u0 < slab ? mn - u0 : slab;
+    for (int q0 = 0; q0 < Q; q0 += kMaxChunks) {
+      const int n = Q - q0 < kMaxChunks ? Q - q0 : kMaxChunks;
+      for (int q = 0; q < n; ++q) {
+        y_g[q] = y_off[q0 + q];
+        out_g[q] = out_off[q0 + q] + static_cast<long long>(u0) * os;
+      }
+      err = static_cast<cudaError_t>(launch_partial_group<T>(
+          W_stack + q0 * panel_stride + static_cast<long long>(u0) * K, panel_stride, Y, out,
+          n, rows, K, y_g, out_g, width + q0, ys, os, s, extract, bulk, smem_max, sms,
+          launches, static_cast<cudaStream_t>(stream)));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
 }  // namespace
 
-// W (mn, K), Y (K, E), out (mn, E), all contiguous on the device.
-// Returns the cudaError_t of the launch.
+// W (mn, K), Y (K, E), out (mn, E), all contiguous on the device.  Adds
+// the kernel launches made (one per slab of rows) to *launches (HOST).
+// Returns the cudaError_t of the launches.
 extern "C" int repro_decode_f64(const double* W, const double* Y, double* out,
                                 int mn, int K, long long E, double s,
-                                int extract, void* stream) {
-  return launch<double>(W, Y, out, mn, K, E, s, extract, stream);
+                                int extract, int* launches, void* stream) {
+  return launch<double>(W, Y, out, mn, K, E, s, extract, launches, stream);
 }
 
 extern "C" int repro_decode_f32(const float* W, const float* Y, float* out,
                                 int mn, int K, long long E, double s,
-                                int extract, void* stream) {
+                                int extract, int* launches, void* stream) {
   return launch<float>(W, Y, out, mn, K, E, static_cast<float>(s), extract,
-                       stream);
+                       launches, stream);
 }
 
 // W_stack (Q, mn, K) contiguous on the device.  Chunk q reads worker k's
 // column e at Y[y_off[q] + k * ys + e] and writes useful row u at
 // out[out_off[q] + u * os + e], for e < width[q].  y_off / out_off / width are
-// HOST arrays of Q entries (Q <= 128).  bulk = 1 takes the bulk-copy form and
-// needs Y, out, every offset, width and both strides 16-byte aligned
+// HOST arrays of Q entries (any Q: a launch takes kMaxChunks of them).  bulk = 1
+// takes the bulk-copy form and needs Y, out, every offset, width and both
+// strides 16-byte aligned
 // (cudaErrorMisalignedAddress otherwise); bulk = 0 takes one-element loads.
-// Returns the cudaError_t of the launch.
+// Adds the kernel launches made (one per group of chunks and slab of rows)
+// to *launches (HOST).  Returns the cudaError_t of the launches.
 extern "C" int repro_decode_partial_f64(const double* W_stack, const double* Y,
                                         double* out, int Q, int mn, int K,
                                         const long long* y_off,
                                         const long long* out_off,
                                         const long long* width, long long ys,
                                         long long os, double s, int extract,
-                                        int bulk, void* stream) {
+                                        int bulk, int* launches, void* stream) {
   return launch_partial<double>(W_stack, Y, out, Q, mn, K, y_off, out_off,
-                                width, ys, os, s, extract, bulk, stream);
+                                width, ys, os, s, extract, bulk, launches, stream);
 }
 
 extern "C" int repro_decode_partial_f32(const float* W_stack, const float* Y,
@@ -490,8 +577,8 @@ extern "C" int repro_decode_partial_f32(const float* W_stack, const float* Y,
                                         const long long* out_off,
                                         const long long* width, long long ys,
                                         long long os, double s, int extract,
-                                        int bulk, void* stream) {
+                                        int bulk, int* launches, void* stream) {
   return launch_partial<float>(W_stack, Y, out, Q, mn, K, y_off, out_off,
                                width, ys, os, static_cast<float>(s), extract,
-                               bulk, stream);
+                               bulk, launches, stream);
 }

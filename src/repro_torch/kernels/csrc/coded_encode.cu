@@ -50,10 +50,9 @@ using accum::acc_t;
 constexpr int kThreads = 256;
 constexpr int kOutRows = 16;     // coded outputs held in registers per pass
 constexpr int kLoads = 8;        // raw blocks loaded together
-constexpr int kMaxBlocks = 64;   // block offsets travel by value
+constexpr int kMaxBlocks = 64;   // block offsets by value; more come from device memory
 constexpr unsigned kMaxGridX = 1024;
 constexpr unsigned kMaxGridY = 65535;
-constexpr size_t kMaxPanelBytes = 48 * 1024;
 constexpr int kVec = 8;           // elements of a 16-byte vector (16-byte form)
 constexpr int kWideWorkers = 4;   // workers summed together above kLoads blocks
 
@@ -67,17 +66,38 @@ __host__ __device__ constexpr int panel_rows(int K, int kN) {
   return kN == 0 ? (K + kWideWorkers - 1) / kWideWorkers * kWideWorkers : K;
 }
 
-template <typename T>
+__host__ __device__ constexpr size_t round16(size_t n) { return (n + 15) / 16 * 16; }
+
+// The dynamic shared memory of a launch: the panel (`panel_bytes`), then
+// the P block offsets (where the kernel keeps them there).
+__host__ __device__ constexpr size_t smem_for(size_t panel_bytes, int P, bool offsets) {
+  return round16(panel_bytes) + (offsets ? static_cast<size_t>(P) * sizeof(long long) : 0);
+}
+
+// kStatic: the block offsets (P <= kMaxBlocks, by value) in static shared
+// memory, at a compile-time address, as the main path reads them; else
+// (from `offs`) after the panel in dynamic shared memory, whose run-time
+// address slowed the float64 kernel on an H100.
+template <typename T, bool kStatic>
 __global__ void __launch_bounds__(kThreads)
 encode_element_kernel(const T* __restrict__ coeff, const T* __restrict__ blocks,
-                      T* __restrict__ out, BlockOffsets offsets, int K, int P,
+                      T* __restrict__ out, BlockOffsets offsets,
+                      const long long* __restrict__ offs, int K, int P,
                       long long rows, long long cols, long long row_stride) {
   using Acc = acc_t<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* c_s = reinterpret_cast<T*>(smem_raw);                         // (K, P)
   for (int i = threadIdx.x; i < K * P; i += blockDim.x) c_s[i] = coeff[i];
-  __shared__ long long off_s[kMaxBlocks];
-  if (threadIdx.x < P) off_s[threadIdx.x] = offsets.v[threadIdx.x];
+  __shared__ long long static_off[kStatic ? kMaxBlocks : 1];
+  long long* off_s;
+  if constexpr (kStatic) {
+    off_s = static_off;
+    if (threadIdx.x < P) off_s[threadIdx.x] = offsets.v[threadIdx.x];
+  } else {
+    off_s = reinterpret_cast<long long*>(
+        smem_raw + round16(static_cast<size_t>(K) * P * sizeof(T)));  // (P,)
+    for (int i = threadIdx.x; i < P; i += blockDim.x) off_s[i] = offs[i];
+  }
   __syncthreads();
 
   const long long plane = rows * cols;
@@ -130,15 +150,20 @@ __device__ __forceinline__ void store16(void* p, uint4 v) {
 template <typename T, int kN>
 __global__ void __launch_bounds__(kThreads, 2)
 encode_vector_kernel(const T* __restrict__ coeff, const T* __restrict__ blocks,
-                     T* __restrict__ out, BlockOffsets offsets, int K, int P, int rows,
+                     T* __restrict__ out, BlockOffsets offsets,
+                     const long long* __restrict__ offs, int K, int P, int rows,
                      int vecs, long long row_stride, long long plane) {
   extern __shared__ __align__(16) float c_s[];
-  __shared__ long long off_s[kN == 0 ? kMaxBlocks : 1];
   const int panel = panel_rows(K, kN) * P;
+  // kN = 0: the P block offsets after the panel (kN > 0 reads them by value)
+  long long* off_s = reinterpret_cast<long long*>(
+      reinterpret_cast<unsigned char*>(c_s) + round16(static_cast<size_t>(panel) * sizeof(float)));
   for (int i = threadIdx.x; i < panel; i += blockDim.x) {
     c_s[i] = i < K * P ? accum::widen(coeff[i]) : 0.0f;
   }
-  if (kN == 0 && threadIdx.x < P) off_s[threadIdx.x] = offsets.v[threadIdx.x];
+  if (kN == 0) {
+    for (int i = threadIdx.x; i < P; i += blockDim.x) off_s[i] = offs ? offs[i] : offsets.v[i];
+  }
   __syncthreads();
 
   // (row, vec) walks the rows' vectors with the grid's stride, carried
@@ -213,10 +238,11 @@ encode_vector_kernel(const T* __restrict__ coeff, const T* __restrict__ blocks,
 // A persistent launch of one 16-byte-form instance: as many blocks as fit on
 // the card at once, or fewer if the vectors run out first.
 template <typename T, int kN>
-int launch_vector(const T* coeff, const T* blocks, T* out, const BlockOffsets& off, int K,
-                  int P, long long rows, long long cols, long long row_stride,
-                  cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(panel_rows(K, kN)) * P * sizeof(float);
+int launch_vector(const T* coeff, const T* blocks, T* out, const BlockOffsets& off,
+                  const long long* offs, int K, int P, long long rows, long long cols,
+                  long long row_stride, cudaStream_t stream) {
+  const size_t smem =
+      smem_for(static_cast<size_t>(panel_rows(K, kN)) * P * sizeof(float), P, kN == 0);
   auto kernel = encode_vector_kernel<T, kN>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -231,7 +257,7 @@ int launch_vector(const T* coeff, const T* blocks, T* out, const BlockOffsets& o
   const long long needed = (rows * vecs + kThreads - 1) / kThreads;
   const long long fit = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   const unsigned grid = static_cast<unsigned>(needed < fit ? needed : fit);
-  kernel<<<grid, kThreads, smem, stream>>>(coeff, blocks, out, off, K, P,
+  kernel<<<grid, kThreads, smem, stream>>>(coeff, blocks, out, off, offs, K, P,
                                            static_cast<int>(rows), static_cast<int>(vecs),
                                            row_stride, rows * cols);
   return static_cast<int>(cudaGetLastError());
@@ -240,13 +266,14 @@ int launch_vector(const T* coeff, const T* blocks, T* out, const BlockOffsets& o
 // The 16-byte form's instance for P raw blocks.
 template <typename T>
 int launch_vector_for(int P, const T* coeff, const T* blocks, T* out, const BlockOffsets& off,
-                      int K, long long rows, long long cols, long long row_stride,
-                      cudaStream_t stream) {
+                      const long long* offs, int K, long long rows, long long cols,
+                      long long row_stride, cudaStream_t stream) {
   static_assert(kLoads == 8, "one instance per block count");
   switch (P) {
 #define REPRO_ENCODE_CASE(N) \
   case N:                    \
-    return launch_vector<T, N>(coeff, blocks, out, off, K, P, rows, cols, row_stride, stream);
+    return launch_vector<T, N>(coeff, blocks, out, off, offs, K, P, rows, cols, row_stride, \
+                               stream);
     REPRO_ENCODE_CASE(1)
     REPRO_ENCODE_CASE(2)
     REPRO_ENCODE_CASE(3)
@@ -257,7 +284,8 @@ int launch_vector_for(int P, const T* coeff, const T* blocks, T* out, const Bloc
     REPRO_ENCODE_CASE(8)
 #undef REPRO_ENCODE_CASE
     default:
-      return launch_vector<T, 0>(coeff, blocks, out, off, K, P, rows, cols, row_stride, stream);
+      return launch_vector<T, 0>(coeff, blocks, out, off, offs, K, P, rows, cols, row_stride,
+                                 stream);
   }
 }
 
@@ -267,32 +295,60 @@ bool aligned16(const void* p, long long elems, size_t item) {
          elems * static_cast<long long>(item) % 16 == 0;
 }
 
+// One launch per slab of the K workers (all of them unless the panel
+// exceeds the card's per-block shared memory): a worker's coded block is
+// the same sum in any slab.  Adds the launches made to *launches.
 template <typename T>
 int launch(const void* coeff_, const void* blocks_, void* out_, const long long* offsets,
-           int K, int P, long long rows, long long cols, long long row_stride, int width,
-           void* stream_) {
+           const long long* offs_dev, int K, int P, long long rows, long long cols,
+           long long row_stride, int width, int* launches, void* stream_) {
   const T* coeff = static_cast<const T*>(coeff_);
   const T* blocks = static_cast<const T*>(blocks_);
   T* out = static_cast<T*>(out_);
   const auto stream = static_cast<cudaStream_t>(stream_);
-  const size_t smem = static_cast<size_t>(K) * P * sizeof(T);
-  if (K < 1 || P < 1 || P > kMaxBlocks || rows < 1 || cols < 1 ||
-      smem > kMaxPanelBytes || (width != 16 && width != static_cast<int>(sizeof(T)))) {
+  if (K < 1 || P < 1 || rows < 1 || cols < 1 || (P > kMaxBlocks && offs_dev == nullptr) ||
+      (width != 16 && width != static_cast<int>(sizeof(T)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const long long* offs = P > kMaxBlocks ? offs_dev : nullptr;
   BlockOffsets off{};
-  for (int p = 0; p < P; ++p) off.v[p] = offsets[p];
-  if (width == 16) {
+  for (int p = 0; p < P && p < kMaxBlocks; ++p) off.v[p] = offsets[p];
+  int device = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vector = width == 16;
+  // panel bytes a worker: FP32 in the 16-byte form, T in the element form;
+  // slabs of the 16-byte form are whole groups of kWideWorkers
+  const size_t per_worker = static_cast<size_t>(P) * (vector ? sizeof(float) : sizeof(T));
+  // the offsets: P of them in dynamic shared memory, or kMaxBlocks in the
+  // element form's static array
+  const size_t head = smem_for(0, P > kMaxBlocks ? P : kMaxBlocks, true) + 16;
+  const size_t room = static_cast<size_t>(smem_max) > head ? smem_max - head : 0;
+  long long slab = static_cast<long long>(room / per_worker);
+  if (vector) slab = slab / kWideWorkers * kWideWorkers;
+  if (slab < 1) return static_cast<int>(cudaErrorInvalidValue);  // P alone exceeds it
+  const long long plane = rows * cols;
+  if (vector) {
     if constexpr (sizeof(T) == 2) {
       if (rows > INT_MAX / 2 || cols / kVec > INT_MAX / 2) {  // the walk counts in int
         return static_cast<int>(cudaErrorInvalidValue);
       }
       bool ok = cols % kVec == 0 && aligned16(blocks, row_stride, sizeof(T)) &&
                 aligned16(out, 0, sizeof(T));
-      for (int p = 0; p < P; ++p) ok = ok && aligned16(blocks, off.v[p], sizeof(T));
+      for (int p = 0; p < P; ++p) ok = ok && aligned16(blocks, offsets[p], sizeof(T));
       if (!ok) return static_cast<int>(cudaErrorMisalignedAddress);
-      return launch_vector_for<T>(P, coeff, blocks, out, off, K, rows, cols, row_stride,
-                                  stream);
+      for (long long k0 = 0; k0 < K; k0 += slab) {
+        const int n = static_cast<int>(K - k0 < slab ? K - k0 : slab);
+        err = static_cast<cudaError_t>(launch_vector_for<T>(
+            P, coeff + k0 * P, blocks, out + k0 * plane, off, offs, n, rows, cols,
+            row_stride, stream));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        ++*launches;
+      }
+      return static_cast<int>(cudaSuccess);
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -301,34 +357,43 @@ int launch(const void* coeff_, const void* blocks_, void* out_, const long long*
   if (gx > kMaxGridX) gx = kMaxGridX;
   const long long gy = rows < kMaxGridY ? rows : kMaxGridY;
   const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
-  // a panel near kMaxPanelBytes and the static offsets pass the default
-  // 48 KB of shared memory: opt in
-  const cudaError_t err = cudaFuncSetAttribute(
-      encode_element_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  encode_element_kernel<T><<<grid, kThreads, smem, stream>>>(
-      coeff, blocks, out, off, K, P, rows, cols, row_stride);
-  return static_cast<int>(cudaGetLastError());
+  for (long long k0 = 0; k0 < K; k0 += slab) {
+    const int n = static_cast<int>(K - k0 < slab ? K - k0 : slab);
+    const bool dynamic = offs != nullptr;
+    const size_t smem = smem_for(static_cast<size_t>(n) * P * sizeof(T), P, dynamic);
+    auto kernel = dynamic ? encode_element_kernel<T, false> : encode_element_kernel<T, true>;
+    // a panel near or above 48 KB: opt in
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        coeff + k0 * P, blocks, out + k0 * plane, off, offs, n, P, rows, cols, row_stride);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ++*launches;
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
 }  // namespace
 
 // coeff (K, P) contiguous; block p starts at blocks + offsets[p] (in elements)
 // with row stride row_stride and unit column stride; out (K, rows, cols)
-// contiguous.  offsets is a HOST array of P entries (P <= 64).  width is the
+// contiguous.  offsets is a HOST array of P entries; offs_dev (DEVICE, or
+// null) holds the same and is read instead when P > 64.  width is the
 // form: 16 (bf16 / f16 only; cudaErrorMisalignedAddress unless every block
 // pointer and the row stride are 16-byte multiples and cols % 8 == 0) or the
-// element size (one element a thread).  Returns the cudaError_t of the
-// launch.  The _bf16 / _f16 entries sum in FP32 and write the coefficient
+// element size (one element a thread).  Adds the kernel launches made (one
+// per slab of workers) to *launches (HOST).  Returns the cudaError_t of the
+// launches.  The _bf16 / _f16 entries sum in FP32 and write the coefficient
 // type, rounded to nearest even.
 #define REPRO_ENCODE(NAME, T)                                                      \
   extern "C" int NAME(const void* coeff, const void* blocks, void* out,            \
-                      const long long* offsets, int K, int P, long long rows,      \
-                      long long cols, long long row_stride, int width,             \
-                      void* stream) {                                              \
-    return launch<T>(coeff, blocks, out, offsets, K, P, rows, cols, row_stride,    \
-                     width, stream);                                               \
+                      const long long* offsets, const long long* offs_dev, int K,  \
+                      int P, long long rows, long long cols, long long row_stride, \
+                      int width, int* launches, void* stream) {                    \
+    return launch<T>(coeff, blocks, out, offsets, offs_dev, K, P, rows, cols,      \
+                     row_stride, width, launches, stream);                         \
   }
 
 REPRO_ENCODE(repro_encode_f64, double)

@@ -78,7 +78,7 @@ namespace {
 using namespace dmma_gemm;
 using accum::acc_t;
 
-constexpr int kMaxBlocks = 64;  // largest P or Q the kernel takes
+constexpr int kMaxBlocks = 64;  // block offsets by value, and the TMA form's most blocks
 constexpr int kGroup = 4;       // raw blocks of each operand per stage
 constexpr int kStages = 2;      // depth of the copy ring
 
@@ -98,15 +98,22 @@ struct BlockOffsets {
   long long v[kMaxBlocks];
 };
 
-// Offsets, coefficients, the raw-tile ring, two coded pairs and (bf16/f16)
-// their partial sums.
+// Offsets and coefficients of nb blocks a side, the raw-tile ring, two
+// coded pairs and (bf16/f16) their partial sums.  nb is kMaxBlocks, or P
+// and Q rounded up to 16 where they exceed it (the ring stays 16-byte
+// aligned); then the blocks' offsets come from device memory.
 template <typename T>
-constexpr size_t smem_bytes() {
-  return 2ull * kMaxBlocks * (sizeof(long long) + sizeof(acc_t<T>)) +
+constexpr size_t smem_bytes(int nb = kMaxBlocks) {
+  return 2ull * nb * (sizeof(long long) + sizeof(acc_t<T>)) +
          (2ull * kGroup * kStages + 4) * kTile<T> * sizeof(T) +
          4ull * kPartialTile<T> * sizeof(acc_t<T>);
 }
 static_assert(smem_bytes<__nv_bfloat16>() <= 232448, "the opt-in shared-memory limit");
+
+inline int head_blocks(int P, int Q) {
+  const int n = P > Q ? P : Q;
+  return n <= kMaxBlocks ? kMaxBlocks : (n + 15) / 16 * 16;
+}
 
 // coded (+)= sum_{j < n} coef[j] * raw[j], over one coded tile, 16 bytes of
 // raw elements a thread at a time; `first` starts the sum from zero.
@@ -171,21 +178,27 @@ __device__ __forceinline__ void encode(T* coded, acc_t<T>* partial, const T* raw
   }
 }
 
-template <typename T, typename Out, int kVec>
+// kHead: kMaxBlocks (offsets by value, the head of compile-time size the
+// main path runs) or 0 (the head sized by nb at run time, offsets from
+// `offs`).  A run-time head puts every shared-memory address of the main
+// loop at a run-time offset, which slowed the float64 kernel on an H100.
+template <typename T, typename Out, int kVec, int kHead>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_worker_kernel(const T* __restrict__ ca, const T* __restrict__ cb,
                     const T* __restrict__ a, const T* __restrict__ b,
                     Out* __restrict__ out, BlockOffsets a_off, BlockOffsets b_off,
+                    const long long* __restrict__ offs, int nb,
                     int K, int P, int Q, long long v, long long r, long long t,
                     long long a_sv, long long b_sv) {
   using Acc = acc_t<T>;
   constexpr int kBK = kBKOf<T>;
   extern __shared__ __align__(16) unsigned char smem[];
+  const int head = kHead ? kHead : nb;
   long long* aoff_s = reinterpret_cast<long long*>(smem);
-  long long* boff_s = aoff_s + kMaxBlocks;
-  Acc* ca_s = reinterpret_cast<Acc*>(boff_s + kMaxBlocks);
-  Acc* cb_s = ca_s + kMaxBlocks;
-  T* raw_s = reinterpret_cast<T*>(cb_s + kMaxBlocks);  // [kStages][2 * kGroup][tile]: A, then B
+  long long* boff_s = aoff_s + head;
+  Acc* ca_s = reinterpret_cast<Acc*>(boff_s + head);
+  Acc* cb_s = ca_s + head;
+  T* raw_s = reinterpret_cast<T*>(cb_s + head);  // [kStages][2 * kGroup][tile]: A, then B
   T* coded_s = raw_s + kStages * 2 * kGroup * kTile<T>;  // [2][A, B][tile]
   Acc* partial_s = reinterpret_cast<Acc*>(coded_s + 4 * kTile<T>);  // [2][A, B][partial tile]
 
@@ -195,13 +208,25 @@ fused_worker_kernel(const T* __restrict__ ca, const T* __restrict__ cb,
   const long long tiles_t = (t + kBN - 1) / kBN;
   const long long r0 = (tile / tiles_t) * kBM;
   const long long t0 = (tile % tiles_t) * kBN;
-  if (tid < P) {
-    ca_s[tid] = accum::widen(ca[k * P + tid]);
-    aoff_s[tid] = a_off.v[tid];
-  }
-  if (tid < Q) {
-    cb_s[tid] = accum::widen(cb[k * Q + tid]);
-    boff_s[tid] = b_off.v[tid];
+  // block offsets by value (kHead), else from `offs`: A's P, then B's Q
+  if constexpr (kHead != 0) {
+    if (tid < P) {
+      ca_s[tid] = accum::widen(ca[k * P + tid]);
+      aoff_s[tid] = a_off.v[tid];
+    }
+    if (tid < Q) {
+      cb_s[tid] = accum::widen(cb[k * Q + tid]);
+      boff_s[tid] = b_off.v[tid];
+    }
+  } else {
+    for (int i = tid; i < P; i += kThreads) {
+      ca_s[i] = accum::widen(ca[k * P + i]);
+      aoff_s[i] = offs[i];
+    }
+    for (int i = tid; i < Q; i += kThreads) {
+      cb_s[i] = accum::widen(cb[k * Q + i]);
+      boff_s[i] = offs[P + i];
+    }
   }
   __syncthreads();
 
@@ -666,8 +691,8 @@ int launch_tma(const T* ca, const T* cb, const T* a, const T* b, Out* out,
 
 template <typename T, typename Out>
 int launch(const void* ca_, const void* cb_, const void* a_, const void* b_, void* out_,
-           const long long* a_off, const long long* b_off, const long long* a_tma,
-           const long long* b_tma, int K, int P, int Q,
+           const long long* a_off, const long long* b_off, const long long* offs_dev,
+           const long long* a_tma, const long long* b_tma, int K, int P, int Q,
            long long v, long long r, long long t, long long a_sv, long long b_sv,
            int copy_bytes, void* stream) {
   const T* ca = static_cast<const T*>(ca_);
@@ -676,10 +701,12 @@ int launch(const void* ca_, const void* cb_, const void* a_, const void* b_, voi
   const T* b = static_cast<const T*>(b_);
   Out* out = static_cast<Out*>(out_);
   const long long tiles = ((r + kBM - 1) / kBM) * ((t + kBN - 1) / kBN);
-  if (P < 1 || Q < 1 || P > kMaxBlocks || Q > kMaxBlocks || K < 1 || r < 1 ||
-      t < 1 || v < 0 || tiles * K > 0x7fffffffLL) {
+  const int nb = head_blocks(P, Q);
+  if (P < 1 || Q < 1 || K < 1 || r < 1 || t < 1 || v < 0 || tiles * K > 0x7fffffffLL ||
+      (nb > kMaxBlocks && offs_dev == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const long long* offs = nb > kMaxBlocks ? offs_dev : nullptr;
   BlockOffsets ao{};
   BlockOffsets bo{};
   std::uintptr_t misaligned = reinterpret_cast<std::uintptr_t>(a) |
@@ -687,18 +714,26 @@ int launch(const void* ca_, const void* cb_, const void* a_, const void* b_, voi
                               static_cast<std::uintptr_t>(a_sv * sizeof(T)) |
                               static_cast<std::uintptr_t>(b_sv * sizeof(T));
   for (int p = 0; p < P; ++p) {
-    ao.v[p] = a_off[p];
+    if (p < kMaxBlocks) ao.v[p] = a_off[p];
     misaligned |= static_cast<std::uintptr_t>(a_off[p] * sizeof(T));
   }
   for (int q = 0; q < Q; ++q) {
-    bo.v[q] = b_off[q];
+    if (q < kMaxBlocks) bo.v[q] = b_off[q];
     misaligned |= static_cast<std::uintptr_t>(b_off[q] * sizeof(T));
   }
   const dim3 grid(static_cast<unsigned>(tiles * K));
-  const size_t bytes = smem_bytes<T>();
+  const size_t bytes = smem_bytes<T>(nb);
+  int device = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (bytes > static_cast<size_t>(smem_max)) return static_cast<int>(cudaErrorInvalidValue);
   if (copy_bytes == 16) {
     if (misaligned % 16) return static_cast<int>(cudaErrorMisalignedAddress);
     if constexpr (sizeof(T) == 2) {
+      if (nb > kMaxBlocks) return static_cast<int>(cudaErrorInvalidValue);  // one-element form
       if (P > kGroup || Q > kGroup) {  // the grouped plan: partial sums
         return launch_tma<T, Out, 16, 4>(ca, cb, a, b, out, a_tma, b_tma, K, P, Q, v, r, t,
                                          stream);
@@ -706,14 +741,17 @@ int launch(const void* ca_, const void* cb_, const void* a_, const void* b_, voi
       return launch_tma<T, Out, 32, 2>(ca, cb, a, b, out, a_tma, b_tma, K, P, Q, v, r, t,
                                        stream);
     } else {
-      return launch_kernel(fused_worker_kernel<T, Out, 16 / sizeof(T)>, grid, bytes,
-                           stream, ca, cb, a, b, out, ao, bo, K, P, Q, v, r, t,
-                           a_sv, b_sv);
+      auto kernel = nb > kMaxBlocks ? fused_worker_kernel<T, Out, 16 / sizeof(T), 0>
+                                    : fused_worker_kernel<T, Out, 16 / sizeof(T), kMaxBlocks>;
+      return launch_kernel(kernel, grid, bytes, stream, ca, cb, a, b, out, ao, bo, offs, nb,
+                           K, P, Q, v, r, t, a_sv, b_sv);
     }
   }
   if (copy_bytes == static_cast<int>(sizeof(T))) {
-    return launch_kernel(fused_worker_kernel<T, Out, 1>, grid, bytes, stream, ca, cb,
-                         a, b, out, ao, bo, K, P, Q, v, r, t, a_sv, b_sv);
+    auto kernel = nb > kMaxBlocks ? fused_worker_kernel<T, Out, 1, 0>
+                                  : fused_worker_kernel<T, Out, 1, kMaxBlocks>;
+    return launch_kernel(kernel, grid, bytes, stream, ca, cb, a, b, out, ao, bo, offs, nb, K,
+                         P, Q, v, r, t, a_sv, b_sv);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -722,7 +760,11 @@ int launch(const void* ca_, const void* cb_, const void* a_, const void* b_, voi
 
 // ca (K, P), cb (K, Q) contiguous; block p of A starts at a + a_off[p] (in
 // elements) with row stride a_sv and unit column stride, likewise B; out
-// (K, r, t) contiguous.  a_off / b_off are HOST arrays.  copy_bytes is 16
+// (K, r, t) contiguous.  a_off / b_off are HOST arrays; offs_dev (DEVICE,
+// A's P offsets then B's Q, or null) is read instead when P or Q exceeds 64
+// (then the block offsets and coefficients sit in a larger head of shared
+// memory, up to the card's per-block limit; the TMA form takes at most 64
+// blocks a side, so bf16/f16 above that need copy_bytes = 2).  copy_bytes is 16
 // (both base pointers, every block offset and both row strides 16-byte
 // multiples) or the element size.  a_tma / b_tma (HOST arrays, or null) are
 // the operands' tensor-map layouts, which the 16-byte form of the _bf16 /
@@ -732,11 +774,12 @@ int launch(const void* ca_, const void* cb_, const void* a_, const void* b_, voi
 #define REPRO_FUSED_WORKER(NAME, T, OUT)                                             \
   extern "C" int NAME(const void* ca, const void* cb, const void* a, const void* b,    \
                       void* out, const long long* a_off, const long long* b_off,       \
-                      const long long* a_tma, const long long* b_tma, int K, int P,    \
-                      int Q, long long v, long long r, long long t, long long a_sv,    \
-                      long long b_sv, int copy_bytes, void* stream) {                  \
-    return launch<T, OUT>(ca, cb, a, b, out, a_off, b_off, a_tma, b_tma, K, P, Q, v, r, \
-                          t, a_sv, b_sv, copy_bytes, stream);                          \
+                      const long long* offs_dev, const long long* a_tma,               \
+                      const long long* b_tma, int K, int P, int Q, long long v,        \
+                      long long r, long long t, long long a_sv, long long b_sv,        \
+                      int copy_bytes, void* stream) {                                  \
+    return launch<T, OUT>(ca, cb, a, b, out, a_off, b_off, offs_dev, a_tma, b_tma, K, P, \
+                          Q, v, r, t, a_sv, b_sv, copy_bytes, stream);                 \
   }
 
 REPRO_FUSED_WORKER(repro_fused_worker_f64, double, double)

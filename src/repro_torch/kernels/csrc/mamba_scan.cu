@@ -174,8 +174,9 @@ int launch(const float* dt, const float* x, const float* Bm, const float* Cm,
 
 // dt, x (B, S, d), Bm, Cm (B, S, s), A_log (d, s), D (d): contiguous float32.
 // y (B, S, d), h_fin (B, d, s), h_bounds (B, S / chunk, d, s): contiguous
-// float32 outputs (16-byte aligned).  s in {4, 8, 16, 32}, B <= 65535, chunk
-// divides S.  Returns the cudaError_t of the launch.
+// float32 outputs (16-byte aligned).  s in {4, 8, 16, 32, 64} (the wrapper
+// pads other state sizes with zero columns of B and C, and scans more than 64
+// states in groups), B <= 65535, chunk divides S.  Returns the cudaError_t of the launch.
 extern "C" int repro_mamba_scan_f32(const float* dt, const float* x,
                                     const float* Bm, const float* Cm,
                                     const float* A_log, const float* D,
@@ -191,6 +192,7 @@ extern "C" int repro_mamba_scan_f32(const float* dt, const float* x,
     case 8: return launch<8>(dt, x, Bm, Cm, A_log, D, y, h_fin, h_bounds, B, S, d, chunk, st);
     case 16: return launch<16>(dt, x, Bm, Cm, A_log, D, y, h_fin, h_bounds, B, S, d, chunk, st);
     case 32: return launch<32>(dt, x, Bm, Cm, A_log, D, y, h_fin, h_bounds, B, S, d, chunk, st);
+    case 64: return launch<64>(dt, x, Bm, Cm, A_log, D, y, h_fin, h_bounds, B, S, d, chunk, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

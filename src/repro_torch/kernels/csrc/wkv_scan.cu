@@ -52,12 +52,14 @@
 
 namespace {
 
-constexpr int kTile = 16;     // time steps per staged tile (two in flight)
 constexpr int kCols = 32;     // value columns per block
 constexpr int kLanes = 8;     // threads per column, at most dk / 4
 constexpr int kCpt = 2;       // columns per thread
 constexpr int kSlots = kCols / kCpt;   // a thread's columns: slot + c * kSlots
-constexpr int kMaxDv = 128;
+
+// Time steps per staged tile (two in flight): 16, fewer for the wide heads
+// (dk 128 and 256), whose tiles would pass the 48 KB of static shared memory.
+__host__ __device__ constexpr int tile_steps(int dk) { return dk <= 64 ? 16 : 1024 / dk; }
 
 // Threads per column for a head width: kLanes, fewer where dk / kLanes would
 // leave a lane less than one float4 of rows.
@@ -76,6 +78,7 @@ wkv_kernel(const float* __restrict__ w, const float* __restrict__ k,
   constexpr int NT = L * kSlots;      // threads
   constexpr int R = DK / L;          // rows per lane
   constexpr int Q = R / 4;           // float4 groups per lane
+  constexpr int kTile = tile_steps(DK);
   static_assert(R % 4 == 0 && 32 % L == 0 && NT % 32 == 0 && kCols % 32 == 0,
                 "lane split");
   __shared__ __align__(16) float wkr_s[2][3][kTile][DK];   // w, k, r
@@ -228,8 +231,8 @@ int launch(const float* w, const float* k, const float* v, const float* r,
 
 // w, k, r (B, S, H, dk), v (B, S, H, dv), u (H, dk): contiguous float32.
 // y (B, S, H, dv), s_fin (B, H, dk, dv), s_bounds (B, S / chunk, H, dk, dv):
-// contiguous float32 outputs.  dk in {8, 16, 32, 64}, 1 <= dv <= 128, chunk
-// divides S.  vec is 4 (16-byte copies: every input pointer 16-byte
+// contiguous float32 outputs.  dk in {8, 16, 32, 64, 128, 256} (the wrapper
+// pads other head widths with zero rows), any dv >= 1, chunk divides S.  vec is 4 (16-byte copies: every input pointer 16-byte
 // aligned and dv a multiple of 4) or 1.  Returns the cudaError_t of the
 // launch.
 extern "C" int repro_wkv_scan_f32(const float* w, const float* k,
@@ -237,7 +240,7 @@ extern "C" int repro_wkv_scan_f32(const float* w, const float* k,
                                   const float* u, float* y, float* s_fin,
                                   float* s_bounds, int B, int S, int H, int dk,
                                   int dv, int chunk, int vec, void* stream) {
-  if (B < 1 || S < 1 || H < 1 || dv < 1 || dv > kMaxDv || chunk < 1 ||
+  if (B < 1 || S < 1 || H < 1 || dv < 1 || chunk < 1 ||
       S % chunk != 0 || (vec != 1 && vec != 4) || (vec == 4 && dv % 4 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -247,6 +250,8 @@ extern "C" int repro_wkv_scan_f32(const float* w, const float* k,
     case 16: return launch<16>(w, k, v, r, u, y, s_fin, s_bounds, B, S, H, dv, chunk, vec, st);
     case 32: return launch<32>(w, k, v, r, u, y, s_fin, s_bounds, B, S, H, dv, chunk, vec, st);
     case 64: return launch<64>(w, k, v, r, u, y, s_fin, s_bounds, B, S, H, dv, chunk, vec, st);
+    case 128: return launch<128>(w, k, v, r, u, y, s_fin, s_bounds, B, S, H, dv, chunk, vec, st);
+    case 256: return launch<256>(w, k, v, r, u, y, s_fin, s_bounds, B, S, H, dv, chunk, vec, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -32,13 +32,14 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import mamba_scan_ref, scan_chunk
 
-__all__ = ["mamba_scan_cuda", "mamba_scan_ref", "S_SUPPORTED"]
+__all__ = ["mamba_scan_cuda", "mamba_scan_ref", "S_INSTANCES"]
 
-S_SUPPORTED = (4, 8, 16, 32)   # template instances in csrc/mamba_scan.cu
+S_INSTANCES = (4, 8, 16, 32, 64)   # template instances in csrc/mamba_scan.cu
 MAX_BATCH = 65535              # the grid's y dimension
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -51,18 +52,48 @@ def _function():
     return fn
 
 
+def _launch(dt, x, Bm, Cm, A_log, D, chunk: int) -> tuple:
+    """One launch for s <= the widest instance: the state padded with zero
+    columns of B and C up to the next instance (a padded state stays zero
+    and adds nothing to y), the padding sliced off the states."""
+    B, S, d = x.shape
+    s = Bm.shape[2]
+    inst = min(n for n in S_INSTANCES if n >= s)
+    if inst != s:
+        Bm, Cm, A_log = (F.pad(t, (0, inst - s)) for t in (Bm, Cm, A_log))
+    dt, x, Bm, Cm, A_log, D = (t.contiguous() for t in (dt, x, Bm, Cm, A_log, D))
+    y = torch.empty((B, S, d), dtype=torch.float32, device=x.device)
+    h_fin = torch.empty((B, d, inst), dtype=torch.float32, device=x.device)
+    h_bounds = torch.empty((B, S // chunk, d, inst), dtype=torch.float32,
+                           device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _function()(dt.data_ptr(), x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                      A_log.data_ptr(), D.data_ptr(), y.data_ptr(),
+                      h_fin.data_ptr(), h_bounds.data_ptr(), B, S, d, inst, chunk,
+                      stream)
+    if err != 0:
+        raise RuntimeError(f"mamba_scan kernel launch failed: cudaError {err}")
+    if inst != s:
+        h_fin, h_bounds = h_fin[..., :s].contiguous(), h_bounds[..., :s].contiguous()
+    return y, h_fin, h_bounds
+
+
 def mamba_scan_cuda(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor,
                     Cm: torch.Tensor, A_log: torch.Tensor, D: torch.Tensor,
                     chunk: int = 128) -> tuple:
     """Launch the kernel: dt, x (B, S, d), Bm, Cm (B, S, s), A_log (d, s),
-    D (d,), float32 CUDA tensors -> (y (B, S, d), h_fin (B, d, s), h_bounds
-    (B, nc, d, s)), nc = S / chunk after ``chunk`` is capped at S and halved
-    until it divides S.
+    D (d,), float32 CUDA tensors -> ((y (B, S, d), h_fin (B, d, s), h_bounds
+    (B, nc, d, s)), the kernel launches made), nc = S / chunk after
+    ``chunk`` is capped at S and halved until it divides S.
+
+    Any s.  The kernel has instances for s in ``S_INSTANCES``; another s
+    is padded with zero columns of B and C up to the next one, and above the
+    widest the states (independent of one another) are scanned in groups of
+    that width, a launch each, their y summed (D x in the first group only).
 
     Raises:
-        ValueError: on mismatched shapes, devices or dtypes, s not in
-            ``S_SUPPORTED``, more than ``MAX_BATCH`` rows or an empty
-            sequence.
+        ValueError: on mismatched shapes, devices or dtypes, more than
+            ``MAX_BATCH`` rows or an empty sequence.
         RuntimeError: if the launch fails.
     """
     tensors = (dt, x, Bm, Cm, A_log, D)
@@ -77,21 +108,19 @@ def mamba_scan_cuda(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor,
                          f"A_log {tuple(A_log.shape)}, D {tuple(D.shape)}")
     B, S, d = x.shape
     s = Bm.shape[2]
-    if s not in S_SUPPORTED or not 1 <= B <= MAX_BATCH or S < 1 or d < 1:
-        raise ValueError(f"the selective-scan kernel takes s in {S_SUPPORTED}, "
-                         f"1 <= B <= {MAX_BATCH}, S >= 1 and d >= 1, got s={s}, "
-                         f"B={B}, S={S}, d={d}")
+    if not 1 <= B <= MAX_BATCH or S < 1 or d < 1 or s < 1:
+        raise ValueError(f"the selective-scan kernel takes 1 <= B <= {MAX_BATCH}, "
+                         f"S >= 1, d >= 1 and s >= 1, got B={B}, S={S}, d={d}, s={s}")
     chunk = scan_chunk(S, chunk)
-    dt, x, Bm, Cm, A_log, D = (t.contiguous() for t in tensors)
-    y = torch.empty((B, S, d), dtype=torch.float32, device=x.device)
-    h_fin = torch.empty((B, d, s), dtype=torch.float32, device=x.device)
-    h_bounds = torch.empty((B, S // chunk, d, s), dtype=torch.float32,
-                           device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _function()(dt.data_ptr(), x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                      A_log.data_ptr(), D.data_ptr(), y.data_ptr(),
-                      h_fin.data_ptr(), h_bounds.data_ptr(), B, S, d, s, chunk,
-                      stream)
-    if err != 0:
-        raise RuntimeError(f"mamba_scan kernel launch failed: cudaError {err}")
-    return y, h_fin, h_bounds
+    widest = S_INSTANCES[-1]
+    if s <= widest:
+        return _launch(dt, x, Bm, Cm, A_log, D, chunk), 1
+    zero_d = torch.zeros_like(D)
+    parts = [_launch(dt, x, Bm[..., i:i + widest], Cm[..., i:i + widest],
+                     A_log[:, i:i + widest], D if i == 0 else zero_d, chunk)
+             for i in range(0, s, widest)]
+    y = parts[0][0]
+    for part in parts[1:]:
+        y = y + part[0]
+    return (y, torch.cat([p[1] for p in parts], dim=-1),
+            torch.cat([p[2] for p in parts], dim=-1)), len(parts)

@@ -4,13 +4,16 @@ Each coded-matmul wrapper promotes dtypes, routes complex operands to the
 plain complex PyTorch path (as the reference package routes them to its jnp
 oracles: its TPU kernels, like these CUDA kernels, are real-only).  Every
 wrapper then dispatches on where the tensors lie: CPU tensors run the
-kernel's plain version, CUDA tensors launch the kernel (or raise; there is
-no fallback).  Complex plans (unit-circle points) therefore take the plain
-path on the card too.
+kernel's plain version, CUDA tensors launch the kernel (or raise, on bad
+operands only; there is no fallback).  The kernels take every shape their
+TPU kernels take; a call may launch its kernel several times (chunk groups,
+row or worker slabs, scan row or state groups).  Complex plans (unit-circle
+points) take the plain complex path on the card too.
 
-Every wrapper carries an integer ``launches`` count, raised by one where it
-launches its kernel and nowhere else, so a run can show that its main path
-went through the kernels.  The coded product wrappers (encode, matmul_t,
+Every wrapper carries an integer ``launches`` count, raised by one for each
+launch of its kernel and nowhere else (the ``*_cuda`` functions that may
+split a call return the launches they made), so a run can show that its
+main path went through the kernels.  The coded product wrappers (encode, matmul_t,
 fused_worker) take float64, float32, bfloat16 and float16; bf16/f16
 accumulate in float32, as the TPU kernels do.  The two decode wrappers take
 float64 and float32, and the two scan wrappers float32 only, as their TPU
@@ -133,16 +136,16 @@ def decode(W: torch.Tensor, Y: torch.Tensor, s: float, *,
     Y = Y.to(W.dtype)
     if not _on_card(W, Y):
         return ref.decode_ref(W, Y, s, extract)
-    out = decode_cuda(W, Y, s, extract)
-    decode.launches += 1
+    out, n = decode_cuda(W, Y, s, extract)
+    decode.launches += n
     return out
 
 
 @_instrumented("decode_partial")
 def decode_partial(W_stack: torch.Tensor, Y: torch.Tensor, s: float, *,
                    extract: bool = True, bounds=None) -> torch.Tensor:
-    """Per-chunk decode with fused digit extraction, one launch for all
-    chunks: chunk q's worker outputs through chunk q's panel W_stack[q]
+    """Per-chunk decode with fused digit extraction, one launch for up to
+    128 chunks: chunk q's worker outputs through chunk q's panel W_stack[q]
     (Q, mn, K).
 
     With ``bounds=None``, Y is the (Q, K, Ec) stack of the reference
@@ -157,8 +160,8 @@ def decode_partial(W_stack: torch.Tensor, Y: torch.Tensor, s: float, *,
     Y = Y.to(W_stack.dtype)
     if not _on_card(W_stack, Y):
         return ref.decode_partial_ref(W_stack, Y, s, extract, bounds)
-    out = decode_partial_cuda(W_stack, Y, s, extract, bounds)
-    decode_partial.launches += 1
+    out, n = decode_partial_cuda(W_stack, Y, s, extract, bounds)
+    decode_partial.launches += n
     return out
 
 
@@ -180,8 +183,8 @@ def encode(coeff: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
         dt = _common_dtype(coeff, blocks)
         c, x = coeff.to(dt), stack.to(dt)
         if _on_card(c, x):
-            out = encode_cuda(c, x)
-            encode.launches += 1
+            out, n = encode_cuda(c, x)
+            encode.launches += n
         else:
             out = ref.encode_ref(c, x.reshape(P, -1))
     return out.reshape(K, -1) if flat else out.reshape(K, *stack.shape[-2:])
@@ -222,8 +225,8 @@ def wkv_scan(w: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     divides S)."""
     if not _on_card(w, k, v, r, u):
         return ref.wkv_scan_ref(w, k, v, r, u, chunk)
-    out = wkv_scan_cuda(w, k, v, r, u, chunk)
-    wkv_scan.launches += 1
+    out, n = wkv_scan_cuda(w, k, v, r, u, chunk)
+    wkv_scan.launches += n
     return out
 
 
@@ -238,8 +241,8 @@ def mamba_scan(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor,
     until it divides S)."""
     if not _on_card(dt, x, Bm, Cm, A_log, D):
         return ref.mamba_scan_ref(dt, x, Bm, Cm, A_log, D, chunk)
-    out = mamba_scan_cuda(dt, x, Bm, Cm, A_log, D, chunk)
-    mamba_scan.launches += 1
+    out, n = mamba_scan_cuda(dt, x, Bm, Cm, A_log, D, chunk)
+    mamba_scan.launches += n
     return out
 
 

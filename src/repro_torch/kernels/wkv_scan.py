@@ -32,14 +32,14 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import scan_chunk, wkv_scan_ref
 
-__all__ = ["wkv_scan_cuda", "wkv_scan_ref", "copy_elems", "DK_SUPPORTED", "MAX_DV"]
+__all__ = ["wkv_scan_cuda", "wkv_scan_ref", "copy_elems", "DK_INSTANCES"]
 
-DK_SUPPORTED = (8, 16, 32, 64)   # template instances in csrc/wkv_scan.cu
-MAX_DV = 128                     # kMaxDv
+DK_INSTANCES = (8, 16, 32, 64, 128, 256)   # template instances in csrc/wkv_scan.cu
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -58,16 +58,47 @@ def copy_elems(dv: int, *addresses: int) -> int:
     return 4 if dv % 4 == 0 and all(a % 16 == 0 for a in addresses) else 1
 
 
+def _launch(w, k, v, r, u, chunk: int) -> tuple:
+    """One launch for dk <= the widest instance: the head width padded with
+    zero rows up to the next instance (a zero row of k and r adds nothing
+    to y and its state rows stay zero), the padding sliced off the states."""
+    B, S, H, dk = k.shape
+    dv = v.shape[3]
+    inst = min(d for d in DK_INSTANCES if d >= dk)
+    if inst != dk:
+        w, k, r, u = (F.pad(t, (0, inst - dk)) for t in (w, k, r, u))
+    w, k, v, r, u = (t.contiguous() for t in (w, k, v, r, u))
+    vec = copy_elems(dv, *(t.data_ptr() for t in (w, k, v, r)))
+    y = torch.empty((B, S, H, dv), dtype=torch.float32, device=k.device)
+    s_fin = torch.empty((B, H, inst, dv), dtype=torch.float32, device=k.device)
+    s_bounds = torch.empty((B, S // chunk, H, inst, dv), dtype=torch.float32,
+                           device=k.device)
+    stream = torch.cuda.current_stream(k.device).cuda_stream
+    err = _function()(w.data_ptr(), k.data_ptr(), v.data_ptr(), r.data_ptr(),
+                      u.data_ptr(), y.data_ptr(), s_fin.data_ptr(),
+                      s_bounds.data_ptr(), B, S, H, inst, dv, chunk, vec, stream)
+    if err != 0:
+        raise RuntimeError(f"wkv_scan kernel launch failed: cudaError {err}")
+    if inst != dk:
+        s_fin, s_bounds = s_fin[:, :, :dk].contiguous(), s_bounds[:, :, :, :dk].contiguous()
+    return y, s_fin, s_bounds
+
+
 def wkv_scan_cuda(w: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   r: torch.Tensor, u: torch.Tensor, chunk: int = 64) -> tuple:
     """Launch the kernel: w, k, r (B, S, H, dk), v (B, S, H, dv), u (H, dk),
-    float32 CUDA tensors -> (y (B, S, H, dv), S_fin (B, H, dk, dv), S_bounds
-    (B, nc, H, dk, dv)), nc = S / chunk after ``chunk`` is capped at S and
-    halved until it divides S.
+    float32 CUDA tensors -> ((y (B, S, H, dv), S_fin (B, H, dk, dv), S_bounds
+    (B, nc, H, dk, dv)), the kernel launches made), nc = S / chunk after
+    ``chunk`` is capped at S and halved until it divides S.
+
+    Any dk and dv.  The kernel has instances for dk in ``DK_INSTANCES``;
+    another dk is padded with zero rows up to the next one, and above the
+    widest the state's rows (independent of one another) are scanned in
+    groups of that width, a launch each, and their y summed.
 
     Raises:
-        ValueError: on mismatched shapes, devices or dtypes, dk not in
-            ``DK_SUPPORTED``, dv above ``MAX_DV`` or an empty sequence.
+        ValueError: on mismatched shapes, devices or dtypes or an empty
+            sequence.
         RuntimeError: if the launch fails.
     """
     tensors = (w, k, v, r, u)
@@ -80,20 +111,17 @@ def wkv_scan_cuda(w: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)}, r {tuple(r.shape)}, u {tuple(u.shape)}")
     B, S, H, dk = k.shape
     dv = v.shape[3]
-    if dk not in DK_SUPPORTED or not 1 <= dv <= MAX_DV or S < 1 or B * H < 1:
-        raise ValueError(f"the WKV kernel takes dk in {DK_SUPPORTED}, 1 <= dv <= "
-                         f"{MAX_DV} and S >= 1, got dk={dk}, dv={dv}, S={S}")
+    if S < 1 or B * H < 1 or dk < 1 or dv < 1:
+        raise ValueError(f"the WKV kernel needs S, B * H, dk, dv >= 1, got S={S}, "
+                         f"B={B}, H={H}, dk={dk}, dv={dv}")
     chunk = scan_chunk(S, chunk)
-    w, k, v, r, u = (t.contiguous() for t in tensors)
-    vec = copy_elems(dv, *(t.data_ptr() for t in (w, k, v, r)))
-    y = torch.empty((B, S, H, dv), dtype=torch.float32, device=k.device)
-    s_fin = torch.empty((B, H, dk, dv), dtype=torch.float32, device=k.device)
-    s_bounds = torch.empty((B, S // chunk, H, dk, dv), dtype=torch.float32,
-                           device=k.device)
-    stream = torch.cuda.current_stream(k.device).cuda_stream
-    err = _function()(w.data_ptr(), k.data_ptr(), v.data_ptr(), r.data_ptr(),
-                      u.data_ptr(), y.data_ptr(), s_fin.data_ptr(),
-                      s_bounds.data_ptr(), B, S, H, dk, dv, chunk, vec, stream)
-    if err != 0:
-        raise RuntimeError(f"wkv_scan kernel launch failed: cudaError {err}")
-    return y, s_fin, s_bounds
+    widest = DK_INSTANCES[-1]
+    if dk <= widest:
+        return _launch(w, k, v, r, u, chunk), 1
+    parts = [_launch(w[..., i:i + widest], k[..., i:i + widest], v, r[..., i:i + widest],
+                     u[:, i:i + widest], chunk) for i in range(0, dk, widest)]
+    y = parts[0][0]
+    for part in parts[1:]:
+        y = y + part[0]
+    return (y, torch.cat([p[1] for p in parts], dim=2),
+            torch.cat([p[2] for p in parts], dim=3)), len(parts)

@@ -18,11 +18,14 @@ The backend follows the devices: gloo on the CPU, and gloo when ranks share
 a card (NCCL refuses two ranks of one communicator on one GPU); NCCL when
 every rank has a card of its own.  Every process group gets a 60 s timeout,
 so a rank that dies leaves the others raising instead of blocked in a
-collective.
+collective.  Where gloo carries CUDA tensors, the functional all-gather and
+all-to-all (which DTensor's redistributions call) run as the classic
+collectives (:func:`gloo_cuda_collectives`).
 """
 from __future__ import annotations
 
 import datetime
+import faulthandler
 import math
 import os
 import tempfile
@@ -32,6 +35,7 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+import torch.distributed._functional_collectives as fc
 import torch.multiprocessing as mp
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
@@ -41,7 +45,8 @@ from repro_torch.kernels import ops
 
 __all__ = ["MESH_DIMS", "POD_DIMS", "GROUP_TIMEOUT_S", "RankOutput",
            "make_production_mesh", "make_debug_mesh", "mesh_backend",
-           "in_torchrun", "join_mesh", "spawn_mesh"]
+           "in_torchrun", "join_mesh", "spawn_mesh", "gloo_cuda_collectives",
+           "classic_all_gather", "classic_all_to_all"]
 
 MESH_DIMS = ("data", "model")
 POD_DIMS = ("pod", "data", "model")
@@ -128,11 +133,111 @@ def join_mesh(*, model: int, device=None) -> DeviceMesh:
         dist.init_process_group(
             mesh_backend(device, local),
             timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    if device.type == "cuda" and dist.get_backend() == "gloo":
+        gloo_cuda_collectives()
     return make_debug_mesh(world // model, model, device.type)
+
+
+def gloo_cuda_collectives() -> None:
+    """Run the functional all-gather and all-to-all (which DTensor's
+    redistributions call) on a CUDA tensor over a gloo group through the
+    classic ``torch.distributed`` collectives, in this process.  On an H100
+    with ranks sharing the card (torch 2.11), gloo's functional all-gather
+    of a CUDA tensor killed the process (SIGSEGV), where the classic
+    all-gather, all-to-all, all-reduce and reduce-scatter of the same
+    tensors ran.  Other groups and devices are untouched."""
+    for name in ("all_gather_tensor", "all_gather_single"):
+        orig = getattr(fc, name, None)
+        if orig is not None and not getattr(orig, "classic", False):
+            def gather(self, gather_dim, group, *a, _orig=orig, **kw):
+                pg = _gloo_cuda(self, group)
+                if pg is None:
+                    return _orig(self, gather_dim, group, *a, **kw)
+                return classic_all_gather(self, gather_dim, pg)
+            gather.classic = True
+            setattr(fc, name, gather)
+    orig = fc.all_to_all_single
+    if not getattr(orig, "classic", False):
+        def all_to_all(self, output_split_sizes, input_split_sizes, group, *a, _orig=orig,
+                       **kw):
+            pg = _gloo_cuda(self, group)
+            if pg is None:
+                return _orig(self, output_split_sizes, input_split_sizes, group, *a, **kw)
+            return classic_all_to_all(self, pg, output_split_sizes, input_split_sizes)
+        all_to_all.classic = True
+        fc.all_to_all_single = all_to_all
+    # DTensor's shard-to-shard move: an all-gather, then this rank's chunk
+    from torch.distributed.tensor import _collective_utils, placement_types
+    for module in (_collective_utils, placement_types):
+        orig = getattr(module, "shard_dim_alltoall", None)
+        if orig is None or getattr(orig, "classic", False):
+            continue
+
+        def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim, _orig=orig):
+            pg = _gloo_cuda(input, (mesh, mesh_dim))
+            if pg is None:
+                return _orig(input, gather_dim, shard_dim, mesh, mesh_dim)
+            out = classic_all_gather(input, gather_dim, pg)
+            return out.chunk(pg.size(), dim=shard_dim)[pg.rank()].contiguous()
+        alltoall.classic = True
+        module.shard_dim_alltoall = alltoall
+
+
+def _gloo_cuda(x: torch.Tensor, group):
+    """The process group of ``group`` when ``x`` is a CUDA tensor and the
+    group is gloo's, else None."""
+    if not x.is_cuda:
+        return None
+    pg = _process_group(group)
+    return pg if pg is not None and dist.get_backend(pg) == "gloo" else None
+
+
+def _process_group(group):
+    """The ProcessGroup a functional collective's ``group`` names: a group, a
+    (mesh, mesh dim) pair, a group name, or whatever the installed
+    version's resolver takes; None if none resolves it."""
+    if isinstance(group, dist.ProcessGroup):
+        return group
+    if isinstance(group, tuple) and len(group) == 2 and isinstance(group[0], DeviceMesh):
+        return group[0].get_group(group[1])
+    for resolve in (lambda g: torch._C._distributed_c10d._resolve_process_group(g),
+                    lambda g: fc._resolve_group(g),
+                    lambda g: torch._C._distributed_c10d._resolve_process_group(
+                        fc._resolve_group_name(g))):
+        try:
+            pg = resolve(group)
+        except (AttributeError, RuntimeError, ValueError, TypeError):
+            continue
+        if isinstance(pg, dist.ProcessGroup):
+            return pg
+    return None
+
+
+def classic_all_gather(x: torch.Tensor, dim: int, pg) -> torch.Tensor:
+    """The group's shards of ``x`` concatenated along ``dim`` in rank order
+    (``dist.all_gather_into_tensor``, synchronous)."""
+    world = pg.size()
+    x = x.contiguous()
+    out = x.new_empty((world * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=pg)
+    return out if dim == 0 else torch.cat(out.chunk(world, 0), dim=dim)
+
+
+def classic_all_to_all(x: torch.Tensor, pg, output_split_sizes=None,
+                       input_split_sizes=None) -> torch.Tensor:
+    """``dist.all_to_all_single`` of ``x`` over ``pg`` (synchronous)."""
+    x = x.contiguous()
+    if output_split_sizes is None:
+        out = torch.empty_like(x)
+    else:
+        out = x.new_empty((sum(output_split_sizes), *x.shape[1:]))
+    dist.all_to_all_single(out, x, output_split_sizes, input_split_sizes, group=pg)
+    return out
 
 
 def _rank_main(rank: int, fn: Callable, args: tuple, data: int, model: int,
                device_type: str, backend: str, workdir: str) -> None:
+    faulthandler.enable()       # a rank that crashes prints its Python stack
     world = data * model
     if device_type == "cuda":
         torch.cuda.set_device(rank % torch.cuda.device_count())
@@ -142,6 +247,8 @@ def _rank_main(rank: int, fn: Callable, args: tuple, data: int, model: int,
     dist.init_process_group(
         backend, init_method=f"file://{workdir}/rendezvous", rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    if backend == "gloo" and device_type == "cuda":
+        gloo_cuda_collectives()
     try:
         mesh = init_device_mesh(device_type, (data, model),
                                 mesh_dim_names=MESH_DIMS)

@@ -15,14 +15,30 @@ cache holds rotated keys.  Sliding-window layers (``attn_local``) pass
 ``[q_end - window - q_chunk, q_end)`` under the mask ``qpos - kpos <
 window``, and decode reads a ring of ``window`` slots (slot ``pos % window``
 holds the newest token) or a full cache masked to the window.
+
+Tensor parallelism follows Megatron, as in the reference: under sharding
+rules heads shard over "tp", the residual is sequence-sharded ("sp")
+outside the block and gathered to the full sequence inside; the decode
+cache shards over the sequence.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial
 
+from repro_torch.distributed.sharding import (
+    P,
+    current_rules,
+    partial_over,
+    placements,
+    resolve_spec,
+    shard,
+    shard_map_compat,
+)
 from repro_torch.models.layers import apply_rope, normal, rms_head_norm
 
 __all__ = ["NEG_INF", "init_attn", "attn_shapes", "repeat_kv", "mha_chunked", "attn_forward",
@@ -72,11 +88,53 @@ def attn_shapes(d: int, n_heads: int, n_kv: int, d_head: int, qk_norm: bool = Fa
     return p
 
 
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) @ w (d, h, hd) -> (B, S, h, hd).  Under sharding rules it
+    runs on local shards laid out as the reference's annotations name them:
+    x (dp, None, None), w gathered over fsdp with its heads on tp, the
+    result (dp, None, tp, None).  (DTensor's own einsum may shard the
+    flattened heads x hd product where the head count does not divide tp,
+    then cannot unflatten it.)"""
+    rules = current_rules()
+    if rules is None or not isinstance(w, DTensor):
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    xs = resolve_spec(rules, x.shape, ("dp", None, None))
+    ws = resolve_spec(rules, w.shape, (None, "tp", None))
+    mesh = rules.mesh
+    # x serves every head shard, w every batch shard: partial-sum gradients
+    return shard_map_compat(
+        lambda a, b: torch.einsum("bsd,dhk->bshk", a, b), mesh=mesh, in_specs=(xs, ws),
+        out_specs=P(xs[0], None, ws[1], None),
+        in_grad_placements=(partial_over(mesh, xs, ws[1]), partial_over(mesh, ws, xs[0])),
+    )(x, w)
+
+
+def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """o (B, S, H, hd) @ wo (H, hd, d) -> (B, S, d).  Under sharding rules on
+    local shards: o (dp, None, tp, None), wo gathered over fsdp with its
+    heads on tp, the result a partial sum over the head shards (DTensor's
+    einsum would flatten the sharded heads with hd)."""
+    rules = current_rules()
+    if rules is None or not isinstance(wo, DTensor):
+        return torch.einsum("bshk,hkd->bsd", o, wo)
+    os_ = resolve_spec(rules, o.shape, ("dp", None, "tp", None))
+    ws = resolve_spec(rules, wo.shape, ("tp", None, None))
+    mesh = rules.mesh
+    out = list(placements(mesh, P(os_[0], None, None)))
+    if ws[0] is not None:                 # heads split over tp: sum the shards
+        out[list(mesh.mesh_dim_names).index(ws[0])] = Partial()
+    return shard_map_compat(
+        lambda a, b: torch.einsum("bshk,hkd->bsd", a, b), mesh=mesh, in_specs=(os_, ws),
+        out_specs=out,
+        in_grad_placements=(None, partial_over(mesh, ws, os_[0])),
+    )(o, wo)
+
+
 def _project_qkv(params, x: torch.Tensor):
     """x (B, S, d) -> q (B, S, H, hd), k/v (B, S, KH, hd)."""
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    q = _heads(x, params["wq"])
+    k = _heads(x, params["wk"])
+    v = _heads(x, params["wv"])
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -84,6 +142,9 @@ def _project_qkv(params, x: torch.Tensor):
     if "q_norm" in params:
         q = rms_head_norm(params["q_norm"], q)
         k = rms_head_norm(params["k_norm"], k)
+    q = shard(q, "dp", None, "tp", None)
+    k = shard(k, "dp", None, "tp", None)
+    v = shard(v, "dp", None, "tp", None)
     return q, k, v
 
 
@@ -122,7 +183,26 @@ def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B,S,H,hd), k/v (B,S,KH,hd) -> (B,S,H,hd): exact-FLOPs chunked
     causal attention, kv heads repeated to H; ``window`` adds the
     sliding-window band (each q chunk reads only the keys its band can
-    reach, tiled from ``kv_start`` as the reference tiles them)."""
+    reach, tiled from ``kv_start`` as the reference tiles them).  Under
+    sharding rules the chunk loop runs on each rank's (dp, tp-on-heads)
+    shard, the layout the reference's annotations name (DTensor's einsum of
+    a tile flattens a sharded dimension it cannot flatten)."""
+    rules = current_rules()
+    if rules is not None and isinstance(q, DTensor):
+        G = q.shape[2] // k.shape[2]
+        k = shard(repeat_kv(k, G), "dp", None, "tp", None)
+        v = shard(repeat_kv(v, G), "dp", None, "tp", None)
+        spec = resolve_spec(rules, q.shape, ("dp", None, "tp", None))
+        local = functools.partial(_mha_chunked, causal=causal, window=window,
+                                  q_chunk=q_chunk, kv_chunk=kv_chunk)
+        return shard_map_compat(local, mesh=rules.mesh, in_specs=(spec, spec, spec),
+                                out_specs=spec)(q, k, v)
+    return _mha_chunked(q, k, v, causal=causal, window=window, q_chunk=q_chunk,
+                        kv_chunk=kv_chunk)
+
+
+def _mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                 window: Optional[int], q_chunk: int, kv_chunk: int) -> torch.Tensor:
     B, S, H, hd = q.shape
     G = H // k.shape[2]
     in_dtype = q.dtype
@@ -181,11 +261,13 @@ def attn_forward(params, x: torch.Tensor, cos_sin=None, *,
     keys rotated.  ``cos_sin``: (cos, sin) of the positions, (S, hd/2) or
     (B, S, hd/2), or None.  ``window``: the sliding-window band of an
     ``attn_local`` layer, or None."""
+    x = shard(x, "dp", None, None)  # gather the sequence for the block
     q, k, v = _project_qkv(params, x)
     q, k = _rotate(q, k, cos_sin)
     o = mha_chunked(q.to(x.dtype), k.to(x.dtype), v, window=window,
                     q_chunk=q_chunk, kv_chunk=kv_chunk)
-    y = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), params["wo"])
+    y = _out_proj(o.to(x.dtype), params["wo"])
+    y = shard(y, "dp", "sp", None)  # back to the sequence-sharded residual
     if return_kv:
         return y, (k.to(x.dtype), v)
     return y
@@ -218,8 +300,8 @@ def attn_decode_step(params, x: torch.Tensor, cos_sin, cache_k: torch.Tensor,
     if not ring and not 0 <= pos < S_c:
         raise ValueError(f"position {pos} is outside the cache of {S_c}")
     slot = pos % S_c if ring else pos
-    cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
+    cache_k = _write_slot(cache_k, k_new[:, 0].to(cache_k.dtype), slot)
+    cache_v = _write_slot(cache_v, v_new[:, 0].to(cache_v.dtype), slot)
 
     KH = cache_k.shape[2]
     H, hd = q.shape[2], q.shape[3]
@@ -234,8 +316,34 @@ def attn_decode_step(params, x: torch.Tensor, cos_sin, cache_k: torch.Tensor,
         if window is not None:
             valid &= (pos - idx) < window
     s = torch.where(valid[None, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(s, dim=s.ndim - 1)
     o = torch.einsum("bhgs,bshd->bhgd", p, cache_v.float())
     o = o.reshape(B, 1, H, hd).to(x.dtype)
-    y = torch.einsum("bshk,hkd->bsd", o, params["wo"])
-    return y, cache_k, cache_v
+    y = _out_proj(o, params["wo"])
+    return shard(y, "dp", None, None), cache_k, cache_v
+
+
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: int) -> torch.Tensor:
+    """cache[:, slot] = new, IN PLACE; returns the cache.  A DTensor cache
+    (sharded (dp, sp), the reference's decode layout) is written on the
+    local shards: the rank whose sequence shard holds ``slot`` writes it."""
+    rules = current_rules()
+    if rules is None or not isinstance(cache, DTensor):
+        cache[:, slot] = new
+        return cache
+    cache = shard(cache, "dp", "sp", None, None)
+    spec = resolve_spec(rules, cache.shape, ("dp", "sp", None, None))
+    mesh = rules.mesh
+
+    def write(c, n):
+        if spec[1] is None:
+            c[:, slot] = n
+            return c
+        S_loc = c.shape[1]
+        first = mesh.get_local_rank(spec[1]) * S_loc
+        if first <= slot < first + S_loc:
+            c[:, slot - first] = n
+        return c
+
+    return shard_map_compat(write, mesh=mesh, in_specs=(spec, P(spec[0], None, None)),
+                            out_specs=spec)(cache, new)

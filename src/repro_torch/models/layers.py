@@ -3,7 +3,8 @@ MLPs.
 
 Pure-function style as in the reference package: ``init_*`` returns a dict of
 tensors, the apply functions take (params, x).  Every ``init_*`` takes an
-explicit ``torch.Generator`` and device.  Also the positions (rotary,
+explicit ``torch.Generator`` and device.  Logical sharding annotations come
+from ``distributed.sharding.shard`` (no-ops without rules).  Also the positions (rotary,
 multimodal rotary, sinusoidal) and the loss: cross entropy fused with the
 head's product, by sequence chunks.
 """
@@ -14,7 +15,18 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed.sharding import (
+    P,
+    current_rules,
+    partial_over,
+    recompute_context,
+    resolve_spec,
+    shard,
+    shard_map_compat,
+)
 
 __all__ = ["normal", "init_rmsnorm", "rmsnorm", "rms_head_norm", "rope_freqs",
            "rope_cos_sin", "apply_rope", "mrope_cos_sin", "sinusoidal_positions",
@@ -39,7 +51,7 @@ def init_rmsnorm(d: int, dtype=torch.float32, device=None):
 
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
-    var = xf.square().mean(-1, keepdim=True)
+    var = xf.square().mean(x.ndim - 1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
 
@@ -47,7 +59,7 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 def rms_head_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
     """Per-head RMS norm (qk-norm): x (..., hd), scale (hd,)."""
     xf = x.float()
-    var = xf.square().mean(-1, keepdim=True)
+    var = xf.square().mean(x.ndim - 1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
@@ -81,7 +93,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
         cos_b, sin_b = cos[:, :, None, :], sin[:, :, None, :]
     r1 = x1 * cos_b - x2 * sin_b
     r2 = x2 * cos_b + x1 * sin_b
-    return torch.cat([r1, r2], dim=-1).to(x.dtype)
+    return torch.cat([r1, r2], dim=x.ndim - 1).to(x.dtype)
 
 
 def mrope_cos_sin(pos_ids: torch.Tensor, sections: Tuple[int, ...], d_rot: int,
@@ -136,17 +148,23 @@ def mlp_shapes(d: int, d_ff: int, act: str, dtype=torch.bfloat16) -> dict:
 
 
 def apply_mlp(params, x: torch.Tensor, act: str) -> torch.Tensor:
-    """x (B, S, d) -> (B, S, d).  ``gelu`` is the tanh form, as
-    ``jax.nn.gelu`` computes it by default."""
+    """x (B, S, d) -> (B, S, d); hidden sharded over tp.  ``gelu`` is the
+    tanh form, as ``jax.nn.gelu`` computes it by default.  Under sharding
+    rules the sequence-sharded residual is gathered first, as the attention
+    and recurrent blocks gather it (DTensor's matmul flattens (B, S) and
+    cannot flatten a sharded S)."""
+    x = shard(x, "dp", None, None)
     up = x @ params["w_up"]
+    up = shard(up, "dp", None, "tp")
     if act == "swiglu":
         gate = x @ params["w_gate"]
+        gate = shard(gate, "dp", None, "tp")
         h = F.silu(gate.float()).to(x.dtype) * up
     elif act == "gelu":
         h = F.gelu(up.float(), approximate="tanh").to(x.dtype)
     else:
         raise ValueError(act)
-    return h @ params["w_down"]
+    return shard(h @ params["w_down"], "dp", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -159,8 +177,22 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
 
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) int -> (B, S, d)."""
-    return params["table"][tokens]
+    """tokens (B, S) int -> (B, S, d).  Under sharding rules the lookup runs
+    on local shards, the table gathered whole (DTensor's gradient of an
+    indexed lookup, an index_put, failed: its placement rule makes a
+    Shard(-1)); each data shard's tokens add a partial sum to the table's
+    gradient."""
+    table = params["table"]
+    rules = current_rules()
+    if rules is None or not isinstance(table, DTensor):
+        return shard(table[tokens], "dp", "sp", None)
+    ts = resolve_spec(rules, tokens.shape, ("dp", None))
+    out = shard_map_compat(
+        lambda t, ids: t[ids], mesh=rules.mesh, in_specs=(P(None, None), ts),
+        out_specs=P(ts[0], None, None),
+        in_grad_placements=(partial_over(rules.mesh, P(None, None), ts[0]), None),
+    )(table, tokens)
+    return shard(out, "dp", "sp", None)
 
 
 # ---------------------------------------------------------------------------
@@ -172,13 +204,18 @@ def lm_head_logits_chunk(table_f32: torch.Tensor, x: torch.Tensor) -> torch.Tens
     float32 -> (B, C, V) float32 logits: float32 sums of the products, as the
     reference's ``preferred_element_type=f32`` asks (a bf16 product is exact
     in float32, so upcasting the operands first computes the same sum)."""
-    return x.float() @ table_f32.T
+    return shard(x.float() @ table_f32.T, "dp", None, "tp")
 
 
 def _ce_chunk(table_f32, x, labels, z_loss: float) -> torch.Tensor:
-    logits = lm_head_logits_chunk(table_f32, x)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    # Under sharding rules the logits come vocab-sharded (dp, None, tp), as
+    # the reference lays them out; DTensor's gather of the gold logit along
+    # a sharded vocab fails (its masked partial sum), so the chunk's logits
+    # are gathered whole over the vocab for the loss.
+    logits = shard(lm_head_logits_chunk(table_f32, x), "dp", None, None)
+    last = logits.ndim - 1     # dims non-negative: DTensor's rules refuse Shard(-1)
+    lse = torch.logsumexp(logits, dim=last)
+    gold = torch.gather(logits, last, labels.long()[..., None])[..., 0]
     loss = (lse - gold).sum()
     if z_loss:
         loss = loss + z_loss * lse.square().sum()
@@ -203,5 +240,5 @@ def chunked_ce_loss(table: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
     for c in range(S // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
         total = total + checkpoint(_ce_chunk, table_f32, x[:, sl], labels[:, sl], z_loss,
-                                   use_reentrant=False)
+                                   use_reentrant=False, context_fn=recompute_context())
     return total / (B * S)

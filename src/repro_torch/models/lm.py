@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import types
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -38,6 +39,12 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.core.numerics import resolve_device
+from repro_torch.distributed.sharding import (
+    current_rules,
+    fsdp_gathered,
+    recompute_context,
+    shard,
+)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_mod
@@ -145,11 +152,15 @@ class Block(nn.Module):
 class LM(nn.Module):
     """The model's parameters: ``embed`` (token input only), ``lm_head``
     (embedding input, or untied embeddings), ``blocks`` in execution order,
-    and ``final_norm``.  Built with ``requires_grad=False``; training turns
+    and ``final_norm``; ``pattern_len`` blocks make a pattern group (layer
+    ``g * pattern_len + p`` is position p of group g, the reference's
+    stacking).  Built with ``requires_grad=False``; training turns
     gradients on (``make_train_step``)."""
 
-    def __init__(self, embed, lm_head, blocks: List[Block], final_norm):
+    def __init__(self, embed, lm_head, blocks: List[Block], final_norm,
+                 pattern_len: int = 1):
         super().__init__()
+        self.pattern_len = pattern_len
         self.embed = None if embed is None else _param_dict(embed)
         self.lm_head = None if lm_head is None else _param_dict(lm_head)
         self.blocks = nn.ModuleList(blocks)
@@ -221,7 +232,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> LM:
                 "norm2": L.init_rmsnorm(d, device=dev),
                 "ffn": _init_ffn(cfg, ffn, gen),
             }))
-    return LM(embed, lm_head, blocks, L.init_rmsnorm(d, device=dev))
+    return LM(embed, lm_head, blocks, L.init_rmsnorm(d, device=dev), len(cfg.pattern))
 
 
 def _mixer_shapes(cfg: ModelConfig, mixer: str) -> dict:
@@ -305,7 +316,7 @@ def params_from_jax(cfg: ModelConfig, tree, *, device=None) -> LM:
                                              for name in ("norm1", "mixer", "norm2", "ffn")}))
     embed = leaves(tree["embed"]) if "embed" in tree else None
     lm_head = leaves(tree["lm_head"]) if "lm_head" in tree else None
-    return LM(embed, lm_head, blocks, leaves(tree["final_norm"]))
+    return LM(embed, lm_head, blocks, leaves(tree["final_norm"]), len(cfg.pattern))
 
 
 def grads_to_numpy(cfg: ModelConfig, params: LM) -> dict:
@@ -392,7 +403,7 @@ def _embed_input(cfg: ModelConfig, params: LM, batch, pos_offset: int = 0) -> to
     if cfg.input_mode == "tokens":
         x = L.embed(params.embed, batch["tokens"])
     else:
-        x = batch["embeds"].to(cfg.param_dtype)
+        x = shard(batch["embeds"].to(cfg.param_dtype), "dp", "sp", None)
     if cfg.pos == "sinusoidal":
         pe = L.sinusoidal_positions(x.shape[1], cfg.d_model, pos_offset, device=x.device)
         x = x + pe.to(x.dtype)[None]
@@ -415,6 +426,27 @@ def _cos_sin(cfg: ModelConfig, batch, S: int, device, pos_offset: int = 0):
 
 # ---------------------------------------------------------------------------
 # training
+
+
+_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def _for_compute(block: "Block"):
+    """A block as its layer computes with it.  Without sharding rules, the
+    block.  Under rules its parameters FSDP-gathered over the data
+    dimensions (their tp split kept), as FSDP unshards a layer for its
+    forward (the reference's compiler gathers them so; the gather's backward
+    reduce-scatters the gradients to the shards), except the MoE experts,
+    which the expert-parallel body gathers itself."""
+    if current_rules() is None:
+        return block
+    moe = block.ffn_kind == "moe"
+    return types.SimpleNamespace(
+        mixer_kind=block.mixer_kind, ffn_kind=block.ffn_kind,
+        **{part: {k: (v if moe and part == "ffn" and k in _EXPERT_LEAVES
+                      else fsdp_gathered(v))
+                  for k, v in getattr(block, part).items()}
+           for part in ("norm1", "mixer", "norm2", "ffn")})
 
 
 def _ffn(cfg: ModelConfig, block: "Block", h: torch.Tensor, state=None):
@@ -448,7 +480,7 @@ def _mixer_train(cfg: ModelConfig, block: "Block", h: torch.Tensor, cos_sin):
 def _group_train(cfg: ModelConfig, blocks, cos_sin, x: torch.Tensor):
     """One pattern group: (x, the group's MoE aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for block in blocks:
+    for block in map(_for_compute, blocks):
         h = L.rmsnorm(block.norm1, x, cfg.eps)
         x = x + _mixer_train(cfg, block, h, cos_sin)
         h = L.rmsnorm(block.norm2, x, cfg.eps)
@@ -483,11 +515,10 @@ def forward_hidden(params: LM, cfg: ModelConfig, batch):
     for g in range(cfg.n_groups):
         body = functools.partial(_group_train, cfg, params.blocks[g * P:(g + 1) * P], cos_sin)
         if cfg.remat:
-            kw = {}
-            if cfg.remat_policy == "dots":
-                kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
-                                                     _save_dots)
-            x, a = checkpoint(body, x, use_reentrant=False, **kw)
+            policy = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
+                      if cfg.remat_policy == "dots" else None)
+            x, a = checkpoint(body, x, use_reentrant=False,
+                              context_fn=recompute_context(policy))
         else:
             x, a = body(x)
         aux = aux + a
@@ -500,7 +531,8 @@ def train_loss(params: LM, cfg: ModelConfig, batch) -> torch.Tensor:
     layer.  batch: {"tokens" (B, S)} or {"embeds" (B, S, d)} (+ "pos_ids"
     (3, B, S) for mrope), and "labels" (B, S)."""
     x, aux = forward_hidden(params, cfg, batch)
-    loss = L.chunked_ce_loss(_head_table(params, cfg), x, batch["labels"],
+    x = shard(x, "dp", None, None)
+    loss = L.chunked_ce_loss(fsdp_gathered(_head_table(params, cfg)), x, batch["labels"],
                              chunk=cfg.loss_chunk)
     if cfg.moe is not None:
         loss = loss + cfg.aux_coef * aux / max(1, cfg.n_layers)
@@ -526,7 +558,7 @@ def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x (B, d) -> (B, vocab) float32: the head's products accumulated in
     float32, as the reference's ``preferred_element_type=f32`` asks (bf16
     products are exact in float32, so upcasting first gives the same sum)."""
-    return x.float() @ _head_table(params, cfg).float().T
+    return x.float() @ fsdp_gathered(_head_table(params, cfg)).float().T
 
 
 @torch.no_grad()
@@ -548,7 +580,7 @@ def prefill(params: LM, cfg: ModelConfig, batch, S_max: Optional[int] = None):
     S_max = S_max or S
     cos_sin = _cos_sin(cfg, batch, S, x.device)
     caches = []
-    for block in params.blocks:
+    for block in map(_for_compute, params.blocks):
         h = L.rmsnorm(block.norm1, x, cfg.eps)
         if block.mixer_kind in ("attn", "attn_local"):
             window = _window(cfg, block.mixer_kind)
@@ -561,9 +593,8 @@ def prefill(params: LM, cfg: ModelConfig, batch, S_max: Optional[int] = None):
             else:
                 cache = {}
                 for name, t in (("k", k), ("v", v)):
-                    full = t.new_zeros((t.shape[0], S_max) + t.shape[2:])
-                    full[:, :S] = t
-                    cache[name] = full
+                    pad = t.new_zeros((t.shape[0], S_max - S) + t.shape[2:])
+                    cache[name] = shard(torch.cat([t, pad], 1), "dp", "sp", None, None)
         elif block.mixer_kind == "mamba":
             y, cache = mamba_mod.mamba_forward(block.mixer, h, return_state=True,
                                                use_kernel=cfg.mamba_kernel)
@@ -592,10 +623,10 @@ def decode_step(params: LM, cfg: ModelConfig, cache: List[dict], batch, pos: int
     here: the scans step from a carried state on the plain path, as in the
     reference."""
     _check(cfg)
-    x = _embed_input(cfg, params, batch, pos_offset=pos)
+    x = shard(_embed_input(cfg, params, batch, pos_offset=pos), "dp", None, None)
     cos_sin = _cos_sin(cfg, batch, 1, x.device, pos_offset=pos)
     new_cache = []
-    for block, c in zip(params.blocks, cache):
+    for block, c in zip(map(_for_compute, params.blocks), cache):
         h = L.rmsnorm(block.norm1, x, cfg.eps)
         if block.mixer_kind in ("attn", "attn_local"):
             y, ck, cv = attn_mod.attn_decode_step(block.mixer, h, cos_sin, c["k"], c["v"],

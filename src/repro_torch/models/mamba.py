@@ -20,7 +20,16 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import (
+    P,
+    current_rules,
+    mesh_sizes,
+    partial_over,
+    shard,
+    shard_map_compat,
+)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import linear_scan, scan_chunk
 from repro_torch.models.layers import normal
@@ -200,25 +209,63 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out + b[None, None], new_state
 
 
+def _scan_call(params, dt_raw, Bm, Cm, x, h0, chunk: int, use_kernel: bool):
+    """The selective scan: the kernel (``MambaScanFused``, from a zero
+    state, D folded in) or the chunked plain scan from h0 (D added after).
+    Returns (y float32, final state).  Under sharding rules it runs on each
+    rank's shard, batch over dp and d_inner over tp (the reference's
+    ``_kernel_scan`` specs; an axis that does not divide is replicated)."""
+    def scan(dt_raw_, Bm_, Cm_, x_, h0_, w_dt, dt_bias, A_log, D):
+        if use_kernel:
+            dt = _softplus((dt_raw_ @ w_dt).float() + dt_bias)
+            return MambaScanFused.apply(dt, x_.float(), Bm_.float(), Cm_.float(), A_log, D)
+        p = {"w_dt": w_dt, "dt_bias": dt_bias, "A_log": A_log}
+        y, h = _ssm_scan_chunked(p, dt_raw_, Bm_, Cm_, x_, h0_, chunk)
+        return y + D[None, None] * x_.float(), h
+
+    args = (dt_raw, Bm, Cm, x, h0, params["w_dt"], params["dt_bias"], params["A_log"],
+            params["D"])
+    rules = current_rules()
+    if rules is None or not isinstance(x, DTensor):
+        return scan(*args)
+    sizes = mesh_sizes(rules.mesh)
+    dp, tp = rules.physical("dp"), rules.physical("tp")
+    dpN = 1
+    for a in (dp if isinstance(dp, tuple) else (dp,)):
+        dpN *= sizes[a]
+    b = dp if x.shape[0] % dpN == 0 else None
+    d = tp if x.shape[2] % sizes[tp] == 0 else None
+    rows = P(b, None, None)
+    weights = (P(None, d), P(d), P(d, None), P(d))
+    # the rows (dt_raw, B, C) serve every d_inner shard, the weights every
+    # batch shard: their gradients are partial sums over tp and dp
+    return shard_map_compat(
+        scan, mesh=rules.mesh,
+        in_specs=(rows, rows, rows, P(b, None, d), P(b, d, None)) + weights,
+        out_specs=(P(b, None, d), P(b, d, None)),
+        in_grad_placements=((partial_over(rules.mesh, rows, d),) * 3 + (None, None)
+                            + tuple(partial_over(rules.mesh, w, b) for w in weights)),
+    )(*args)
+
+
 def _ssm_inner(params, xz: torch.Tensor, conv_state, h0, chunk: int,
                use_kernel: bool = False):
     """Everything after in_proj: xz (B, S, 2*d_inner) -> (y, conv state,
     final ssm state).  The kernel route folds ``D`` into the kernel; the
     chunked route adds it after the scan."""
-    x, z = xz.chunk(2, dim=-1)
+    # under sharding rules xz arrives tp-sharded over its 2 * d_inner
+    # columns, whose shards do not line up with the x and z halves: gather
+    # it, split, and shard each half over tp (no-ops without rules)
+    x, z = shard(xz, "dp", None, None).chunk(2, dim=2)
+    x, z = shard(x, "dp", None, "tp"), shard(z, "dp", None, "tp")
     x, conv_state = _conv1d(x, params["conv_w"], params["conv_b"], conv_state)
     x = F.silu(x.float()).to(x.dtype)
+    x = shard(x, "dp", None, "tp")
     proj = x @ params["w_x"]                                 # (B, S, dt_rank + 2*s)
     d_state = params["A_log"].shape[1]
     dt_rank = proj.shape[-1] - 2 * d_state
-    dt_raw, Bm, Cm = proj.split([dt_rank, d_state, d_state], dim=-1)
-    if use_kernel:
-        dt = _softplus((dt_raw @ params["w_dt"]).float() + params["dt_bias"])
-        y, h_last = MambaScanFused.apply(dt, x.float(), Bm.float(), Cm.float(),
-                                         params["A_log"], params["D"])
-    else:
-        y, h_last = _ssm_scan_chunked(params, dt_raw, Bm, Cm, x, h0, chunk)
-        y = y + params["D"][None, None] * x.float()
+    dt_raw, Bm, Cm = proj.split([dt_rank, d_state, d_state], dim=2)
+    y, h_last = _scan_call(params, dt_raw, Bm, Cm, x, h0, chunk, use_kernel)
     y = y * F.silu(z.float())
     return y.to(xz.dtype), conv_state, h_last
 
@@ -228,7 +275,8 @@ def mamba_forward(params, x: torch.Tensor, *, chunk: int = 64, state=None,
     """x (B, S, d_model) -> (B, S, d_model); with ``return_state`` also the
     layer's new {conv, ssm} state.  The kernel runs only from a zero state
     (prefill)."""
-    xz = x @ params["w_in"]
+    x = shard(x, "dp", None, None)
+    xz = shard(x @ params["w_in"], "dp", None, "tp")
     B = x.shape[0]
     d_inner = params["conv_w"].shape[1]
     d_state = params["A_log"].shape[1]
@@ -239,7 +287,7 @@ def mamba_forward(params, x: torch.Tensor, *, chunk: int = 64, state=None,
         conv_state, h0 = state["conv"], state["ssm"]
     y, conv_state, h_last = _ssm_inner(params, xz, conv_state, h0, chunk,
                                        use_kernel=use_kernel and state is None)
-    out = y @ params["w_out"]
+    out = shard(y @ params["w_out"], "dp", "sp", None)
     if return_state:
         return out, {"conv": conv_state.to(torch.bfloat16), "ssm": h_last}
     return out

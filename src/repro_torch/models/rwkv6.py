@@ -11,16 +11,28 @@ chunk the (decay, update) pairs are scanned step by step, chunks chained by
 a Python loop (``kernels.ref.wkv_chunked``), and autograd runs through it.
 
 As in the reference, the decay w_t is data-dependent through a LoRA and the
-five token-shift lerp factors are learned per-channel constants.
+five token-shift lerp factors are learned per-channel constants.  Under
+sharding rules the projections shard over "tp" and the scan (kernel or
+plain) runs on each rank's (dp, tp-on-heads) shard.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import (
+    P,
+    current_rules,
+    mesh_sizes,
+    partial_over,
+    shard,
+    shard_map_compat,
+)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import wkv_chunked
 from repro_torch.models.layers import normal
@@ -181,11 +193,69 @@ class WkvFused(torch.autograd.Function):
         return wkv_backward(*ctx.saved_tensors, y_bar.contiguous(), sfin_bar)
 
 
+def _dp_tp(rules, B: int, n: int):
+    """The reference's divisibility fallbacks: the batch spec (the dp mesh
+    dimensions, or None if they do not divide B) and the spec of a tp-split
+    dimension of n (``"model"``, or None)."""
+    sizes = mesh_sizes(rules.mesh)
+    dp, tp = rules.physical("dp"), rules.physical("tp")
+    dpN = 1
+    for a in (dp if isinstance(dp, tuple) else (dp,)):
+        dpN *= sizes[a]
+    return (dp if B % dpN == 0 else None), (tp if n % sizes[tp] == 0 else None)
+
+
+def _wkv_mix(w, k, v, r, g, u, ln_scale, S0, *, head_dim: int, chunk: int,
+             use_kernel: bool, dtype):
+    """From the projections (B, S, d_attn) to the gated, normalised WKV
+    output (B, S, d_attn) and the final state: the heads, the scan (the
+    kernel through ``WkvFused`` from a zero state, S0 None, or the chunked
+    plain scan from S0), the per-head group norm and the silu gate."""
+    B, S, _ = k.shape
+    H = u.shape[0]
+    heads = [t.reshape(B, S, H, head_dim).float() for t in (w, k, v, r)]
+    if use_kernel:
+        y, S_fin = WkvFused.apply(*heads, u)
+    else:
+        y, S_fin = _wkv_chunked(*heads, u, S0, chunk)
+    # group norm over heads (per-head standardisation; population variance)
+    yh = y.reshape(B, S, H, head_dim)
+    mean = yh.mean(-1, keepdim=True)
+    var = yh.var(-1, keepdim=True, unbiased=False)
+    yh = (yh - mean) * torch.rsqrt(var + 64e-5)
+    y = yh.reshape(B, S, H * head_dim) * ln_scale[None, None]
+    return y.to(dtype) * F.silu(g.float()).to(dtype), S_fin
+
+
+def _wkv_call(w, k, v, r, g, u, ln_scale, S0, **kw):
+    """:func:`_wkv_mix`; under sharding rules on each rank's shard, batch
+    over dp and heads over tp, the layout of the reference's
+    ``_wkv_kernel_call`` (an axis that does not divide is replicated; the
+    head split and the group norm stay local, where DTensor's reshape of a
+    sharded dimension may not go)."""
+    mix = functools.partial(_wkv_mix, **kw)
+    rules = current_rules()
+    if rules is None or not isinstance(k, DTensor):
+        return mix(w, k, v, r, g, u, ln_scale, S0)
+    b, h = _dp_tp(rules, k.shape[0], u.shape[0])
+    rows, state = P(b, None, h), P(b, h, None, None)
+    mesh = rules.mesh
+    # u and ln_scale serve every batch shard: partial-sum gradients over dp
+    return shard_map_compat(
+        mix, mesh=mesh,
+        in_specs=(rows,) * 5 + (P(h, None), P(h), None if S0 is None else state),
+        out_specs=(rows, state),
+        in_grad_placements=(None,) * 5 + (partial_over(mesh, P(h, None), b),
+                                          partial_over(mesh, P(h), b), None),
+    )(w, k, v, r, g, u, ln_scale, S0)
+
+
 def rwkv_tmix_forward(params, x: torch.Tensor, *, head_dim: int = 64,
                       chunk: int = 16, state=None, return_state: bool = False,
                       use_kernel: bool = False):
     """x (B, S, d_model) -> (B, S, d_model); with ``return_state`` also the
     layer's new {shift_t, wkv} state."""
+    x = shard(x, "dp", None, None)
     B, S, d = x.shape
     prev = None if state is None else state["shift_t"]
     xs = _token_shift(x, prev)
@@ -196,27 +266,24 @@ def rwkv_tmix_forward(params, x: torch.Tensor, *, head_dim: int = 64,
     k = xk @ params["w_k"]
     v = xv @ params["w_v"]
     g = xg @ params["w_g"]
+    r, k, v, g = (shard(t, "dp", None, "tp") for t in (r, k, v, g))
     decay_raw = (params["w_decay_base"]
                  + (torch.tanh((xw @ params["w_decay_a"]).float())
                     @ params["w_decay_b"].float()))
     w = torch.exp(-torch.exp(torch.clamp(decay_raw, -20.0, 8.0)))  # (B,S,d_attn)
 
     H = params["u"].shape[0]
-    heads = [t.reshape(B, S, H, head_dim).float() for t in (w, k, v, r)]
-    if use_kernel and state is None:
-        y, S_fin = WkvFused.apply(*heads, params["u"])
+    use_kernel = use_kernel and state is None
+    if state is not None:
+        S0 = state["wkv"]
+    elif use_kernel:
+        S0 = None           # WkvFused starts from zeros itself
     else:
-        S0 = (torch.zeros((B, H, head_dim, head_dim), dtype=torch.float32,
-                          device=x.device) if state is None else state["wkv"])
-        y, S_fin = _wkv_chunked(*heads, params["u"], S0, chunk)
-    # group norm over heads (per-head standardisation; population variance)
-    yh = y.reshape(B, S, H, head_dim)
-    mean = yh.mean(-1, keepdim=True)
-    var = yh.var(-1, keepdim=True, unbiased=False)
-    yh = (yh - mean) * torch.rsqrt(var + 64e-5)
-    y = yh.reshape(B, S, H * head_dim) * params["ln_scale"][None, None]
-    y = y.to(x.dtype) * F.silu(g.float()).to(x.dtype)
-    out = y @ params["w_o"]
+        S0 = torch.zeros((B, H, head_dim, head_dim), dtype=torch.float32, device=x.device)
+    y, S_fin = _wkv_call(w, k, v, r, g, params["u"], params["ln_scale"], S0,
+                         head_dim=head_dim, chunk=chunk, use_kernel=use_kernel,
+                         dtype=x.dtype)
+    out = shard(y @ params["w_o"], "dp", "sp", None)
     if return_state:
         return out, {"shift_t": x[:, -1].to(torch.bfloat16), "wkv": S_fin}
     return out
@@ -251,15 +318,17 @@ def rwkv_cmix_forward(params, x: torch.Tensor, *, state=None,
                       return_state: bool = False):
     """x (B, S, d_model) -> (B, S, d_model); with ``return_state`` also the
     layer's new {shift_c}."""
+    x = shard(x, "dp", None, None)
     prev = None if state is None else state["shift_c"]
     xs = _token_shift(x, prev)
     mu = params["mu"]
     xk = x + (xs - x) * mu[0][None, None]
     xr = x + (xs - x) * mu[1][None, None]
-    k = xk @ params["w_k"]
+    k = shard(xk @ params["w_k"], "dp", None, "tp")
     k = torch.square(torch.relu(k.float())).to(x.dtype)
     kv = k @ params["w_v"]
     out = torch.sigmoid((xr @ params["w_r"]).float()).to(x.dtype) * kv
+    out = shard(out, "dp", "sp", None)
     if return_state:
         return out, {"shift_c": x[:, -1].to(torch.bfloat16)}
     return out

@@ -18,7 +18,8 @@ from typing import Dict, Iterable, Mapping, Tuple, Union
 import torch
 from torch import nn
 
-__all__ = ["OptConfig", "adamw_init", "adamw_update", "cosine_lr", "global_norm"]
+__all__ = ["OptConfig", "adamw_init", "adamw_init_shapes", "adamw_update", "cosine_lr",
+           "global_norm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +46,8 @@ def cosine_lr(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum over tensors of their float32 sums of squares."""
+    """sqrt of the sum over tensors of their float32 sums of squares.  A
+    sharded (DTensor) tensor's sum is reduced across its shards."""
     return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
 
 
@@ -61,17 +63,32 @@ def _named(params: Params) -> Dict[str, torch.Tensor]:
 def adamw_init(params: Params) -> dict:
     """{"step": int32 0, "master": float32 copies, "mu": zeros, "nu": zeros},
     each a dict keyed by parameter name (an ``nn.Module``'s
-    ``named_parameters`` or a mapping's keys), on the parameters' devices."""
+    ``named_parameters`` or a mapping's keys), on the parameters' devices
+    (sharded as they are: a DTensor parameter's state is a DTensor with its
+    placements)."""
     named = _named(params)
     first = next(iter(named.values()))
     return {
         "step": torch.zeros((), dtype=torch.int32, device=first.device),
         "master": {k: p.detach().float().clone() for k, p in named.items()},
-        "mu": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for k, p in named.items()},
-        "nu": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for k, p in named.items()},
+        "mu": {k: torch.zeros_like(p, dtype=torch.float32).detach() for k, p in named.items()},
+        "nu": {k: torch.zeros_like(p, dtype=torch.float32).detach() for k, p in named.items()},
     }
+
+
+def adamw_init_shapes(param_shapes) -> dict:
+    """:func:`adamw_init`'s state as meta-device tensors (no memory), for a
+    parameter tree of any nesting (``models.param_shapes``'s): "step" int32,
+    "master", "mu" and "nu" float32 trees of the parameters' structure."""
+    def f32(tree):
+        if isinstance(tree, dict):
+            return {k: f32(v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(f32(v) for v in tree)
+        return torch.empty(tuple(tree.shape), dtype=torch.float32, device="meta")
+
+    return {"step": torch.empty((), dtype=torch.int32, device="meta"),
+            "master": f32(param_shapes), "mu": f32(param_shapes), "nu": f32(param_shapes)}
 
 
 @torch.no_grad()

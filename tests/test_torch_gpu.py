@@ -608,18 +608,36 @@ def test_mamba_kernel_matches_plain(cuda, B, S, d, s, chunk, init):
 
 
 def test_scan_kernels_refuse_what_they_do_not_take(cuda):
-    z = torch.zeros(1, 8, 2, 12, device=cuda)
-    with pytest.raises(ValueError, match="dk in"):
-        ops.wkv_scan(z, z, z, z, torch.zeros(2, 12, device=cuda))
+    """What the scan kernels refuse: other dtypes than float32,
+    mismatched shapes and an empty sequence.  A head width or a state size
+    off their instances (dk 12, s 3) is no longer refused: it is padded to
+    the next instance and held against the plain version."""
     with pytest.raises(ValueError, match="float32"):
         ops.wkv_scan(*(torch.zeros(1, 8, 2, 8, device=cuda, dtype=torch.bfloat16),) * 4,
                      torch.zeros(2, 8, device=cuda))
-    x = torch.zeros(1, 8, 4, device=cuda)
-    with pytest.raises(ValueError, match="s in"):
-        ops.mamba_scan(x, x, torch.zeros(1, 8, 3, device=cuda),
-                       torch.zeros(1, 8, 3, device=cuda),
-                       torch.zeros(4, 3, device=cuda), torch.zeros(4, device=cuda))
+    z = torch.zeros(1, 8, 2, 8, device=cuda)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ops.wkv_scan(z, z, z, z, torch.zeros(3, 8, device=cuda))
+    with pytest.raises(ValueError, match="S >= 1"):
+        ops.mamba_scan(*(torch.zeros(1, 0, 4, device=cuda),) * 2,
+                       *(torch.zeros(1, 0, 4, device=cuda),) * 2,
+                       torch.zeros(4, 4, device=cuda), torch.zeros(4, device=cuda))
     assert not any(ops.launch_counts().values())
+    gen = torch.Generator().manual_seed(3)
+    w = torch.exp(-torch.exp(torch.randn(1, 40, 2, 12, generator=gen)))
+    k, r = (torch.randn(1, 40, 2, 12, generator=gen) for _ in range(2))
+    v, u = torch.randn(1, 40, 2, 20, generator=gen), torch.randn(2, 12, generator=gen)
+    args = [t.to(cuda) for t in (w, k, v, r, u)]
+    for o, e in zip(ops.wkv_scan(*args), ref.wkv_scan_ref(*args)):
+        _close(o, e)
+    x = torch.randn(1, 40, 4, generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn(1, 40, 4, generator=gen))
+    Bm, Cm = (torch.randn(1, 40, 3, generator=gen) for _ in range(2))
+    A_log, D = torch.rand(4, 3, generator=gen) * 0.9 + 0.1, torch.randn(4, generator=gen)
+    args = [t.to(cuda) for t in (dt, x, Bm, Cm, A_log, D)]
+    for o, e in zip(ops.mamba_scan(*args), ref.mamba_scan_ref(*args)):
+        _close(o, e)
+    assert ops.launch_counts() == dict(_NONE, wkv_scan=1, mamba_scan=1)
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
@@ -1032,3 +1050,86 @@ def test_mesh_four_ranks_on_one_card(cuda):
             assert torch.equal(C.view(torch.int64), want[key].view(torch.int64)), key
         assert out.launches == dict(_NONE, fused_worker=4, decode=4, encode=2,
                                     matmul_t=1, decode_partial=1)
+
+
+# ---------------------------------------------------------------------------
+# shapes past the caps the kernels once had (phase 3c of chip_smoke)
+
+
+def _ints(gen, shape, lo, hi, dtype=torch.float64):
+    return torch.randint(lo, hi + 1, shape, generator=gen).to("cuda", dtype)
+
+
+@pytest.mark.parametrize("rows", [64, 300])
+def test_decode_panels_past_48_kb_decode_bit_for_bit(cuda, rows):
+    """The polycode K=100 plan's (64, 100) float64 panel (51,200 bytes) and a
+    (300, 100) one past the card's per-block shared memory (227 KB on an
+    H100: two row slabs, a launch each), through kernels 2 and 3, integer
+    panels and products: bit for bit."""
+    gen = torch.Generator().manual_seed(11)
+    W, Y = _ints(gen, (rows, 100), -4, 4), _ints(gen, (100, 5000), -1000, 1000)
+    assert torch.equal(ops.decode(W, Y, 32.0), ref.decode_ref(W, Y, 32.0))
+    Ws = _ints(gen, (3, rows, 100), -4, 4)
+    for bounds in ([0, 1024, 2048, 5000], [0, 1023, 2049, 5000]):
+        assert torch.equal(ops.decode_partial(Ws, Y, 32.0, bounds=bounds),
+                           ref.decode_partial_ref(Ws, Y, 32.0, True, bounds))
+    slabs = 1 if rows == 64 else 2
+    assert ops.launch_counts() == dict(_NONE, decode=slabs, decode_partial=2 * slabs)
+
+
+def test_decode_partial_takes_more_than_128_chunks(cuda):
+    gen = torch.Generator().manual_seed(12)
+    Ws = _ints(gen, (200, 4, 10), -4, 4)
+    Y = _ints(gen, (10, 200 * 64 + 3), -1000, 1000)
+    E = Y.shape[1]
+    for bounds in ([0, *range(64, 200 * 64, 64), E], [0, *range(63, 199 * 64, 64), E]):
+        assert torch.equal(ops.decode_partial(Ws, Y, 2.0 ** 20, bounds=bounds),
+                           ref.decode_partial_ref(Ws, Y, 2.0 ** 20, True, bounds))
+    Ys = _ints(gen, (200, 10, 96), -1000, 1000)
+    assert torch.equal(ops.decode_partial(Ws, Ys, 2.0 ** 20),
+                       ref.decode_partial_ref(Ws, Ys, 2.0 ** 20, True))
+    assert ops.launch_counts() == dict(_NONE, decode_partial=3 * 2)   # groups of 128
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("data", ["random", "integer"])
+def test_fused_and_encode_take_more_than_64_blocks(cuda, dtype, data):
+    """P = Q = 80 blocks a side (offsets through device memory; bf16 in the
+    one-element form), and kernel 4 with a float64 panel past the card's
+    shared memory (K = 400: two slabs of workers on an H100, a launch
+    each)."""
+    gen = torch.Generator().manual_seed(13)
+    ca, cb = _data(gen, (6, 80), dtype, data), _data(gen, (6, 80), dtype, data)
+    a, b = _data(gen, (8, 10, 64, 96), dtype, data), _data(gen, (10, 8, 64, 80), dtype, data)
+    _check(ops.fused_worker(ca, cb, a, b), ref.fused_worker_ref(ca, cb, a, b), data)
+    for K in (7, 400):
+        c = _data(gen, (K, 80), dtype, data)
+        out = ops.encode(c, a)
+        _check(out, ref.encode_ref(c, a.reshape(80, -1)).reshape(out.shape), data)
+    assert ops.launch_counts() == dict(_NONE, fused_worker=1,
+                                       encode=3 if dtype == torch.float64 else 2)
+
+
+@pytest.mark.parametrize("dk,dv", [(128, 64), (256, 32), (64, 256), (96, 80), (320, 64)])
+def test_wkv_takes_any_head_and_value_width(cuda, dk, dv):
+    gen = torch.Generator().manual_seed(14)
+    w = torch.exp(-torch.exp(torch.randn(2, 100, 3, dk, generator=gen)))
+    k, r = (torch.randn(2, 100, 3, dk, generator=gen) for _ in range(2))
+    v, u = torch.randn(2, 100, 3, dv, generator=gen), torch.randn(3, dk, generator=gen)
+    args = [t.to(cuda) for t in (w, k, v, r, u)]
+    for o, e in zip(ops.wkv_scan(*args), ref.wkv_scan_ref(*args)):
+        _close(o, e)
+    assert ops.launch_counts() == dict(_NONE, wkv_scan=-(-dk // 256))   # rows in groups
+
+
+@pytest.mark.parametrize("s", [64, 24, 100])
+def test_selective_scan_takes_any_state_size(cuda, s):
+    gen = torch.Generator().manual_seed(15)
+    dt = torch.nn.functional.softplus(torch.randn(2, 150, 100, generator=gen))
+    x = torch.randn(2, 150, 100, generator=gen)
+    Bm, Cm = (torch.randn(2, 150, s, generator=gen) for _ in range(2))
+    A_log, D = torch.rand(100, s, generator=gen) * 0.9 + 0.1, torch.randn(100, generator=gen)
+    args = [t.to(cuda) for t in (dt, x, Bm, Cm, A_log, D)]
+    for o, e in zip(ops.mamba_scan(*args), ref.mamba_scan_ref(*args)):
+        _close(o, e)
+    assert ops.launch_counts() == dict(_NONE, mamba_scan=-(-s // 64))   # states in groups

@@ -15,6 +15,7 @@ against its full forward to.  The largest error measured for each is written
 beside the test.
 """
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -529,18 +530,24 @@ def test_smoke_decode_matches_full_forward(arch):
 
 
 def test_unported_parts_raise_naming_the_roadmap():
-    """What is still unported: sharding (ROADMAP.md queue 1, item 8.6).  The
-    expert-parallel MoE path (``apply_moe`` given sharding rules) and the
-    trainer's ``build`` given a mesh refuse, naming the item; everything
-    else of the LM substrate (embedding input, sinusoidal and multimodal
-    positions, training) runs."""
+    """Nothing of the LM substrate is unported since sharding landed
+    (ROADMAP.md item 8.6): no refusal names the item any more.
+    ``apply_moe`` has the reference's signature (the expert-parallel path is
+    chosen by the active sharding rules, as in the reference, not by an
+    argument) and the trainer's ``build`` given a mesh builds a step under
+    the reference's rules; an unknown block kind still raises."""
     cfg = get_smoke_config("qwen2_moe_a2_7b")
     params = init_params(cfg, device="cpu")
     x = torch.zeros((1, 4, cfg.d_model), dtype=cfg.param_dtype)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8.6"):
+    with pytest.raises(TypeError):
         moe.apply_moe(params.blocks[0].ffn, x, cfg.moe, rules=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8.6"):
-        train.build("qwen3_0_6b", True, 32, 2, 1e-3, 4, mesh=object())
+    y, aux = moe.apply_moe(params.blocks[0].ffn, x, cfg.moe)       # no rules: dense
+    assert y.shape == x.shape and aux.dtype == torch.float32
+    for module in (moe, train):
+        assert "item 8.6" not in inspect.getsource(module)
+    mesh = type("Mesh", (), {"mesh_dim_names": ("data", "model")})()
+    cfg_m, step_m, _ = train.build("qwen3_0_6b", True, 32, 2, 1e-3, 4, mesh=mesh)
+    assert cfg_m == get_smoke_config("qwen3_0_6b") and callable(step_m)
     cfg_t, step_fn, pipe = train.build("qwen3_0_6b", True, 32, 2, 1e-3, 4)
     assert cfg_t == get_smoke_config("qwen3_0_6b") and callable(step_fn)
     assert pipe.batch(0)["tokens"].shape == (2, 32)

@@ -13,16 +13,21 @@ two probabilities exceeds ``GAP``; the tokens under it are counted and
 printed (none in these cases so far).
 """
 import dataclasses
+import inspect
 import math
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.testing._internal.distributed.fake_pg import FakeStore
 
 import jax
 import jax.numpy as jnp
 
 from repro.models import moe as jmoe
+from repro_torch.distributed.sharding import axis_rules, default_rules
 from repro_torch.models import moe
 from repro_torch.models.moe import MoEConfig
 
@@ -219,7 +224,27 @@ def test_init_and_shapes_match_jax(n_experts, ep_size, n_shared, dtype):
 
 
 def test_expert_parallel_path_raises_naming_the_roadmap():
-    cfg = MoEConfig(n_experts=4, top_k=2, d_expert_ff=8)
-    params = moe.init_moe(torch.Generator().manual_seed(0), 8, cfg, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 8.6"):
-        moe.apply_moe(params, torch.zeros(1, 2, 8), cfg, rules=object())
+    """The expert-parallel path is ported (ROADMAP.md item 8.6), so nothing
+    raises naming the item any more: ``apply_moe`` has the reference's
+    signature (no ``rules`` argument) and takes the EP path from the active
+    sharding rules; on a one-rank mesh (a fake group in this process) its
+    output and aux loss are the dense path's.  The path on a (2, 4) mesh is
+    held to the JAX package in ``tests/test_torch_moe_ep.py``."""
+    cfg = MoEConfig(n_experts=4, top_k=2, d_expert_ff=8, capacity_factor=4.0)
+    gen = torch.Generator().manual_seed(0)
+    params = moe.init_moe(gen, 8, cfg, dtype=torch.float32)
+    x = torch.randn((2, 4, 8), generator=gen)
+    with pytest.raises(TypeError):
+        moe.apply_moe(params, x, cfg, rules=object())
+    assert "item 8.6" not in inspect.getsource(moe)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        with axis_rules(default_rules(mesh)), moe.ep_timing() as split:
+            y, aux = moe.apply_moe(params, x, cfg)
+    finally:
+        dist.destroy_process_group()
+    assert split["calls"] == 1 and split["kept"] == split["slots"] == 2 * 4 * cfg.top_k
+    y_dense, aux_dense = moe._moe_dense(params, x, cfg)
+    torch.testing.assert_close(y, y_dense, rtol=1e-5, atol=1e-6)
+    assert float(aux) == pytest.approx(float(aux_dense), rel=1e-6)

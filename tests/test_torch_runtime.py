@@ -265,12 +265,15 @@ def test_cpu_path_launches_no_kernel(rng):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """The package, every module of it, the smoke script's imports, the
+    """The package, every module of it (the sharding rules, the parameter
+    sharding and the abstract specs named), the smoke script's imports, the
     port's benches and its mesh examples pull in no JAX and nothing of the
     JAX package."""
     code = """
 import importlib, pkgutil, sys
 import repro_torch
+import repro_torch.distributed.sharding, repro_torch.distributed.param_sharding
+import repro_torch.launch.specs
 for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)
 sys.path.insert(0, {root!r})
