@@ -233,6 +233,23 @@ each gradient leaf (taken in a pass of its own before the step) within
 prints the step times, the peak memory and the scan launches per rank,
 which join the ``kernels`` line.
 
+Phase 14 runs after 13b: the dry run's accounting
+(``launch/hlo_analysis.py``, ``launch/dryrun.py``) on the card.  One real
+train step each of 12c's Qwen3-0.6B and 12b's RWKV6-3B (kernel 7; 4 x
+1024 tokens, after ``reset_peak_memory_stats``) runs under the accounting,
+while child processes trace the same steps on one device with
+``trace_cell`` on CUDA fake tensors (no memory, no launch): the dot FLOPs
+and dot counts must be equal, kernel 7 a custom op 64 times in both (and
+64 launches), and the predicted peak (arguments + the step's peak
+allocation) within 10% of ``max_memory_allocated``; it prints
+dot_flops / model_flops.  Two production cells trace on the fake 16 x 16
+mesh (256 ranks, the child's fake process group): qwen3_0_6b x train_4k
+and rwkv6_3b x prefill_32k with the WKV kernel, printing GiB, dot FLOPs
+and collective bytes a device, the dominant roofline term at the H100
+figures and the trace time.  RWKV6-3B's and Jamba's prefills (phases 6,
+6b, through the kernels' custom ops) print beside their times from before
+the custom ops.
+
 Phases 7-11 run after phase 5b and before the LM phases.  Phase 3b holds
 the WKV and selective-scan kernels against their plain versions at the LM
 prefill's shapes, at ragged shapes and (the selective
@@ -274,6 +291,7 @@ from benchmarks import (  # noqa: E402
     torch_tradeoff_sweep,
 )
 from benchmarks.torch_obs_util import CompileWatch  # noqa: E402
+from benchmarks.torch_roofline import mem_gib, terms  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.chaos import Trace, make_scenario  # noqa: E402
 from repro_torch.chaos.golden import (  # noqa: E402
@@ -283,7 +301,7 @@ from repro_torch.chaos.golden import (  # noqa: E402
     golden_names,
     replay_golden,
 )
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import SHAPES, ShapeSpec, get_config, get_smoke_config  # noqa: E402
 from repro_torch.configs.paper_matmul import CONFIG as PAPER  # noqa: E402
 from repro_torch.control import AdaptiveServer, ExpectedLatencyPolicy, PlanLadder  # noqa: E402
 from repro_torch.core import bounds, make_plan  # noqa: E402
@@ -294,6 +312,7 @@ from repro_torch.launch import coded_serve  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import spawn_mesh  # noqa: E402
 from repro_torch.launch.serve import _make_batch, generate  # noqa: E402
+from repro_torch.launch.hlo_analysis import OpAccounting  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.launch.train import to_batch  # noqa: E402
 from repro_torch.models import cache_shapes, decode_step, init_params, prefill  # noqa: E402
@@ -476,6 +495,19 @@ SHARDED_PARAM_TOL = 1e-2
 SHARDED_GRAD_NORM_TOL = 1e-4
 SHARDED_GRAD_TOL = 1e-3
 SHARDED_TIMEOUT_S = 600
+# Phase 14: the dry run's accounting on the card.  The real train steps of
+# 12b/12c (4 x 1024 tokens) under launch/hlo_analysis.py's accounting beside
+# trace_cell's fake trace of the same step on one device (dot FLOPs and
+# counts equal, the predicted peak within 10% of the measured one), and two
+# production cells on the fake 16 x 16 mesh.  The traces are host work and
+# run in child processes beside the real steps.
+DRYRUN_MEM_TOL = 0.10
+DRYRUN_CELLS = (("qwen3_0_6b", "train_4k", {}), ("rwkv6_3b", "prefill_32k",
+                                                 {"rwkv_kernel": True}))
+DRYRUN_TIMEOUT_S = 600
+# RWKV6-3B's and Jamba's prefills (phases 6, 6b; PERF.md 5) before kernels
+# 7 and 6 became torch.library custom ops
+PLAIN_CALL_PREFILL_MS = {"rwkv6_3b": 116.93, "jamba group": 141.55}
 
 
 def phase(name: str) -> None:
@@ -3363,6 +3395,139 @@ def sharded_train_phase(seed: int, smi: str) -> dict:
     return {"counts": counts, **out}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the dry run's accounting on the card
+
+
+def dryrun_trace(arch: str, shape, cfg, mesh_shape, device: str) -> dict:
+    """One of phase 14's traces, run in a child process: ``trace_cell`` on
+    fake tensors of ``device`` (on one device for ``mesh_shape=()``, else
+    the production mesh of fake ranks; the fake process group is the
+    child's)."""
+    from repro_torch.launch.dryrun import trace_cell
+    return trace_cell(arch, shape, cfg=cfg, mesh_shape=mesh_shape, device=device)
+
+
+def accounted_train_step(label: str, cfg, seed: int) -> dict:
+    """One real train step of 12b/12c's shapes under the accounting, after
+    ``reset_peak_memory_stats``: its stats, the peak it allocated above what
+    was already held, its launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=seed, device=CARD)
+    opt_state = adamw_init(params)
+    data = to_batch(cfg, make_pipeline(cfg.vocab, LM_PROMPT, LM_BATCH, seed=seed).batch(0),
+                    CARD)
+    step_fn = make_train_step(cfg, OptConfig())
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with OpAccounting() as mode:
+        params, opt_state, metrics = step_fn(params, opt_state, data)
+        loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    check(np.isfinite(loss), f"{label}: loss {loss}")
+    del params, opt_state, data, step_fn, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"stats": mode.stats(), "peak": peak, "base": base, "counts": counts,
+            "wall_s": wall, "loss": loss}
+
+
+def dryrun_phase(seed: int, smi: str, lms: dict) -> dict:
+    """14: the accounting of a real step against the fake trace's, and two
+    production cells traced on the card's torch."""
+    phase("14 the dry run's accounting on the card")
+    start = time.perf_counter()
+    import concurrent.futures
+    import multiprocessing
+    one = ShapeSpec("train_4x1024", LM_PROMPT, LM_BATCH, "train")
+    trains = (("12c qwen3_0_6b", "qwen3_0_6b", {}, None),
+              ("12b rwkv6_3b", "rwkv6_3b", {"rwkv_kernel": True}, "wkv_scan"))
+    jobs = [(arch, one, dataclasses.replace(get_config(arch), **over), (), CARD)
+            for _, arch, over, _ in trains]
+    jobs += [(arch, SHAPES[shape], dataclasses.replace(get_config(arch), **over), None, CARD)
+             for arch, shape, over in DRYRUN_CELLS]
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=len(jobs), mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = [pool.submit(dryrun_trace, *job) for job in jobs]
+        counts = {k: 0 for k in ops.launch_counts()}
+        out = {}
+        real = {}
+        for label, arch, over, kernel in trains:
+            cfg = dataclasses.replace(get_config(arch), **over)
+            real[label] = accounted_train_step(label, cfg, seed)
+            for k, n in real[label]["counts"].items():
+                counts[k] += n
+        print(f"14 real steps done at {time.perf_counter() - start:.1f} s; waiting for the "
+              f"traces")
+        traced = [f.result(timeout=DRYRUN_TIMEOUT_S) for f in futures]
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    for (label, arch, over, kernel), fake in zip(trains, traced):
+        r = real[label]
+        st = r["stats"]
+        cfg = dataclasses.replace(get_config(arch), **over)
+        mf = model_flops(cfg, "train", LM_BATCH, LM_PROMPT)
+        pred = fake["memory"]["argument_bytes"] + fake["memory"]["temp_bytes"]
+        off = (pred - r["peak"]) / r["peak"]
+        want = {kernel: 2 * cfg.n_layers} if kernel else {}
+        print(f"{label} real step (4 x {LM_PROMPT}, {r['wall_s'] * 1e3:.2f} ms under the "
+              f"accounting): dot FLOPs {st.dot_flops:.6e} ({st.dot_count} dots), fake "
+              f"trace {fake['dot_flops']:.6e} ({fake['dot_count']}) in {fake['trace_s']} s; "
+              f"dot_flops / model_flops {st.dot_flops / mf:.4f}; HBM bytes real "
+              f"{st.hbm_bytes:.4e}, fake {fake['hbm_bytes']:.4e}; kernel ops real "
+              f"{st.kernel_calls}, fake {fake['kernel_calls']}, launches "
+              f"{nonzero(r['counts'])}")
+        print(f"{label} memory: predicted arguments {fake['memory']['argument_bytes'] / 2**30:.3f}"
+              f" + temp {fake['memory']['temp_bytes'] / 2**30:.3f} = {pred / 2**30:.3f} GiB; "
+              f"measured peak {r['peak'] / 2**30:.3f} GiB (max_memory_allocated less "
+              f"{r['base'] / 2**30:.3f} GiB held before); off by {off:+.2%} (bound "
+              f"{DRYRUN_MEM_TOL:.0%}) on {smi}")
+        check(st.dot_flops == fake["dot_flops"] and st.dot_count == fake["dot_count"],
+              f"{label}: real dot FLOPs {st.dot_flops} ({st.dot_count}) vs fake "
+              f"{fake['dot_flops']} ({fake['dot_count']})")
+        check(st.kernel_calls == fake["kernel_calls"] == want
+              and nonzero(r["counts"]) == want,
+              f"{label}: kernel ops real {st.kernel_calls}, fake {fake['kernel_calls']}, "
+              f"launches {nonzero(r['counts'])}, want {want}")
+        check(abs(off) <= DRYRUN_MEM_TOL, f"{label}: predicted peak off by {off:+.2%}")
+        out[label] = {"dot_flops": st.dot_flops, "model_ratio": st.dot_flops / mf,
+                      "pred_gib": pred / 2**30, "peak_gib": r["peak"] / 2**30, "off": off,
+                      "trace_s": fake["trace_s"]}
+    for (arch, shape, over), cell in zip(DRYRUN_CELLS, traced[len(trains):]):
+        t = terms(cell)
+        dom = max(t, key=t.get)
+        print(f"14 {arch} x {shape}{' ' + str(over) if over else ''} on the fake 16 x 16 "
+              f"mesh ({cell['n_devices']} ranks): {mem_gib(cell):.2f} GiB a device "
+              f"(arguments {cell['memory']['argument_bytes'] / 2**30:.2f} + temp "
+              f"{cell['memory']['temp_bytes'] / 2**30:.2f}), dot FLOPs a device "
+              f"{cell['dot_flops']:.4e}, collective bytes a device "
+              f"{cell['collectives']['total_bytes']:.4e} {cell['collectives']['count_by_kind']}, "
+              f"HBM bytes {cell['hbm_bytes']:.4e}; terms at the H100 figures compute "
+              f"{t['compute']:.4f} s, memory {t['memory']:.4f} s, collective "
+              f"{t['collective']:.4f} s: {dom} dominates; kernel ops {cell['kernel_calls']}; "
+              f"trace {cell['trace_s']} s (predictions of the dry run)")
+        check(cell["dot_flops"] > 0 and cell["collectives"]["total_bytes"] > 0,
+              f"14 {arch} x {shape}: an empty trace")
+        out[f"{arch} x {shape}"] = {"gib": mem_gib(cell), "dot_flops": cell["dot_flops"],
+                                    "coll": cell["collectives"]["total_bytes"],
+                                    "dominant": dom, "trace_s": cell["trace_s"]}
+    for name, before in PLAIN_CALL_PREFILL_MS.items():
+        print(f"14 {name} prefill through the custom op: {lms[name]['prefill_ms']:.2f} ms "
+              f"(phase 6{'' if name == 'rwkv6_3b' else 'b'}), {before} ms before it "
+              f"(PERF.md 5) on {smi}")
+    print(f"phase 14: {time.perf_counter() - start:.1f} s")
+    out["counts"] = counts
+    return out
+
+
 def tensor_rate(name: str, flops: float, t: dict) -> None:
     """Print a kernel's achieved FP64 rate, its share of the tensor peak and
     whether it meets its floor."""
@@ -3428,6 +3593,7 @@ def main() -> None:
     paths["train cli"] = train_cli_phase()
     paths["expert parallel"] = ep_phase(args.seed, dev["smi"])
     paths["sharded train"] = sharded_train_phase(args.seed, dev["smi"])
+    paths["dry run"] = dryrun_phase(args.seed, dev["smi"], lms)
     for name, lm in lms.items():
         print(f"LM serving ({name}, {LM_BATCH}x{lm['prompt']} prompt, {LM_GEN} tokens, bf16): "
               f"prefill {lm['prefill_ms']:.2f} ms, decode {lm['decode_ms']:.2f} ms per step, "

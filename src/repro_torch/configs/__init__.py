@@ -3,9 +3,12 @@ from repro_torch.configs.base import (
     ARCH_IDS,
     SHAPES,
     ShapeSpec,
+    cells,
     get_config,
     get_smoke_config,
     list_archs,
+    shape_applicable,
 )
 
-__all__ = ["ARCH_IDS", "SHAPES", "ShapeSpec", "get_config", "get_smoke_config", "list_archs"]
+__all__ = ["ARCH_IDS", "SHAPES", "ShapeSpec", "cells", "get_config", "get_smoke_config",
+           "list_archs", "shape_applicable"]

@@ -13,12 +13,12 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 from repro_torch.models import ModelConfig
 
 __all__ = ["ARCH_IDS", "ShapeSpec", "SHAPES", "get_config", "get_smoke_config",
-           "list_archs"]
+           "list_archs", "shape_applicable", "cells"]
 
 ARCH_IDS = (
     "jamba_1_5_large_398b",
@@ -71,3 +71,17 @@ def get_smoke_config(arch: str) -> ModelConfig:
 def list_archs() -> List[str]:
     """The model architectures (every entry but ``paper_matmul``)."""
     return [a for a in ARCH_IDS if a != "paper_matmul"]
+
+
+def shape_applicable(cfg: ModelConfig, shape: str) -> Tuple[bool, str]:
+    """The reference's rule: ``long_500k`` only for sub-quadratic archs."""
+    if shape == "long_500k" and not cfg.sub_quadratic:
+        return False, ("skipped: pure full-attention arch has no "
+                       "sub-quadratic path (DESIGN.md Sec. 8)")
+    return True, ""
+
+
+def cells(arch: str) -> List[Tuple[str, str]]:
+    """The (arch, shape) cells of the dry-run grid for one architecture."""
+    cfg = get_config(arch)
+    return [(arch, s) for s in SHAPES if shape_applicable(cfg, s)[0]]

@@ -215,6 +215,37 @@ def matmul_t(A: torch.Tensor, B: torch.Tensor, *, out_dtype=None,
     return out.copy_(res)
 
 
+# Kernels 7 and 6 are torch.library custom ops, so a trace under fake or
+# meta tensors (launch/dryrun.py) sees one op with the outputs' shapes and
+# launches nothing: the CPU implementation is the plain version, the CUDA
+# implementation launches the kernel (and counts it), the fake one only
+# shapes the outputs.
+
+@torch.library.custom_op(
+    "repro_torch::wkv_scan", mutates_args=(), device_types="cpu",
+    schema="(Tensor w, Tensor k, Tensor v, Tensor r, Tensor u, int chunk) "
+           "-> (Tensor, Tensor, Tensor)")
+def _wkv_scan_op(w, k, v, r, u, chunk):
+    return ref.wkv_scan_ref(w, k, v, r, u, chunk)
+
+
+@_wkv_scan_op.register_kernel("cuda")
+def _wkv_scan_launch(w, k, v, r, u, chunk):
+    out, n = wkv_scan_cuda(w, k, v, r, u, chunk)
+    wkv_scan.launches += n
+    return out
+
+
+@_wkv_scan_op.register_fake
+def _wkv_scan_shapes(w, k, v, r, u, chunk):
+    B, S, H, dk = k.shape
+    dv = v.shape[3]
+    nc = S // ref.scan_chunk(S, chunk)
+    return (v.new_empty((B, S, H, dv), dtype=torch.float32),
+            v.new_empty((B, H, dk, dv), dtype=torch.float32),
+            v.new_empty((B, nc, H, dk, dv), dtype=torch.float32))
+
+
 @_instrumented("wkv_scan")
 def wkv_scan(w: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              r: torch.Tensor, u: torch.Tensor, *, chunk: int = 64) -> tuple:
@@ -222,12 +253,34 @@ def wkv_scan(w: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the per-step decay in (0, 1)), v (B, S, H, dv), u (H, dk) -> (y (B, S,
     H, dv), S_fin (B, H, dk, dv), S_bounds (B, nc, H, dk, dv)), the states at
     the entries of chunks of ``chunk`` steps (capped at S, halved until it
-    divides S)."""
-    if not _on_card(w, k, v, r, u):
-        return ref.wkv_scan_ref(w, k, v, r, u, chunk)
-    out, n = wkv_scan_cuda(w, k, v, r, u, chunk)
-    wkv_scan.launches += n
+    divides S).  The custom op ``repro_torch::wkv_scan``."""
+    _on_card(w, k, v, r, u)
+    return _wkv_scan_op(w, k, v, r, u, chunk)
+
+
+@torch.library.custom_op(
+    "repro_torch::mamba_scan", mutates_args=(), device_types="cpu",
+    schema="(Tensor dt, Tensor x, Tensor Bm, Tensor Cm, Tensor A_log, Tensor D, "
+           "int chunk) -> (Tensor, Tensor, Tensor)")
+def _mamba_scan_op(dt, x, Bm, Cm, A_log, D, chunk):
+    return ref.mamba_scan_ref(dt, x, Bm, Cm, A_log, D, chunk)
+
+
+@_mamba_scan_op.register_kernel("cuda")
+def _mamba_scan_launch(dt, x, Bm, Cm, A_log, D, chunk):
+    out, n = mamba_scan_cuda(dt, x, Bm, Cm, A_log, D, chunk)
+    mamba_scan.launches += n
     return out
+
+
+@_mamba_scan_op.register_fake
+def _mamba_scan_shapes(dt, x, Bm, Cm, A_log, D, chunk):
+    B, S, d = x.shape
+    s = A_log.shape[1]
+    nc = S // ref.scan_chunk(S, chunk)
+    return (x.new_empty((B, S, d), dtype=torch.float32),
+            x.new_empty((B, d, s), dtype=torch.float32),
+            x.new_empty((B, nc, d, s), dtype=torch.float32))
 
 
 @_instrumented("mamba_scan")
@@ -238,12 +291,9 @@ def mamba_scan(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor,
     d) float32 (dt after the softplus), Bm, Cm (B, S, s), A_log (d, s), D
     (d,) -> (y (B, S, d), h_fin (B, d, s), h_bounds (B, nc, d, s)), the
     states at the entries of chunks of ``chunk`` steps (capped at S, halved
-    until it divides S)."""
-    if not _on_card(dt, x, Bm, Cm, A_log, D):
-        return ref.mamba_scan_ref(dt, x, Bm, Cm, A_log, D, chunk)
-    out, n = mamba_scan_cuda(dt, x, Bm, Cm, A_log, D, chunk)
-    mamba_scan.launches += n
-    return out
+    until it divides S).  The custom op ``repro_torch::mamba_scan``."""
+    _on_card(dt, x, Bm, Cm, A_log, D)
+    return _mamba_scan_op(dt, x, Bm, Cm, A_log, D, chunk)
 
 
 fused_worker.launches = 0

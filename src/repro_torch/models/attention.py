@@ -306,6 +306,10 @@ def attn_decode_step(params, x: torch.Tensor, cos_sin, cache_k: torch.Tensor,
     KH = cache_k.shape[2]
     H, hd = q.shape[2], q.shape[3]
     G = H // KH
+    # one token's query, gathered over its heads: a tp shard of the heads
+    # need not hold whole kv groups, and the card's DTensor cannot split a
+    # sharded dimension into (KH, G) (the cache is sequence-sharded anyway)
+    q = shard(q, "dp", None, None, None)
     qh = (q * (1.0 / math.sqrt(hd))).reshape(B, KH, G, hd)
     s = torch.einsum("bhgd,bshd->bhgs", qh.float(), cache_k.float())
     idx = torch.arange(S_c, device=x.device)

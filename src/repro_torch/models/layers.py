@@ -207,15 +207,29 @@ def lm_head_logits_chunk(table_f32: torch.Tensor, x: torch.Tensor) -> torch.Tens
     return shard(x.float() @ table_f32.T, "dp", None, "tp")
 
 
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits (B, C, V) at labels (B, C): (B, C)."""
+    return torch.gather(logits, 2, labels.long()[..., None])[..., 0]
+
+
 def _ce_chunk(table_f32, x, labels, z_loss: float) -> torch.Tensor:
     # Under sharding rules the logits come vocab-sharded (dp, None, tp), as
     # the reference lays them out; DTensor's gather of the gold logit along
     # a sharded vocab fails (its masked partial sum), so the chunk's logits
-    # are gathered whole over the vocab for the loss.
+    # are gathered whole over the vocab for the loss.  The gold logit is
+    # then taken on each rank's batch shard: DTensor's backward of the
+    # gather starts from ``new_zeros`` of the GLOBAL (B, C, V) shape,
+    # replicated on every rank (79.7 GB at Qwen3's train_4k, the dry run).
     logits = shard(lm_head_logits_chunk(table_f32, x), "dp", None, None)
     last = logits.ndim - 1     # dims non-negative: DTensor's rules refuse Shard(-1)
     lse = torch.logsumexp(logits, dim=last)
-    gold = torch.gather(logits, last, labels.long()[..., None])[..., 0]
+    rules = current_rules()
+    if rules is None or not isinstance(logits, DTensor):
+        gold = _gold(logits, labels)
+    else:
+        b = resolve_spec(rules, labels.shape, ("dp", None))[0]
+        gold = shard_map_compat(_gold, mesh=rules.mesh, in_specs=(P(b, None, None), P(b, None)),
+                                out_specs=P(b, None))(logits, labels)
     loss = (lse - gold).sum()
     if z_loss:
         loss = loss + z_loss * lse.square().sum()

@@ -547,11 +547,13 @@ def _prime_ring(k_full: torch.Tensor, W: int) -> torch.Tensor:
     """(B, S, KH, hd) full keys -> (B, W, KH, hd) ring holding the last W
     tokens at slots (t mod W); slots no token reached stay zero."""
     B, S, KH, hd = k_full.shape
-    take = min(W, S)
-    slots = torch.arange(S - take, S, device=k_full.device) % W
-    ring = k_full.new_zeros((B, W, KH, hd))
-    ring[:, slots] = k_full[:, S - take:]
-    return ring
+    last = k_full[:, max(0, S - W):]
+    if S < W:
+        return torch.cat([last, last.new_zeros((B, W - S, KH, hd))], dim=1)
+    # token S - W + i goes to slot (off + i) mod W: a rotation of the last W,
+    # built from slices (the card's DTensor has no rule for an indexed write)
+    off = (S - W) % W
+    return last if off == 0 else torch.cat([last[:, W - off:], last[:, :W - off]], dim=1)
 
 
 def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

@@ -144,8 +144,11 @@ def _expert_ffn(w_gate, w_up, w_down, xs: torch.Tensor, act: str) -> torch.Tenso
 
 
 def _shared_ffn(params, x: torch.Tensor, act: str) -> torch.Tensor:
-    """The shared expert on x (T, d), computed outside the expert-parallel
-    body so its hidden dim tensor-parallelises like a normal MLP."""
+    """The shared expert on x (T, d), or (B, S, d) under sharding rules,
+    computed outside the expert-parallel body so its hidden dim
+    tensor-parallelises like a normal MLP (and, as the MLP's, its output is
+    laid out again explicitly: the card's DTensor cannot flatten (B, S) for
+    the last product's backward when the gradient arrives sequence-sharded)."""
     up = x @ params["sh_up"]
     up = shard(up, "dp", None, "tp")
     if act == "swiglu":
@@ -154,7 +157,7 @@ def _shared_ffn(params, x: torch.Tensor, act: str) -> torch.Tensor:
         h = F.silu(g.float()).to(x.dtype) * up
     else:
         h = F.gelu(up.float(), approximate="tanh").to(x.dtype)
-    return h @ params["sh_down"]
+    return shard(h @ params["sh_down"], "dp", None, None)
 
 
 def _moe_dense(params, x: torch.Tensor, cfg: MoEConfig):
@@ -346,7 +349,7 @@ def _moe_ep(params, x, cfg: MoEConfig, rules: AxisRules):
     dp_axes = tuple(dp_phys) if isinstance(dp_phys, tuple) else (dp_phys,)
     ep = sizes[ep_axis]
     dpN = math.prod(sizes[a] for a in dp_axes)
-    B, S, d = x.shape
+    B, S, _ = x.shape
     seq_shard = ep if S % ep == 0 else 1   # decode: S=1 cannot seq-shard
     b_shard = dpN if B % dpN == 0 else 1   # long-context decode: B=1
     T_loc = (B // b_shard) * (S // seq_shard)
@@ -377,9 +380,9 @@ def _moe_ep(params, x, cfg: MoEConfig, rules: AxisRules):
     args = [replicated(a, mesh) for a in (x, params["router"], params["w_gate"],
                                           params["w_up"], params["w_down"])]
     y, aux = body(*args)
-    if cfg.n_shared:    # the sequence gathered before (B, S) is flattened
-        xf = shard(args[0], "dp", None, None).reshape(-1, d)
-        y = y + _shared_ffn(params, xf, cfg.act).reshape(y.shape)
+    if cfg.n_shared:    # on the sequence gathered, as the MLP (the card's DTensor
+        # cannot flatten (B, S) with S sharded)
+        y = y + _shared_ffn(params, shard(args[0], "dp", None, None), cfg.act)
     if plain:
         return y.full_tensor(), aux.full_tensor()
     return y, aux

@@ -1133,3 +1133,39 @@ def test_selective_scan_takes_any_state_size(cuda, s):
     for o, e in zip(ops.mamba_scan(*args), ref.mamba_scan_ref(*args)):
         _close(o, e)
     assert ops.launch_counts() == dict(_NONE, mamba_scan=-(-s // 64))   # states in groups
+
+
+def test_mesh_gather_takes_the_nccl_branch_on_one_rank(cuda, tmp_path, monkeypatch):
+    """``MeshExecutor._all_gather``'s NCCL branch on the card: a one-rank
+    NCCL group, a (1, 1) mesh and a K = 1 bec plan; the gather goes
+    through ``all_gather_into_tensor`` on device tensors and C equals the
+    local fused facade's bit for bit (and A^T B)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    assert not dist.is_initialized()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv", rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        assert dist.get_backend(mesh.get_group("model")) == "nccl"
+        gathers = []
+        real = dist.all_gather_into_tensor
+
+        def spy(out, inp, *args, **kwargs):
+            gathers.append((out.device.type, inp.device.type))
+            return real(out, inp, *args, **kwargs)
+
+        monkeypatch.setattr(dist, "all_gather_into_tensor", spy)
+        v = 256
+        plan = make_plan("bec", 1, 1, 1, K=1, L=v * 4 * 4 + 1, points="chebyshev")
+        gen = torch.Generator().manual_seed(5)
+        A = torch.randint(-4, 5, (v, 128), generator=gen).double().to(cuda)
+        B = torch.randint(-4, 5, (v, 96), generator=gen).double().to(cuda)
+        C = CodedMatmul(plan, "mesh", mesh=mesh, device=cuda)(A, B)
+        C_local = CodedMatmul(plan, "fused", device=cuda)(A, B)
+        torch.cuda.synchronize()
+        assert gathers == [("cuda", "cuda")]
+        assert torch.equal(C, C_local) and torch.equal(C, A.T @ B)
+        assert ops.launch_counts()["fused_worker"] == 2 and ops.launch_counts()["decode"] == 2
+    finally:
+        dist.destroy_process_group()

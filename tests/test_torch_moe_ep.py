@@ -13,7 +13,9 @@ The parent holds it, in float32, against:
     reference's ``test_ep_capacity_drops_tokens``, which only asks for a
     finite output): the same kept set, hence the same output;
   * the dense path's gradients (the port's ``_moe_dense`` through autograd)
-    of the same loss at no drops, within 1e-4.
+    of the same loss at no drops, within 1e-4; also with a shared expert
+    (``n_shared``, Qwen1.5-MoE's), computed beside the EP body on the
+    sequence-gathered tokens.
 The aux loss is the reference's: the mean over the ranks of each shard's
 Switch loss.  The rank body is a module-level function (the ranks import
 this module by name, without JAX); the spawn runs once, with a deadline.
@@ -34,6 +36,7 @@ DATA, MODEL = 2, 4
 B, S, D = 4, 8, 32
 CFG = MoEConfig(n_experts=8, top_k=2, d_expert_ff=16, capacity_factor=64.0)
 DROP_CF = 0.5     # capacity ceil(0.5 * 2 * 4 / 8) = 1 slot an expert a shard
+CFG_SH = dataclasses.replace(CFG, n_shared=1)
 
 
 def _arrays():
@@ -46,7 +49,12 @@ def _arrays():
     params = {k: v.astype(np.float32) for k, v in params.items()}
     x = rng.normal(size=(B, S, D)).astype(np.float32)
     cot = rng.normal(size=(B, S, D)).astype(np.float32)
-    return params, x, cot
+    sh = CFG_SH.n_shared * ff
+    params_sh = {"sh_gate": rng.normal(size=(D, sh)) / math.sqrt(D),
+                 "sh_up": rng.normal(size=(D, sh)) / math.sqrt(D),
+                 "sh_down": rng.normal(size=(sh, D)) / math.sqrt(sh)}
+    params_sh = dict(params, **{k: v.astype(np.float32) for k, v in params_sh.items()})
+    return params, x, cot, params_sh
 
 
 def _placed(mesh, arrays):
@@ -57,7 +65,7 @@ def _placed(mesh, arrays):
     from repro_torch.distributed.sharding import default_rules, placements, resolve_spec
     from torch.distributed.tensor import distribute_tensor
     rules = default_rules(mesh)
-    params, x, cot = arrays
+    params, x, cot = arrays[:3]
 
     def place(a, axes):
         t = torch.from_numpy(a)
@@ -83,6 +91,12 @@ def ep_rank(mesh, arrays):
             y_drop, _ = moe_mod.apply_moe(params, x, dataclasses.replace(
                 CFG, capacity_factor=DROP_CF))
         out["y_drop"] = y_drop.full_tensor()
+    _, params_sh, x, cot = _placed(mesh, (arrays[3], *arrays[1:3]))
+    with axis_rules(rules):
+        y, _ = moe_mod.apply_moe(params_sh, x, CFG_SH)
+        grads = torch.autograd.grad((y * cot).sum(), [x, *params_sh.values()])
+        out["y_sh"] = y.full_tensor().detach()
+        out["grads_sh"] = [g.full_tensor().detach() for g in grads]
     return out if mesh.get_rank() == 0 else None
 
 
@@ -104,7 +118,7 @@ def test_ep_matches_the_jax_dense_path(ranks):
 
     from repro.models.moe import MoEConfig as JMoEConfig
     from repro.models.moe import _moe_dense as jmoe_dense
-    (params, x, _), got = ranks
+    (params, x, _, _), got = ranks
     jcfg = JMoEConfig(**dataclasses.asdict(CFG))
     y, _ = jmoe_dense({k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x), jcfg)
     exp = torch.from_numpy(np.asarray(y))
@@ -124,7 +138,7 @@ def test_capacity_drops_tokens_as_the_plain_rule_keeps_them(ranks):
     """Each shard routes its own tokens; an expert keeps the first
     ``capacity`` token-slots that pick it, in flattened (token, k) order;
     a dropped slot adds nothing.  Computed here in one process."""
-    (params, x, _), got = ranks
+    (params, x, _, _), got = ranks
     p = {k: torch.from_numpy(v) for k, v in params.items()}
     xt = torch.from_numpy(x)
     T_loc = (B // DATA) * (S // MODEL)
@@ -152,18 +166,34 @@ def test_capacity_drops_tokens_as_the_plain_rule_keeps_them(ranks):
     assert _rel(got["y_drop"], exp) < 1e-4
 
 
-def test_ep_gradient_matches_the_dense_gradient(ranks):
-    (params, x, cot), got = ranks
+def _dense_grads(params, x, cot, cfg):
     p = {k: torch.from_numpy(v).requires_grad_() for k, v in params.items()}
     xt = torch.from_numpy(x).requires_grad_()
-    y, _ = moe_mod._moe_dense(p, xt, CFG)
-    exp = torch.autograd.grad((y * torch.from_numpy(cot)).sum(), [xt, *p.values()])
+    y, _ = moe_mod._moe_dense(p, xt, cfg)
+    return y.detach(), p, torch.autograd.grad((y * torch.from_numpy(cot)).sum(),
+                                              [xt, *p.values()])
+
+
+def test_ep_gradient_matches_the_dense_gradient(ranks):
+    (params, x, cot, _), got = ranks
+    _, p, exp = _dense_grads(params, x, cot, CFG)
     for name, g, e in zip(["x", *p], got["grads"], exp):
         assert _rel(g, e) < 1e-4, name
 
 
+def test_ep_shared_expert_matches_the_dense_path(ranks):
+    """Qwen1.5-MoE's shared expert beside the EP body (on the sequence
+    gathered over "model", its hidden dim over tp): output and gradients
+    as the dense path's."""
+    (_, x, cot, params_sh), got = ranks
+    y, p, exp = _dense_grads(params_sh, x, cot, CFG_SH)
+    assert _rel(got["y_sh"], y) < 1e-4
+    for name, g, e in zip(["x", *p], got["grads_sh"], exp):
+        assert _rel(g, e) < 1e-4, name
+
+
 def test_aux_is_the_mean_of_each_shards_switch_loss(ranks):
-    (params, x, _), got = ranks
+    (params, x, _, _), got = ranks
     router = torch.from_numpy(params["router"])
     auxes = [float(moe_mod._route(router, xs.reshape(-1, D), CFG)[2])
              for xs in _shards(torch.from_numpy(x))]

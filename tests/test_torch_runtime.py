@@ -266,9 +266,10 @@ def test_cpu_path_launches_no_kernel(rng):
 
 def test_port_imports_neither_jax_nor_repro():
     """The package, every module of it (the sharding rules, the parameter
-    sharding and the abstract specs named), the smoke script's imports, the
-    port's benches and its mesh examples pull in no JAX and nothing of the
-    JAX package."""
+    sharding, the abstract specs, the dry run and its accounting named),
+    the smoke script's imports, the port's benches (the dry run's readers
+    and the harness among them) and its examples pull in no JAX and nothing
+    of the JAX package."""
     code = """
 import importlib, pkgutil, sys
 import repro_torch
@@ -282,8 +283,11 @@ import benchmarks.torch_obs_util, benchmarks.torch_table1_error
 import benchmarks.torch_fig1_latency, benchmarks.torch_tradeoff_sweep
 import benchmarks.torch_control_bench, benchmarks.torch_serve_bench
 import benchmarks.torch_fused_breakdown, benchmarks.torch_encode_breakdown
+import benchmarks.torch_roofline, benchmarks.torch_report, benchmarks.torch_hillclimb
+import benchmarks.torch_kernels_micro, benchmarks.torch_runtime_bench, benchmarks.torch_run
+import repro_torch.launch.dryrun, repro_torch.launch.hlo_analysis
 sys.path.insert(0, {examples!r})
-import torch_serve_lm, torch_straggler_sim, torch_train_lm
+import torch_quickstart, torch_serve_lm, torch_straggler_sim, torch_train_lm
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
