@@ -42,6 +42,22 @@ Phases, each raising on failure:
              progress vectors (fused kernel, per-chunk decode kernel), one
              Q=1 binary request (the binary decode kernel), and one
              worker_stage + decode_stage pair;
+   4d captured - ``CodedMatmul.capture`` puts one request of each path
+             (fused, staged, partial Q=4) into a CUDA graph with a device
+             mask (progress) buffer: the traced kinds, whose decode panel
+             is solved on the card.  Launches are counted at the eager
+             warm-up and at the capture (twice a request's), none at a
+             replay, and printed on 4d's own line, out of the kernels
+             line's counts.  The graph is replayed under phase 4's erasures (4c's
+             progress vectors), each written into the buffer; every replay
+             must equal A^T B and the concrete request's C, and its
+             CUDA-event time is printed beside the concrete request's wall.
+             The bunched set (workers 0-5 erased) is replayed too and both
+             paths' max errors printed, not gated.  torch.profiler lists one
+             replay's device work: our kernels as in a concrete request,
+             besides them only the panel's launches, no host copy; the
+             replay's device time is split into kernels, panel and the
+             erase and recompose;
 5. times   - each kernel, its plain version and one PyTorch call computing
              the same function, timed with CUDA events at the main path's
              shapes, beside the least time the card could take; kernels 1
@@ -118,8 +134,10 @@ Phases, each raising on failure:
              one coded worker of the main path's geometry with A and B made
              from the seed by the card's generator; four fused binary
              requests (phase 4's erasures), four partial Q=4 requests
-             (phase 4c's progress vectors) and one staged request through
-             ``CodedMatmul(plan, "mesh")``.  Every rank's C must equal A^T B
+             (phase 4c's progress vectors), one staged request, and one
+             "traced" and one ("partial-traced", 4) request (a device mask
+             and progress that no host reads; the panels solved on every
+             rank) through ``CodedMatmul(plan, "mesh")``.  Every rank's C must equal A^T B
              and be bit-identical to the local fused facade's C (digests
              from the parent), each request must launch on every rank
              kernels 1 and 2 (or 3), or 4 twice, 5 and 2, and each kind
@@ -326,7 +344,12 @@ from repro_torch.models.rwkv6 import WkvFused, wkv_backward  # noqa: E402
 from repro_torch.models.stats import model_flops, param_counts  # noqa: E402
 from repro_torch.optim import OptConfig, adamw_init, adamw_update  # noqa: E402
 from repro_torch.obs import export, report  # noqa: E402
-from repro_torch.runtime import CodedMatmul, PartialPattern, chunk_bounds  # noqa: E402
+from repro_torch.runtime import (  # noqa: E402
+    CodedMatmul,
+    ErasurePattern,
+    PartialPattern,
+    chunk_bounds,
+)
 from repro_torch.serve import (  # noqa: E402
     DEFAULT_SPEC,
     GOLDEN_SERVE_OVERHEAD_S,
@@ -355,6 +378,7 @@ ENTRY_MAX = MAIN.entry_max
 # (erasing workers 0-5 multiplies it by 243 and is inexact even here); these
 # patterns amplify it by at most 15.2.
 ERASURES = ([0, 2, 4, 6, 8, 9], [1, 3, 5, 7, 9], [], [2, 3, 4, 5, 6, 7])
+BUNCHED = [0, 1, 2, 3, 4, 5]  # panel gain 243: inexact at 8000^2 (ROADMAP.md)
 # Partial stragglers at Q=4 sub-tasks: completed chunks per worker, each
 # vector spanning (>= tau=4 workers per chunk) with every chunk's panel gain
 # (max row sum of |W|) at most 10.0, picked with the panel cache on the CPU.
@@ -2196,6 +2220,149 @@ def partial_phase(plan, A, B, C_ref) -> dict:
     return out
 
 
+def replay_ms(graph) -> float:
+    """One replay's device time (CUDA events around it)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def wall_ms(call) -> tuple:
+    """``call()``'s result and its host-clock wall, ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+# a kernel of ours in a profiler key: its wrapper's name, then the instance
+OUR_KERNEL = re.compile(r"\b(fused_worker|decode_partial|decode|encode|matmul_t)"
+                        r"(?:_tma|_element|_vector)?_kernel<")
+
+
+def device_activity(fn) -> dict:
+    """``{name: (count, device ms)}`` of what ``fn`` ran on the card, from
+    torch.profiler's CUDA activity, which lists the kernels a graph replay
+    runs as well."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count, e.device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_time_total > 0 and not e.key.startswith("aten::")}
+
+
+def ours(activity: dict) -> dict:
+    out = {}
+    for name, (count, _) in activity.items():
+        m = OUR_KERNEL.search(name)
+        if m:
+            out[m.group(1)] = out.get(m.group(1), 0) + count
+    return out
+
+
+def short(name: str) -> str:
+    """A profiler key without its return type, namespaces and arguments."""
+    name = re.sub(r"^void |\(anonymous namespace\)::", "", name)
+    return name.split("(")[0].split("<")[0].split("::")[-1].strip()
+
+
+def captured_phase(plan, A, B, C_ref, smi: str) -> None:
+    """4d: one request of each path captured into a CUDA graph with a device
+    mask (or progress) buffer, then replayed under new survivor sets."""
+    phase("4d captured requests")
+    bunched = cm_mask(plan, BUNCHED)
+    cases = [
+        ("fused", CodedMatmul(plan), "mask", {"fused_worker": 1, "decode": 1},
+         [(f"erased={e}", cm_mask(plan, e)) for e in ERASURES]),
+        ("staged", CodedMatmul(plan, "staged"), "mask",
+         {"encode": 2, "matmul_t": plan.K, "decode": 1},
+         [(f"erased={e}", cm_mask(plan, e)) for e in ERASURES]),
+        ("partial", CodedMatmul(plan, sub_tasks=Q_SUB), "progress",
+         {"fused_worker": 1, "decode_partial": 1},
+         [(f"progress={c}/{Q_SUB}", np.asarray(c) / Q_SUB) for c in PROGRESS]),
+    ]
+    # launches counted at the warm-ups + captures, and at the concrete
+    # requests; a replay runs its graph's launches and counts none
+    at_capture = dict.fromkeys(ops.launch_counts(), 0)
+    at_concrete = dict.fromkeys(at_capture, 0)
+    n_replays = 0
+    for label, cm, what, per_request, sets in cases:
+        buf = torch.ones(plan.K, dtype=torch.float64, device="cuda")
+        ops.reset_launch_counts()
+        (graph, C), capture_ms = wall_ms(lambda: cm.capture(A, B, **{what: buf}))
+        captured = ops.launch_counts()
+        want = dict.fromkeys(captured, 0) | {k: 2 * v for k, v in per_request.items()}
+        check(captured == want, f"4d {label}: warm-up + capture launched {captured}, "
+              f"not {want}")
+        check(cm.cache_info()["panel_builds"] == 0, f"4d {label}: a host panel was built")
+        print(f"4d {label}: one eager request of the traced kind + the capture in "
+              f"{capture_ms:.1f} ms (host clock), launches {nonzero(captured)} (twice a "
+              f"request's), cache {cm.cache_info()}")
+        for name, x in [*sets, (f"erased={BUNCHED} (bunched)", bunched)]:
+            buf.copy_(torch.as_tensor(x, dtype=torch.float64))
+            before = ops.launch_counts()
+            ms = replay_ms(graph)
+            n_replays += 1
+            check(ops.launch_counts() == before, f"4d {label} {name}: a replay counted "
+                  f"launches")
+            concrete, wall = wall_ms(lambda x=x: cm(A, B, **{what: x}))
+            err, err_concrete = (float((y - C_ref).abs().max()) for y in (C, concrete))
+            if name.endswith("(bunched)"):
+                print(f"4d {label} replay {name}: max |C - A^T B| {err:g} replayed, "
+                      f"{err_concrete:g} concrete (not gated); replay {ms:.3f} ms")
+                continue
+            check(torch.equal(C, C_ref) and torch.equal(C, concrete),
+                  f"4d {label} replay {name}: max |C - A^T B| {err}, concrete {err_concrete}, "
+                  f"equal to concrete {torch.equal(C, concrete)}")
+            print(f"4d {label} replay {name}: exact and equal to the concrete C; replay "
+                  f"{ms:.3f} ms (CUDA events) beside the concrete request's {wall:.2f} ms "
+                  f"wall (host clock) on {smi}")
+            del concrete
+        # what the graph runs on the card against one concrete request
+        replayed = device_activity(graph.replay)
+        n_replays += 1
+        concrete = device_activity(lambda: cm(A, B, **{what: sets[0][1]}))
+        check(ours(replayed) == ours(concrete) == per_request,
+              f"4d {label}: kernels in the graph {ours(replayed)}, in a concrete request "
+              f"{ours(concrete)}, not {per_request}")
+        check(not any("HtoD" in k for k in replayed), f"4d {label}: the graph copies "
+              f"from the host: {[k for k in replayed if 'HtoD' in k]}")
+        # the launches the graph runs beyond a concrete request's, and the time
+        # they add (a kernel both run, such as the erase multiply, counts once)
+        panel = {}
+        for k, (n, ms) in replayed.items():
+            n_c, ms_c = concrete.get(k, (0, 0.0))
+            if n > n_c and not OUR_KERNEL.search(k):
+                panel[k] = (n - n_c, max(ms - ms_c, 0.0))
+        kernel_ms = sum(ms for k, (_, ms) in replayed.items() if OUR_KERNEL.search(k))
+        panel_ms = sum(ms for _, ms in panel.values())
+        total_ms = sum(ms for _, ms in replayed.values())
+        print(f"4d {label} graph (torch.profiler, one replay): our kernels {ours(replayed)} as "
+              f"in a concrete request; besides, only the device panel's "
+              f"{sum(n for n, _ in panel.values())} launches: "
+              f"{sorted({short(k) for k in panel})}; the concrete request's host copies "
+              f"{[(short(k), n) for k, (n, _) in concrete.items() if 'HtoD' in k]}")
+        print(f"4d {label} replay device time {total_ms:.3f} ms = our kernels {kernel_ms:.3f} "
+              f"+ the panel {panel_ms:.3f} + erase and recompose {total_ms - kernel_ms - panel_ms:.3f} "
+              f"ms (CUPTI kernel durations) on {smi}")
+        for k, v in ops.launch_counts().items():
+            at_capture[k] += captured[k]
+            at_concrete[k] += v - captured[k]
+        del graph, C
+        torch.cuda.empty_cache()
+    print(f"4d launches (kept out of the kernels line): warm-ups + captures "
+          f"{nonzero(at_capture)}, concrete requests {nonzero(at_concrete)}; {n_replays} "
+          f"replays ran their graphs' launches and counted none")
+
+
 def times_phase(plan, A, B, smi: str) -> dict:
     phase("5 times")
     ca, cb, a4, b4 = fused_inputs(plan, A, B, torch.float64)
@@ -3002,7 +3169,13 @@ def mesh_operands(seed: int) -> tuple:
 def mesh_requests(cm, staged, A, B) -> list:
     """Phase 11's requests ``[(kind, name, call, launches per request)]``:
     fused binary under phase 4's erasures and fused partial under phase
-    4c's progress vectors on ``cm``, then one binary request on ``staged``."""
+    4c's progress vectors on ``cm``, one binary request on ``staged``, then
+    one "traced" and one ("partial-traced", Q) request on ``cm``: the mask
+    and the progress as device tensors in patterns of the traced kind, so
+    no host reads them and the panels are solved on the card."""
+    K = cm.plan.K
+    mask = torch.as_tensor(cm_mask(cm.plan, ERASURES[1]), device="cuda")
+    progress = torch.as_tensor(np.asarray(PROGRESS[1]) / Q_SUB, device="cuda")
     return ([("fused", f"erased={e}", lambda e=e: cm(A, B, erased=e),
               {"fused_worker": 1, "decode": 1}) for e in ERASURES]
             + [("partial", f"progress={c}/{Q_SUB}",
@@ -3010,7 +3183,13 @@ def mesh_requests(cm, staged, A, B) -> list:
                 {"fused_worker": 1, "decode_partial": 1}) for c in PROGRESS]
             + [("staged", f"erased={ERASURES[0]}",
                 lambda: staged(A, B, erased=ERASURES[0]),
-                {"encode": 2, "matmul_t": 1, "decode": 1})])
+                {"encode": 2, "matmul_t": 1, "decode": 1}),
+               ("traced", f"traced erased={ERASURES[1]}",
+                lambda: cm(A, B, ErasurePattern(K, "traced", mask)),
+                {"fused_worker": 1, "decode": 1}),
+               ("partial-traced", f"traced progress={PROGRESS[1]}/{Q_SUB}",
+                lambda: cm(A, B, PartialPattern(K, Q_SUB, "traced", progress)),
+                {"fused_worker": 1, "decode_partial": 1})])
 
 
 def span_ms(spans, *names) -> float:
@@ -3104,7 +3283,7 @@ def mesh_phase(seed: int, smi: str) -> dict:
               f"ms = product {row['product_ms']:.2f} + gather {row['gather_ms']:.2f} + "
               f"decode {row['decode_ms']:.3f} + other {rest:.2f} ms; launches "
               f"{row['launches']}; on {smi}")
-    for kind in ("fused", "partial", "staged"):
+    for kind in ("fused", "partial", "staged", "traced", "partial-traced"):
         walls = [r["wall_ms"] for r in first["rows"] if r["kind"] == kind]
         print(f"11 {kind} walls (rank 0): {[round(w, 2) for w in walls]} ms")
     print(f"11 peak device memory per rank (GiB): "
@@ -3159,6 +3338,12 @@ def ep_rank(mesh, params, x, x_dec, cf_cfg, cfg_full):
                           "experts_ms": timed["experts"] * 1e3}
             del y, y_dec
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # drop this rank's references to the parent's weights (the spawn holds
+    # the dict too): the parent's card memory is freed only after every
+    # rank has released what it received through CUDA IPC
+    del local
+    params.clear()
+    gc.collect()
     return out
 
 
@@ -3228,8 +3413,12 @@ def ep_phase(seed: int, smi: str) -> dict:
     check(not any(counts.values()), f"13a launched {counts}")
     del params, x, x_dec
     gc.collect()
+    # the ranks got the weights through CUDA IPC: their 18 GiB stay allocated
+    # here until the sender collects what the ranks released
+    torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
-    print(f"phase 13a: {time.perf_counter() - start:.1f} s")
+    print(f"phase 13a: {time.perf_counter() - start:.1f} s; {torch.cuda.memory_allocated() / 2**30:.3f} "
+          f"GiB still allocated here")
     return {"counts": counts, **res}
 
 
@@ -3308,14 +3497,25 @@ def sharded_step(cfg, seed: int, mesh, steps: int, device="cuda"):
     return out
 
 
-def sharded_rank(mesh, cfg, seed: int, device="cuda"):
-    """13b on one rank: the gradients and one step on the (2, 2) mesh; rank
-    0 hands back the gradients and the parameters after the step."""
-    ops.reset_launch_counts()
-    out = sharded_step(cfg, seed, mesh, 1, device)
-    if mesh.get_rank() != 0:
-        out["grads"] = out["params"] = None
-    return out | {"launches": ops.launch_counts()}
+def sharded_rank(mesh, cfgs, seed: int, device="cuda"):
+    """13b on one rank, for each config in turn (one spawn for all: a spawn
+    costs more than a step): the gradients and one step on the (2, 2) mesh,
+    with the launch counts set to 0 just before each config and read just
+    after; rank 0 hands back the gradients and the parameters after the
+    step."""
+    outs = []
+    for cfg in cfgs:
+        ops.reset_launch_counts()
+        out = sharded_step(cfg, seed, mesh, 1, device)
+        launches = ops.launch_counts()
+        if mesh.get_rank() != 0:
+            out["grads"] = out["params"] = None
+        outs.append(out | {"launches": launches})
+        del out
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return outs
 
 
 def sharded_compare(mesh_out: dict, single: dict) -> dict:
@@ -3344,21 +3544,25 @@ def sharded_train_phase(seed: int, smi: str) -> dict:
     every leaf within 1e-3 of its largest |gradient|."""
     phase("13b sharded train steps on a (2, 2) mesh")
     start = time.perf_counter()
-    counts = dict.fromkeys(KERNELS, 0)
     out = {}
-    for label, cfg, kernel in sharded_cfgs():
+    cfgs = sharded_cfgs()
+    singles = []
+    for _, cfg, _ in cfgs:
         gc.collect()
         torch.cuda.empty_cache()
         ops.reset_launch_counts()
-        single = sharded_step(cfg, seed, None, 1)
-        single_launches = ops.launch_counts()
-        gc.collect()
-        torch.cuda.empty_cache()
-        outs = spawn_mesh(sharded_rank, data=2, model=2, device="cuda", args=(cfg, seed),
-                          timeout_s=SHARDED_TIMEOUT_S)
-        r0 = outs[0].result
+        singles.append((sharded_step(cfg, seed, None, 1), ops.launch_counts()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    outs = spawn_mesh(sharded_rank, data=2, model=2, device="cuda",
+                      args=([cfg for _, cfg, _ in cfgs], seed), timeout_s=SHARDED_TIMEOUT_S)
+    counts = {k: sum(r["launches"].get(k, 0) for o in outs for r in o.result)
+              for k in KERNELS}
+    for i, (label, cfg, kernel) in enumerate(cfgs):
+        single, single_launches = singles[i]
+        r0 = outs[0].result[i]
         c = sharded_compare(r0, single)
-        per_rank = [o.launches.get(kernel, 0) for o in outs] if kernel else []
+        per_rank = [o.result[i]["launches"].get(kernel, 0) for o in outs] if kernel else []
         print(f"13b {label}: {LM_BATCH}x{SHARDED_SEQ} tokens, float32; loss mesh "
               f"{r0['loss']:.6f} vs one device {single['loss']:.6f} (rel {c['loss_rel']:.3e}, "
               f"bound {TRAIN_LOSS_TOL}); gradient norm {r0['grad_norm']:.6e} vs "
@@ -3369,7 +3573,7 @@ def sharded_train_phase(seed: int, smi: str) -> dict:
               f"(after the gradients' pass) mesh {r0['wall'] * 1e3:.2f} ms (rank 0) vs one "
               f"device "
               f"{single['wall'] * 1e3:.2f} ms; peak memory per rank (GiB) "
-              f"{[round(o.result['peak_gib'], 2) for o in outs]} vs {single['peak_gib']:.2f}; "
+              f"{[round(o.result[i]['peak_gib'], 2) for o in outs]} vs {single['peak_gib']:.2f}; "
               f"{kernel or 'no kernel'} launches per rank {per_rank} (one device "
               f"{single_launches.get(kernel, 0) if kernel else 0}; gradients + 1 step); "
               f"on {smi}")
@@ -3382,14 +3586,11 @@ def sharded_train_phase(seed: int, smi: str) -> dict:
               f"13b {label}: parameter {c['param'][1]} by {c['param'][0]}")
         if kernel:
             check(all(n > 0 for n in per_rank), f"13b {label}: {kernel} per rank {per_rank}")
-        for o in outs:
-            for k in counts:
-                counts[k] += o.launches[k]
         out[label] = {"mesh_ms": r0["wall"] * 1e3, "single_ms": single["wall"] * 1e3,
                       "rel": c["loss_rel"], "norm_rel": c["norm_rel"], "grad": c["grad"][0],
-                      "worst": c["param"][0], "peaks": [o.result["peak_gib"] for o in outs],
+                      "worst": c["param"][0], "peaks": [o.result[i]["peak_gib"] for o in outs],
                       "per_rank": per_rank}
-        del single, outs, r0
+    del singles, outs
     print(f"phase 13b: {time.perf_counter() - start:.1f} s, launches over the ranks "
           f"{nonzero(counts)}")
     return {"counts": counts, **out}
@@ -3559,12 +3760,15 @@ def main() -> None:
     paths = {"fused": main_phase(plan, A, B, C_ref),
              "staged": staged_phase(plan, A, B, C_ref),
              "partial": partial_phase(plan, A, B, C_ref)}
+    # a capture counts the launches it records, not the ones its replays
+    # run, so 4d's counts stay on its own line
+    captured_phase(plan, A, B, C_ref, dev["smi"])
     half_paths = half_path_phase(plan, args.seed)
     times = times_phase(plan, A, B, dev["smi"])
     times |= scan_times_phase(gen, dev)
     times |= half_times_phase(plan, args.seed, dev["smi"])
-    for name, path in paths.items():
-        wall = path["walls"]
+    for name in ("fused", "staged", "partial"):
+        wall = paths[name]["walls"]
         print(f"request wall time ({name}, 8000^2, float64): first {wall[0]:.2f} ms, "
               f"median of the rest {float(np.median(wall[1:])):.2f} ms on {dev['smi']}")
     paths["caps"] = caps

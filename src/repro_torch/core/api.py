@@ -5,7 +5,9 @@ host data (numpy), so a plan built by the reference package carries across
 field by field (:func:`plan_from_arrays`).  ``encode_blocks`` /
 ``worker_products`` / ``fused_worker_products`` are the stage primitives
 the runtime executors are built from; they run on the device of the tensors
-they are given.
+they are given.  ``PlanTables`` keeps a plan's tables on a device, so a
+request that reuses them copies nothing from the host (and can be captured
+into a CUDA graph).
 """
 from __future__ import annotations
 
@@ -18,12 +20,18 @@ import torch
 
 from repro_torch.core import bounds as bounds_mod
 from repro_torch.core.decoding import DecodePanelCache
-from repro_torch.core.numerics import complex_dtype, resolve_device, resolve_dtype
+from repro_torch.core.numerics import (
+    capturing,
+    complex_dtype,
+    resolve_device,
+    resolve_dtype,
+    tracing,
+)
 from repro_torch.core.points import extend_points, make_points
 from repro_torch.core.schemes import Scheme, make_scheme
 
-__all__ = ["CodedMatmulPlan", "make_plan", "plan_from_arrays", "extend_plan",
-           "shrink_plan", "encode_blocks", "worker_products",
+__all__ = ["CodedMatmulPlan", "PlanTables", "make_plan", "plan_from_arrays",
+           "extend_plan", "shrink_plan", "encode_blocks", "worker_products",
            "fused_worker_products", "uncoded_matmul", "runtime_facade",
            "coded_matmul"]
 
@@ -188,17 +196,60 @@ def _coeff_dtype(x: torch.Tensor, plan: CodedMatmulPlan) -> torch.dtype:
     return x.dtype
 
 
-def _coeffs(table: np.ndarray, like: torch.Tensor, plan: CodedMatmulPlan):
-    return torch.as_tensor(table, dtype=_coeff_dtype(like, plan),
-                           device=like.device)
+class PlanTables:
+    """A plan's host tables (``coeff_a``, ``coeff_b``, ``z_points``) as
+    tensors, uploaded once per (table, dtype, device) and kept.
+
+    A pipeline holds one, so only its first eager call copies from the host;
+    a CUDA graph captured after that call reads the kept tensors.  Under a
+    dispatch mode (a ``make_fx`` or fake-tensor trace) each table is made
+    anew as a constant of the trace and not kept: a kept real tensor cannot
+    enter a fake trace, nor a fake one a later eager call.
+    """
+
+    def __init__(self, plan: CodedMatmulPlan):
+        self.plan = plan
+        self._kept: dict = {}
+
+    def get(self, name: str, dtype: torch.dtype, device) -> torch.Tensor:
+        """The table ``name`` of the plan as a tensor of ``dtype`` on ``device``.
+
+        Raises:
+            RuntimeError: when the table is not kept yet while a CUDA stream
+                is being captured (a capture cannot copy from the host): make
+                one eager call of the same pipeline first.
+        """
+        def upload():
+            return torch.as_tensor(getattr(self.plan, name), dtype=dtype,
+                                   device=device)
+
+        if tracing():
+            return upload()
+        key = (name, dtype, torch.device(device))
+        table = self._kept.get(key)
+        if table is None:
+            if capturing():
+                raise RuntimeError(
+                    f"the plan's {name} table is not on {device} yet and a CUDA "
+                    f"graph capture cannot copy it from the host: run the same "
+                    f"call once eagerly before capturing it")
+            table = self._kept[key] = upload()
+        return table
+
+    def coeffs(self, a_blocks: torch.Tensor, b_blocks: torch.Tensor) -> tuple:
+        """(coeff_a (K, p, m), coeff_b (K, p, n)), each in its operand's
+        coefficient dtype (complex for a complex plan) on its device."""
+        return (self.get("coeff_a", _coeff_dtype(a_blocks, self.plan), a_blocks.device),
+                self.get("coeff_b", _coeff_dtype(b_blocks, self.plan), b_blocks.device))
 
 
 def encode_blocks(plan: CodedMatmulPlan, a_blocks: torch.Tensor,
-                  b_blocks: torch.Tensor):
+                  b_blocks: torch.Tensor, tables: Optional[PlanTables] = None):
     """a_blocks: (p, m, bv, br), b_blocks: (p, n, bv, bt)
-    -> (K, bv, br), (K, bv, bt) coded matrices per worker."""
-    ca = _coeffs(plan.coeff_a, a_blocks, plan)
-    cb = _coeffs(plan.coeff_b, b_blocks, plan)
+    -> (K, bv, br), (K, bv, bt) coded matrices per worker.  ``tables``
+    keeps the coefficients on the device across calls (default: uploaded
+    for this call)."""
+    ca, cb = (tables or PlanTables(plan)).coeffs(a_blocks, b_blocks)
     a_tilde = torch.einsum("kpm,pmvr->kvr", ca, a_blocks.to(ca.dtype))
     b_tilde = torch.einsum("kpn,pnvt->kvt", cb, b_blocks.to(cb.dtype))
     return a_tilde, b_tilde
@@ -210,22 +261,22 @@ def worker_products(a_tilde: torch.Tensor, b_tilde: torch.Tensor) -> torch.Tenso
 
 
 def fused_worker_products(plan: CodedMatmulPlan, a_blocks: torch.Tensor,
-                          b_blocks: torch.Tensor) -> torch.Tensor:
+                          b_blocks: torch.Tensor,
+                          tables: Optional[PlanTables] = None) -> torch.Tensor:
     """All worker products via the fused encode+product kernel.
 
     a_blocks: (p, m, bv, br), b_blocks: (p, n, bv, bt) -> (K, br, bt).
     Equivalent to encode_blocks + worker_products, but on the card the
     coded matrices A~, B~ are formed only tile-wise in shared memory.  The
     block views go to the kernel as they are (offsets + row stride), with
-    no copy into a (p*m, bv, br) stack.
+    no copy into a (p*m, bv, br) stack.  ``tables`` as for
+    :func:`encode_blocks`.
     """
     from repro_torch.kernels import ops as kops
 
-    p, m = a_blocks.shape[:2]
-    n = b_blocks.shape[1]
-    ca = _coeffs(plan.coeff_a.reshape(plan.K, p * m), a_blocks, plan)
-    cb = _coeffs(plan.coeff_b.reshape(plan.K, p * n), b_blocks, plan)
-    return kops.fused_worker(ca, cb, a_blocks, b_blocks)
+    ca, cb = (tables or PlanTables(plan)).coeffs(a_blocks, b_blocks)
+    return kops.fused_worker(ca.reshape(plan.K, -1), cb.reshape(plan.K, -1),
+                             a_blocks, b_blocks)
 
 
 # ---------------------------------------------------------------------------

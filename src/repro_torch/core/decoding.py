@@ -13,8 +13,10 @@ Given worker outputs Y_k = A~(s,z_k)^T B~(s,z_k) from any tau survivors:
 
 For the baseline polynomial code the useful coefficient IS C_ij (round only).
 
-Decode panels (the per-mask weights W) are host scipy math, bit-identical
-to the reference package's; the functions here that take tensors are the
+Decode panels (the per-mask weights W) of a concrete mask are host scipy
+math, bit-identical to the reference package's; the panel of a traced mask
+(one the host must not read) is built on the mask's device by
+:func:`masked_panel`.  The other functions here that take tensors are the
 plain PyTorch versions.  The runtime's kernel path decodes through
 ``kernels.ops.decode`` (and, per chunk, ``kernels.ops.decode_partial``) and
 must agree with :func:`decode_with_weights`.
@@ -29,10 +31,10 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.schemes import Scheme
-from repro_torch.core.vandermonde import interpolate_masked, interpolate_solve
+from repro_torch.core.vandermonde import _vander, interpolate_masked, interpolate_solve
 
 __all__ = [
-    "digit_extract", "decode", "decode_masked",
+    "digit_extract", "decode", "decode_masked", "masked_panel",
     "DecodePanel", "DecodePanelCache", "make_decode_panel",
     "decode_with_panel", "decode_with_weights",
 ]
@@ -62,10 +64,16 @@ def _finish_extract(scheme: Scheme, Xu: torch.Tensor, s: float,
     return C.reshape(g.m, g.n, *tail)
 
 
+def _useful_rows(scheme: Scheme, X: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The useful powers' rows of X along ``dim``, in the scheme's (m, n)
+    order, selected one by one: no index tensor to upload."""
+    return torch.stack([X.select(dim, int(i))
+                        for i in scheme.useful_z_exp().reshape(-1)], dim=dim)
+
+
 def _extract_useful(scheme: Scheme, X: torch.Tensor, s: float) -> torch.Tensor:
     """X: (tau, br, bt) coefficients -> (m, n, br, bt) decoded C blocks."""
-    idx = torch.as_tensor(scheme.useful_z_exp().reshape(-1), device=X.device)
-    return _finish_extract(scheme, X[idx], s, tuple(X.shape[1:]))
+    return _finish_extract(scheme, _useful_rows(scheme, X), s, tuple(X.shape[1:]))
 
 
 def decode(scheme: Scheme, z_survivors: torch.Tensor, Y_survivors: torch.Tensor,
@@ -91,6 +99,34 @@ def decode_masked(scheme: Scheme, z_all: torch.Tensor, Y_all: torch.Tensor,
     """
     X = interpolate_masked(z_all, Y_all, mask, scheme.tau, ridge)
     return _extract_useful(scheme, X, s)
+
+
+def masked_panel(scheme: Scheme, z_all: torch.Tensor, mask: torch.Tensor,
+                 ridge: float = 0.0) -> torch.Tensor:
+    """The decode panel of a 0/1 survivor mask, built where the mask lies.
+
+    z_all (K,) evaluation points in the decode dtype and mask (*batch, K),
+    tensors on one device -> (*batch, mn, K): the useful rows of
+    ``G^{-1} V_w^H`` with ``G = V^H D V`` (+ ``ridge`` I), ``D = diag(mask)``,
+    the panel :func:`make_decode_panel` factors on the host, so
+    ``decode_with_weights`` (or the decode kernels) can apply it.  A batch
+    of masks (the Q chunk masks of a partial pattern) gives the (Q, mn, K)
+    stack.  The solve is LU with partial pivoting (LAPACK's ``getrf``, or
+    cuSOLVER's on the card) and never checks its result on the host, so the
+    host reads nothing and the call can be captured into a CUDA graph.
+    Requires sum(mask) >= tau, unchecked: fewer survivors give a singular
+    G and non-finite or wrong weights.  The last bits of W may differ from
+    the host panel's; C is equal wherever the decode is exact.
+    """
+    tau = scheme.tau
+    V = _vander(z_all, tau)                                   # (K, tau)
+    Vw = V * mask.to(V.dtype)[..., :, None]                   # (*batch, K, tau)
+    G = V.conj().T @ Vw                                       # (*batch, tau, tau)
+    if ridge:
+        G = G + ridge * torch.eye(tau, dtype=G.dtype, device=G.device)
+    W_full = torch.linalg.solve_ex(G, Vw.conj().transpose(-1, -2),
+                                   check_errors=False)[0]     # (*batch, tau, K)
+    return _useful_rows(scheme, W_full, dim=-2)
 
 
 # ---------------------------------------------------------------------------

@@ -6,11 +6,18 @@ any global switch, so the policy is explicit: every entry point takes a
 ``dtype`` (default ``torch.float64``; ``torch.float32`` allowed) and a
 ``device`` (default the CUDA card, or on a mesh the rank's own device; the
 CPU only when the caller asks).
+
+It also says when the host must not read a tensor's values
+(:func:`is_traced`): while a CUDA graph is being captured, and for the
+tensors of a trace.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.fx.experimental.proxy_tensor import get_proxy_mode, has_proxy_slot
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 __all__ = [
     "DEFAULT_DTYPE",
@@ -18,6 +25,9 @@ __all__ = [
     "resolve_dtype",
     "complex_dtype",
     "resolve_device",
+    "capturing",
+    "tracing",
+    "is_traced",
 ]
 
 DEFAULT_DTYPE = torch.float64
@@ -71,3 +81,34 @@ def resolve_device(device=None, mesh=None) -> torch.device:
                 "plain PyTorch versions on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def capturing() -> bool:
+    """True while the current CUDA stream is being captured into a graph
+    (a process that never initialised CUDA captures nothing)."""
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
+
+
+def tracing() -> bool:
+    """True under a dispatch mode (a ``make_fx`` or fake-tensor trace), where
+    a tensor made from host data becomes a constant of the trace."""
+    return _get_current_dispatch_mode() is not None
+
+
+def is_traced(x) -> bool:
+    """True when ``x`` is a tensor whose values the host must not or cannot
+    read, the counterpart of a jax tracer: a CUDA stream is being captured
+    (a read would synchronise, which a capture refuses), or ``x`` is a
+    ``FakeTensor``, a functorch-wrapped tensor (``vmap``, ``grad``), or a
+    tensor that an active ``make_fx`` proxy mode tracks (an input of the
+    traced function or a value computed from one).  A plain eager tensor,
+    on any device, is not traced; nor is a tensor that a trace closes over.
+    """
+    if not isinstance(x, torch.Tensor):
+        return False
+    if capturing() or isinstance(x, FakeTensor):
+        return True
+    if torch._C._functorch.is_functorch_wrapped_tensor(x):
+        return True
+    mode = get_proxy_mode()
+    return mode is not None and has_proxy_slot(x, mode.tracer)

@@ -7,7 +7,8 @@ tensors, plus numpy helpers for host-side set-up:
 * ``interpolate_solve`` - direct linear solve of the tau x tau Vandermonde
   system; used for static survivor sets.
 * ``interpolate_masked`` - weighted normal equations over ALL K rows with a
-  0/1 survivor mask (erased rows may hold garbage).
+  0/1 survivor mask (erased rows may hold garbage), solved with no host
+  read of the result, so the mask may be traced.
 
 All paths accept complex points (unit-circle decoding).
 """
@@ -81,7 +82,10 @@ def interpolate_masked(
     Requires sum(mask) >= tau.  Solves the weighted normal equations
       (V^H D V) X = V^H D Y,  D = diag(mask),
     which has the exact interpolant as unique solution when >= tau rows
-    survive.  ridge adds lambda*I for numerical safety (0 = exact).
+    survive.  ridge adds lambda*I for numerical safety (0 = exact).  The
+    solve (LU with partial pivoting) never checks its result on the host,
+    as ``jnp.linalg.solve`` does not: fewer than tau survivors give
+    non-finite or wrong values, not an error.
     """
     K = z_all.shape[0]
     V = _vander(z_all, tau)                                   # (K, tau)
@@ -90,5 +94,5 @@ def interpolate_masked(
     if ridge:
         G = G + ridge * torch.eye(tau, dtype=G.dtype, device=G.device)
     rhs = Vw.conj().T @ Y_all.reshape(K, -1).to(V.dtype)      # V^H D Y
-    X = torch.linalg.solve(G, rhs)
+    X = torch.linalg.solve_ex(G, rhs, check_errors=False)[0]
     return X.reshape((tau,) + tuple(Y_all.shape[1:]))

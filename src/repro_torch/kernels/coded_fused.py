@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.numerics import capturing
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import fused_worker_ref
 
@@ -198,14 +199,34 @@ def _packed(layout: TmaLayout):
     return (_L * (len(head) + len(body)))(*head, *body)
 
 
+# device_offsets' tensors by (offsets, device).  Kept for the life of the
+# process: a CUDA graph captured with one reads it at every replay.  There is
+# one entry per block layout above the by-value limit that the process uses.
+_DEVICE_OFFSETS: dict = {}
+
+
 def device_offsets(*offsets, device) -> torch.Tensor:
     """The blocks' element offsets (host arrays, concatenated) as an int64
     tensor on ``device``, for a kernel that takes more blocks than its
-    by-value argument holds.  The copy and the launch that reads it are
-    ordered on the current stream, so the tensor may be freed after the
-    launch."""
-    flat = [o for arr in offsets for o in arr]
-    return torch.tensor(flat, dtype=torch.int64).to(device)
+    by-value argument holds.  Uploaded at the first call with these offsets
+    and kept, so a later call (or one being captured into a CUDA graph)
+    copies nothing from the host.
+
+    Raises:
+        RuntimeError: for offsets not seen yet while a CUDA stream is being
+            captured (a capture cannot copy from the host).
+    """
+    flat = tuple(o for arr in offsets for o in arr)
+    key = (flat, torch.device(device))
+    table = _DEVICE_OFFSETS.get(key)
+    if table is None:
+        if capturing():
+            raise RuntimeError(
+                "these block offsets are not on the device yet and a CUDA graph "
+                "capture cannot copy them from the host: run the same call once "
+                "eagerly before capturing it")
+        table = _DEVICE_OFFSETS[key] = torch.tensor(flat, dtype=torch.int64).to(device)
+    return table
 
 
 def _unit_column_stride(x: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,9 @@ accumulate in float32, as the TPU kernels do.  The two decode wrappers take
 float64 and float32, and the two scan wrappers float32 only, as their TPU
 kernels do.  Every wrapper also carries the observability hook
 :func:`_instrumented`, which does nothing while ``repro_torch.obs`` is off.
+A wrapper called while a CUDA stream is being captured launches its
+kernel into the graph (and counts that launch once, at capture; replays
+are not counted); no wrapper falls back to its plain version then.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from typing import Optional
 import torch
 
 from repro_torch import obs
+from repro_torch.core.numerics import is_traced
 from repro_torch.kernels import ref
 from repro_torch.kernels.block_matmul import matmul_t_cuda
 from repro_torch.kernels.coded_decode import decode_cuda, decode_partial_cuda
@@ -41,27 +45,35 @@ __all__ = ["fused_worker", "decode", "decode_partial", "encode", "matmul_t",
 
 
 def _instrumented(op: str):
-    """Kernel timing hook: count every call, time every call.
+    """Kernel timing hook: count every call, time the eager ones.
 
     While obs is off the wrapper adds one global check and nothing else:
     no event, no synchronize, the same launch counts and results.  While
-    it is on, each call counts ``kernel.call{op, traced=0}`` (PyTorch runs
-    eagerly, so no call is traced) and records the span ``kernel.<op>`` on
-    lane ``kernels``:
+    it is on, each call counts ``kernel.call{op, traced}``:
 
-    * with a CUDA tensor among the arguments, the call is bracketed by a
-      start/stop CUDA event pair on ``torch.cuda.current_stream()`` and the
-      stop event is synchronized.  The span starts at the session clock at
-      launch and lasts the event-measured DEVICE time (real seconds, also
-      under a simulated ``SettableClock``);
-    * otherwise the plain call is bracketed by the session clock.
+    * traced calls (a CUDA stream is being captured, or an argument is a
+      fake, functorch-wrapped or ``make_fx``-tracked tensor, as
+      ``core.numerics.is_traced`` says) count ``traced=1`` and record no
+      span and no event: a captured launch runs at replay, and a
+      synchronize would break the capture;
+    * eager calls count ``traced=0`` and record the span ``kernel.<op>`` on
+      lane ``kernels``.  With a CUDA tensor among the arguments the call is
+      bracketed by a start/stop CUDA event pair on
+      ``torch.cuda.current_stream()`` and the stop event is synchronized:
+      the span starts at the session clock at launch and lasts the
+      event-measured DEVICE time (real seconds, also under a simulated
+      ``SettableClock``); otherwise the plain call is bracketed by the
+      session clock.
     """
     def wrap(fn):
         @functools.wraps(fn)
         def inner(*args, **kwargs):
             if not obs.enabled():
                 return fn(*args, **kwargs)
-            obs.count("kernel.call", op=op, traced=0)
+            traced = any(is_traced(a) for a in args)
+            obs.count("kernel.call", op=op, traced=int(traced))
+            if traced:
+                return fn(*args, **kwargs)
             if not any(isinstance(a, torch.Tensor) and a.is_cuda
                        for a in args):
                 with obs.span(f"kernel.{op}", lane="kernels"):

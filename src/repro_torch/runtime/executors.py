@@ -15,28 +15,36 @@ is HOW the worker products (and the decode) are computed:
              entry, all-gathers the K products over ``torch.distributed``
              and decodes the replicated C (``launch/mesh.py`` starts ranks)
 
-Executors expose ``make_pipeline(plan, kind, dtype)`` returning the
-function the ``CodedMatmul`` facade memoises:
+Executors expose ``make_pipeline(plan, kind, dtype, *, ridge=0.0)``
+returning the function the ``CodedMatmul`` facade memoises:
 
   kind == "concrete":       fn(A, B, mask, W)   with W the (mn, K) panel
+  kind == "traced":         fn(A, B, mask)      panel built on the device
   kind == ("partial", Q):   fn(A, B, chunk_masks, W_stack)
                             chunk_masks (Q, K), W_stack (Q, mn, K)
+  kind == ("partial-traced", Q): fn(A, B, progress)  progress (K,)
   kind == "products":       fn(A, B) -> (K, br, bt) worker products
   kind == ("decode", r, t): fn(Y, mask, W) -> (r, t), stages 3+4 of a
                             "products" result
+  kind == ("decode-traced", r, t): fn(Y, mask)
 
 Partial-straggler kinds carry the sub-task count Q (``runtime/partial.py``):
 each worker's output rows split into Q chunks and chunk c erases with its own
 (K,) availability row and decodes with its own panel.  The erasure or
 progress pattern is DATA (masks and panels), so one pipeline serves every
-pattern of its kind.  The reference package's "traced" kinds (a jax
-tracer as mask, decoded by an in-body normal-equation solve) are not
-ported, on any backend: PyTorch has no tracers, and a mask tensor is read
-to the host, so every mask reaches the pipeline with its host-LU panel.
+pattern of its kind.  The traced kinds take a mask or progress tensor that
+the host never reads (``runtime/erasure.py``): the reference backend solves
+the masked normal equations in the body (``decode_masked``), as the
+reference package does; the kernel backends build the panel W (or the
+(Q, mn, K) stack) on the device (``core.decoding.masked_panel``, with the
+panel cache's ``ridge``) and hand it to the decode kernels, which take W as
+runtime data.  A traced pipeline copies nothing from the host once its
+first call has kept the plan's tables on the device (``PlanTables``), so it
+can be captured into a CUDA graph and replayed under any survivor set.
 """
 from __future__ import annotations
 
-from typing import Callable, Protocol, runtime_checkable
+from typing import Callable, Optional, Protocol, runtime_checkable
 
 import torch
 import torch.distributed as dist
@@ -44,16 +52,16 @@ import torch.distributed as dist
 from repro_torch import obs
 from repro_torch.core.api import (
     CodedMatmulPlan,
-    _coeffs,
+    PlanTables,
     encode_blocks,
     fused_worker_products,
     worker_products,
 )
-from repro_torch.core.decoding import decode_with_weights
+from repro_torch.core.decoding import decode_masked, decode_with_weights, masked_panel
 from repro_torch.core.numerics import resolve_device
 from repro_torch.core.partition import block_decompose, block_recompose, unpad
 from repro_torch.kernels import ops as kops
-from repro_torch.runtime.partial import chunk_bounds
+from repro_torch.runtime.partial import chunk_bounds, chunk_masks_traced
 
 __all__ = [
     "Executor",
@@ -75,9 +83,10 @@ class Executor(Protocol):
     name: str
 
     def make_pipeline(
-        self, plan: CodedMatmulPlan, kind: str, dtype
+        self, plan: CodedMatmulPlan, kind: str, dtype, *, ridge: float = 0.0
     ) -> Callable:  # pragma: no cover - protocol
-        """A (A, B, mask, W) -> C pipeline for one erasure kind."""
+        """A (A, B, mask, W) -> C pipeline for one erasure kind (``ridge``
+        for the traced kinds' device panels)."""
         ...
 
     def cache_token(self):  # pragma: no cover - protocol
@@ -96,8 +105,11 @@ class LocalExecutor:
         return self.name
 
     def worker_products(self, plan: CodedMatmulPlan, a_blocks: torch.Tensor,
-                        b_blocks: torch.Tensor) -> torch.Tensor:
-        """(p, m, bv, br), (p, n, bv, bt) -> all-K worker outputs (K, br, bt)."""
+                        b_blocks: torch.Tensor,
+                        tables: Optional[PlanTables] = None) -> torch.Tensor:
+        """(p, m, bv, br), (p, n, bv, bt) -> all-K worker outputs (K, br, bt),
+        with the coefficients kept in ``tables`` (default: uploaded for this
+        call)."""
         raise NotImplementedError
 
     def decode(self, plan: CodedMatmulPlan, W: torch.Tensor,
@@ -111,18 +123,40 @@ class LocalExecutor:
         row bounds -> (m, n, br, bt), rows of chunk c decoded by panel c."""
         raise NotImplementedError
 
-    def make_pipeline(self, plan: CodedMatmulPlan, kind, dtype) -> Callable:
-        """The single-host pipeline for one ``kind`` (see the module doc).
+    def decode_traced(self, plan: CodedMatmulPlan, z: torch.Tensor,
+                      mask: torch.Tensor, Y: torch.Tensor,
+                      ridge: float) -> torch.Tensor:
+        """(K,) points, (K,) device mask, (K, br, bt) masked products ->
+        (m, n, br, bt): the panel built on the device, then :meth:`decode`."""
+        return self.decode(plan, masked_panel(plan.scheme, z, mask, ridge), Y)
+
+    def decode_partial_traced(self, plan: CodedMatmulPlan, z: torch.Tensor,
+                              chunk_masks: torch.Tensor, Y: torch.Tensor,
+                              bounds: tuple, ridge: float) -> torch.Tensor:
+        """The per-chunk twin of :meth:`decode_traced`: chunk_masks (Q, K)
+        on the device give the (Q, mn, K) stack for :meth:`decode_partial`."""
+        return self.decode_partial(
+            plan, masked_panel(plan.scheme, z, chunk_masks, ridge), Y, bounds)
+
+    def make_pipeline(self, plan: CodedMatmulPlan, kind, dtype, *,
+                      ridge: float = 0.0) -> Callable:
+        """The single-host pipeline for one ``kind`` (see the module doc);
+        ``ridge`` regularises the traced kinds' normal equations.
 
         Raises:
             ValueError: for an unknown kind.
         """
         g = plan.scheme.grid
+        tables = PlanTables(plan)
 
         def products(A, B):
             a_blocks = block_decompose(A.to(dtype), g.p, g.m)
             b_blocks = block_decompose(B.to(dtype), g.p, g.n)
-            return self.worker_products(plan, a_blocks, b_blocks)  # (K, br, bt)
+            return self.worker_products(plan, a_blocks, b_blocks, tables)
+
+        def points(Y):
+            # the evaluation points in the decode dtype, kept on Y's device
+            return tables.get("z_points", Y.dtype, Y.device)
 
         def finish(C_blocks, r, t):
             return unpad(block_recompose(C_blocks), (r, t)).to(dtype)
@@ -132,43 +166,59 @@ class LocalExecutor:
             # output feeds a ("decode", r, t) pipeline later.
             return products
 
+        def decode(Y, mask, W):
+            # W is None for the traced kinds: the decode hooks take the
+            # device mask instead of a host panel
+            if W is None:
+                return self.decode_traced(plan, points(Y), mask, Y, ridge)
+            return self.decode(plan, W, Y)
+
+        def binary(A, B, mask, W):
+            Y = products(A, B)
+            # stage 3 ERASE: zero failed workers' outputs, in place (Y is
+            # this call's own buffer).  W's zero columns annihilate them as
+            # well; the multiply keeps the reference's NaN/garbage semantics.
+            Y.mul_(mask.to(Y.dtype)[:, None, None])
+            return finish(decode(Y, mask, W), A.shape[1], B.shape[1])
+
+        def per_chunk(A, B, chunk_masks, W_stack, Q):
+            Y = products(A, B)
+            bounds = _erase_chunks(Y, chunk_masks, Q)
+            if W_stack is None:
+                C_blocks = self.decode_partial_traced(plan, points(Y), chunk_masks,
+                                                      Y, bounds, ridge)
+            else:
+                C_blocks = self.decode_partial(plan, W_stack, Y, bounds)
+            return finish(C_blocks, A.shape[1], B.shape[1])
+
+        def stage(Y, mask, W, r, t):
+            # a new buffer: Y is the caller's and may be decoded again
+            Ym = Y * mask.to(Y.dtype)[:, None, None]
+            return finish(decode(Ym, mask, W), r, t)
+
         if kind == "concrete":
-
-            def fn(A, B, mask, W):
-                Y = products(A, B)
-                # stage 3 ERASE: zero failed workers' outputs, in place (Y
-                # is this call's own buffer).  W's zero columns annihilate
-                # them as well; the multiply keeps the reference's
-                # NaN/garbage semantics.
-                Y.mul_(mask.to(Y.dtype)[:, None, None])
-                return finish(self.decode(plan, W, Y), A.shape[1], B.shape[1])
-
-            return fn
-
+            return binary
+        if kind == "traced":
+            return lambda A, B, mask: binary(A, B, mask, None)
         if isinstance(kind, tuple) and len(kind) == 2 and kind[0] == "partial":
             Q = kind[1]
-
-            def fn(A, B, chunk_masks, W_stack):
-                Y = products(A, B)
-                bounds = _erase_chunks(Y, chunk_masks, Q)
-                return finish(self.decode_partial(plan, W_stack, Y, bounds),
-                              A.shape[1], B.shape[1])
-
-            return fn
-
+            return lambda A, B, chunk_masks, W_stack: per_chunk(A, B, chunk_masks,
+                                                                W_stack, Q)
+        if isinstance(kind, tuple) and len(kind) == 2 and kind[0] == "partial-traced":
+            Q = kind[1]
+            return lambda A, B, progress: per_chunk(
+                A, B, chunk_masks_traced(progress, Q), None, Q)
         if isinstance(kind, tuple) and len(kind) == 3 and kind[0] == "decode":
             _, r, t = kind
-
-            def fn(Y, mask, W):
-                # a new buffer: Y is the caller's and may be decoded again
-                Ym = Y * mask.to(Y.dtype)[:, None, None]
-                return finish(self.decode(plan, W, Ym), r, t)
-
-            return fn
+            return lambda Y, mask, W: stage(Y, mask, W, r, t)
+        if isinstance(kind, tuple) and len(kind) == 3 and kind[0] == "decode-traced":
+            _, r, t = kind
+            return lambda Y, mask: stage(Y, mask, None, r, t)
 
         raise ValueError(
             f"unknown pipeline kind {kind!r}; the kinds are 'concrete', "
-            f"('partial', Q), 'products' and ('decode', r, t)")
+            f"'traced', ('partial', Q), ('partial-traced', Q), 'products', "
+            f"('decode', r, t) and ('decode-traced', r, t)")
 
 
 def _erase_chunks(Y: torch.Tensor, chunk_masks: torch.Tensor, Q: int) -> list:
@@ -187,9 +237,9 @@ class ReferenceExecutor(LocalExecutor):
 
     name = "reference"
 
-    def worker_products(self, plan, a_blocks, b_blocks):
+    def worker_products(self, plan, a_blocks, b_blocks, tables=None):
         """Encode + per-worker products as plain einsums (the oracle path)."""
-        a_tilde, b_tilde = encode_blocks(plan, a_blocks, b_blocks)
+        a_tilde, b_tilde = encode_blocks(plan, a_blocks, b_blocks, tables)
         return worker_products(a_tilde, b_tilde)
 
     def decode(self, plan, W, Y):
@@ -202,6 +252,18 @@ class ReferenceExecutor(LocalExecutor):
             decode_with_weights(plan.scheme, W_stack[c],
                                 Y[:, bounds[c]:bounds[c + 1], :], plan.s)
             for c in range(W_stack.shape[0])], dim=2)
+
+    def decode_traced(self, plan, z, mask, Y, ridge):
+        """The masked normal equations solved in the body
+        (``decode_masked``), as the reference package's traced kind does."""
+        return decode_masked(plan.scheme, z, Y, mask.to(Y.real.dtype), plan.s, ridge)
+
+    def decode_partial_traced(self, plan, z, chunk_masks, Y, bounds, ridge):
+        """``decode_masked`` per chunk with its own mask, concatenated."""
+        return torch.cat([
+            decode_masked(plan.scheme, z, Y[:, bounds[c]:bounds[c + 1], :],
+                          chunk_masks[c].to(Y.real.dtype), plan.s, ridge)
+            for c in range(chunk_masks.shape[0])], dim=2)
 
 
 class _KernelDecodeExecutor(LocalExecutor):
@@ -231,15 +293,12 @@ class StagedKernelExecutor(_KernelDecodeExecutor):
 
     name = "staged"
 
-    def worker_products(self, plan, a_blocks, b_blocks):
+    def worker_products(self, plan, a_blocks, b_blocks, tables=None):
         """Two encode launches (A~ and B~ into device memory, read from the
         strided block views), then one block-matmul launch per worker."""
-        p, m = a_blocks.shape[:2]
-        n = b_blocks.shape[1]
-        ca = _coeffs(plan.coeff_a.reshape(plan.K, p * m), a_blocks, plan)
-        cb = _coeffs(plan.coeff_b.reshape(plan.K, p * n), b_blocks, plan)
-        a_tilde = kops.encode(ca, a_blocks)                     # (K, bv, br)
-        b_tilde = kops.encode(cb, b_blocks)                     # (K, bv, bt)
+        ca, cb = (tables or PlanTables(plan)).coeffs(a_blocks, b_blocks)
+        a_tilde = kops.encode(ca.reshape(plan.K, -1), a_blocks)   # (K, bv, br)
+        b_tilde = kops.encode(cb.reshape(plan.K, -1), b_blocks)   # (K, bv, bt)
         # Each worker's product is written straight into its slot Y[k] of
         # one preallocated buffer: the same tensor torch.stack of the K
         # products would give, without K temporaries and a copy.
@@ -256,9 +315,9 @@ class FusedKernelExecutor(_KernelDecodeExecutor):
 
     name = "fused"
 
-    def worker_products(self, plan, a_blocks, b_blocks):
+    def worker_products(self, plan, a_blocks, b_blocks, tables=None):
         """One fused encode+product kernel launch for all K workers."""
-        return fused_worker_products(plan, a_blocks, b_blocks)
+        return fused_worker_products(plan, a_blocks, b_blocks, tables)
 
 
 # ---------------------------------------------------------------------------
@@ -331,21 +390,26 @@ class MeshExecutor:
                              f"the mesh {tuple(names)}")
         return int(self.mesh.shape[names.index(self.axis)])
 
-    def make_pipeline(self, plan: CodedMatmulPlan, kind, dtype) -> Callable:
+    def make_pipeline(self, plan: CodedMatmulPlan, kind, dtype, *,
+                      ridge: float = 0.0) -> Callable:
         """This rank's part of the mesh pipeline for ``kind`` (the local
-        pipelines' signatures): ``"concrete"`` or ``("partial", Q)``.
+        pipelines' signatures): ``"concrete"``, ``"traced"``,
+        ``("partial", Q)`` or ``("partial-traced", Q)``.  The traced kinds
+        build the panel (or the per-chunk stack) on every rank from the
+        replicated mask or progress, on the rank's device, as the
+        reference's body does.
 
         Raises:
             NotImplementedError: for split-stage kinds ("products" /
-                ("decode", r, t)): encode, worker products and decode run
-                fused in one pipeline per rank, leaving no seam to pipeline
-                across.
+                ("decode", r, t) / ("decode-traced", r, t)): encode, worker
+                products and decode run fused in one pipeline per rank,
+                leaving no seam to pipeline across.
             ValueError: for an unknown kind, a mesh axis whose size is not
                 the plan's K, or a complex (unit-circle) plan.
         """
         is_stage = (kind == "products"
                     or (isinstance(kind, tuple) and kind
-                        and kind[0] == "decode"))
+                        and kind[0] in ("decode", "decode-traced")))
         if is_stage:
             raise NotImplementedError(
                 f"mesh backend does not support split-stage serving (kind "
@@ -353,9 +417,9 @@ class MeshExecutor:
                 f"inside one pipeline on every rank, so there is no seam to "
                 f"pipeline across. Split worker/decode stages are supported "
                 f"by the local backends: {local_backend_names()}.")
-        if kind != "concrete" and (
+        if kind not in ("concrete", "traced") and (
                 not isinstance(kind, tuple) or len(kind) != 2
-                or kind[0] != "partial"):
+                or kind[0] not in ("partial", "partial-traced")):
             raise ValueError(f"unknown mesh pipeline kind {kind!r}")
         K = self._axis_size()
         if K != plan.K:
@@ -367,11 +431,12 @@ class MeshExecutor:
                 "use chebyshev/equispaced points or a local backend")
         g = plan.scheme.grid
         k = self.mesh.get_local_rank(self.axis)
-        # worker k's (1, P) coefficient rows, once per pipeline
+        # worker k's (1, P) coefficient rows and the points, once per pipeline
         ca = torch.as_tensor(plan.coeff_a.reshape(K, -1)[k:k + 1], dtype=dtype,
                              device=self.device)
         cb = torch.as_tensor(plan.coeff_b.reshape(K, -1)[k:k + 1], dtype=dtype,
                              device=self.device)
+        z = torch.as_tensor(plan.z_points, dtype=dtype, device=self.device)
 
         def product(A, B):
             a_blocks = block_decompose(A.to(dtype), g.p, g.m)
@@ -381,29 +446,35 @@ class MeshExecutor:
         def finish(C_blocks, r, t):
             return unpad(block_recompose(C_blocks), (r, t)).to(dtype)
 
-        if kind == "concrete":
+        def binary(A, B, mask, W):
+            y = product(A, B)
+            # stage 3 ERASE on the rank, before the gather
+            y.mul_(mask[k].to(y.dtype))
+            Y = self._all_gather(y, K)
+            if W is None:
+                W = masked_panel(plan.scheme, z, mask, ridge)
+            return finish(self._decoder.decode(plan, W, Y), A.shape[1], B.shape[1])
 
-            def fn(A, B, mask, W):
-                y = product(A, B)
-                # stage 3 ERASE on the rank, before the gather
-                y.mul_(mask[k].to(y.dtype))
-                Y = self._all_gather(y, K)
-                return finish(self._decoder.decode(plan, W, Y),
-                              A.shape[1], B.shape[1])
-
-            return fn
-
-        Q = kind[1]
-
-        def fn(A, B, chunk_masks, W_stack):
+        def per_chunk(A, B, chunk_masks, W_stack, Q):
             # gather the UNMASKED products: a slow worker's finished
             # prefix still contributes, chunk by chunk
             Y = self._all_gather(product(A, B), K)
             bounds = _erase_chunks(Y, chunk_masks, Q)
+            if W_stack is None:
+                W_stack = masked_panel(plan.scheme, z, chunk_masks, ridge)
             return finish(self._decoder.decode_partial(plan, W_stack, Y, bounds),
                           A.shape[1], B.shape[1])
 
-        return fn
+        if kind == "concrete":
+            return binary
+        if kind == "traced":
+            return lambda A, B, mask: binary(A, B, mask, None)
+        Q = kind[1]
+        if kind[0] == "partial":
+            return lambda A, B, chunk_masks, W_stack: per_chunk(A, B, chunk_masks,
+                                                                W_stack, Q)
+        return lambda A, B, progress: per_chunk(
+            A, B, chunk_masks_traced(progress.to(dtype), Q), None, Q)
 
     def _local_product(self, ca, cb, a_blocks, b_blocks) -> torch.Tensor:
         """Stages 1+2 on this rank: worker k's coded blocks, multiplied.

@@ -4,7 +4,11 @@ The facade owns:
 
 * the ``DecodePanelCache`` (host-LU decode weights per erasure pattern);
 * erasure normalisation (``erased=`` / ``survivors=`` / 0/1 ``mask``) into
-  one ``ErasurePattern``;
+  one ``ErasurePattern``, concrete or traced: a mask or progress tensor the
+  host must not read (any tensor while a CUDA graph is being captured, or
+  a tensor of a ``make_fx`` / fake-tensor trace) takes the traced kinds,
+  whose panels are built on the device, so a captured request replays
+  under every survivor set written into its mask buffer;
 * partial stragglers: ``sub_tasks=Q`` / ``progress=`` / ``PartialPattern``
   decode each of Q row chunks from the workers whose completed prefix
   covers it (``runtime/partial.py``); ``Q = 1`` with a binary spec is the
@@ -30,6 +34,10 @@ Usage::
     C1 = cm(A, B, progress=prog, sub_tasks=4)   # partial stragglers
     C2 = cm.with_backend("staged")(A, B)        # same caches, new backend
     C3 = CodedMatmul(plan, "mesh", mesh=mesh)(A, B)   # on every rank
+
+    mask = torch.ones(plan.K, device="cuda")    # a device buffer
+    g, C4 = cm.capture(A, B, mask=mask)         # one request in a CUDA graph
+    mask.copy_(new_mask); g.replay()            # C4 under the new survivors
 """
 from __future__ import annotations
 
@@ -41,7 +49,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.api import CodedMatmulPlan
-from repro_torch.core.numerics import complex_dtype, resolve_device, resolve_dtype
+from repro_torch.core.numerics import capturing, complex_dtype, resolve_device, resolve_dtype
 from repro_torch.runtime.erasure import ErasurePattern
 from repro_torch.runtime.executors import (
     Executor,
@@ -57,6 +65,11 @@ __all__ = ["CodedMatmul", "CacheGroup", "plan_token"]
 def _kind_label(kind) -> str:
     """Bounded-cardinality metric label for a pipeline kind."""
     return kind if isinstance(kind, str) else str(kind[0])
+
+
+def _is_traced_kind(kind) -> bool:
+    label = _kind_label(kind)
+    return label == "traced" or label.endswith("-traced")
 
 
 def plan_token(plan: CodedMatmulPlan):
@@ -242,11 +255,12 @@ class CodedMatmul:
                 facade's device).
             B: (*batch, v, t) right operand.
             erasure: positional spec - an ``ErasurePattern``, a
-                ``PartialPattern``, a (K,) 0/1 mask (a tensor mask is read
-                to the host), or a list of erased worker ids.
+                ``PartialPattern``, a (K,) 0/1 mask (an eager tensor mask
+                is read to the host; a traced one never is), or a list of
+                erased worker ids.
             erased / survivors / mask: keyword alternatives.
-            progress: (K,) fractional progress in [0, 1] (a tensor is read
-                to the host) - routes through the partial-straggler decode.
+            progress: (K,) fractional progress in [0, 1] (read to the host
+                unless traced) - routes through the partial-straggler decode.
             sub_tasks: per-call override of the facade's sub-task count Q.
                 ``Q > 1`` (or an explicit ``progress``/``PartialPattern``)
                 selects the partial path; ``Q = 1`` with binary specs is
@@ -255,10 +269,17 @@ class CodedMatmul:
         Returns:
             (*batch, r, t) decoded product on the facade's device.
 
+        A traced mask or progress vector skips the panel cache and, as in
+        the reference package, the survivor and span checks (they would
+        read it): it must leave >= tau survivors on every chunk, or C is
+        wrong, not refused.
+
         Raises:
             ValueError: on conflicting erasure specs, rank-<2 operands,
                 contraction mismatch, fewer than tau survivors, or a partial
                 progress vector that does not span the decoding system.
+            RuntimeError: for a concrete pattern while a CUDA stream is
+                being captured (its host panel cannot be copied in).
         """
         Q = self.sub_tasks if sub_tasks is None else int(sub_tasks)
         if Q < 1:
@@ -274,6 +295,56 @@ class CodedMatmul:
         A, B = self._operands(A, B)
         fn = self._get_executable(A, B, pattern.kind)
         return fn(A, B, *self._binary_data(pattern))
+
+    def capture(self, A, B, *, mask: Optional[torch.Tensor] = None,
+                progress: Optional[torch.Tensor] = None) -> tuple:
+        """Capture one request into a CUDA graph that reads its survivor set
+        from a device tensor.
+
+        ``mask`` is a (K,) 0/1 tensor, or ``progress`` a (K,) tensor of
+        fractional progress (split into the facade's ``sub_tasks`` Q
+        chunks), on the facade's CUDA device.  The request takes the traced kind
+        (``"traced"`` or ``("partial-traced", Q)``): its decode panel is
+        built on the card from the tensor, never read by the host.  One
+        eager request of that kind runs first on a side stream, as
+        ``torch.cuda.graphs`` asks: it builds the pipeline, keeps the plan's
+        tables on the card and loads the kernels and the solver, which a
+        capture cannot do.  The kernels' launch counts move at that request
+        and at the capture, not at replays.
+
+        Returns:
+            ``(graph, C)``: ``graph.replay()`` recomputes C (the same
+            tensor, rewritten) from what A, B and the mask or progress
+            tensor hold then.  Write a new survivor set into the tensor in
+            place and replay to serve it.  As in the reference's traced
+            kinds, nothing checks that it leaves >= tau survivors on every
+            chunk.  A and B are read at replay only if they already lay on
+            the facade's device (else their copies made here are).
+
+        Raises:
+            ValueError: unless exactly one of ``mask`` / ``progress`` is
+                given, as a (K,) CUDA tensor.
+        """
+        data = mask if progress is None else progress
+        if ((mask is None) == (progress is None) or self.device.type != "cuda"
+                or not isinstance(data, torch.Tensor) or not data.is_cuda
+                or tuple(data.shape) != (self.plan.K,)):
+            raise ValueError(f"capture needs a facade on a CUDA device and exactly "
+                             f"one of mask= / progress=, a ({self.plan.K},) CUDA tensor")
+        A, B = self._operands(A, B)
+        if progress is None:
+            pattern = ErasurePattern(self.plan.K, "traced", mask)
+        else:
+            pattern = PartialPattern(self.plan.K, self.sub_tasks, "traced", progress)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self(A, B, pattern)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            C = self(A, B, pattern)
+        return graph, C
 
     # -- split-stage serving -------------------------------------------------
     def worker_stage(self, A, B) -> torch.Tensor:
@@ -302,7 +373,8 @@ class CodedMatmul:
                 ``(A.shape[-1], B.shape[-1])``, which the padded products no
                 longer carry.
             erasure / erased / survivors / mask: binary erasure spec, as
-                for ``__call__``.
+                for ``__call__`` (a traced mask takes the
+                ``("decode-traced", r, t)`` pipeline).
             progress / sub_tasks: rejected - partial-straggler specs have
                 no split-stage path.
 
@@ -331,7 +403,8 @@ class CodedMatmul:
         pattern = ErasurePattern.normalize(
             self.plan.K, erasure, erased=erased, survivors=survivors,
             mask=mask)
-        fn = self._get_decode_executable(Y, ("decode", r, t))
+        style = "decode" if pattern.is_concrete else "decode-traced"
+        fn = self._get_decode_executable(Y, (style, r, t))
         return fn(Y, *self._binary_data(pattern))
 
     # -- helpers -------------------------------------------------------------
@@ -353,7 +426,11 @@ class CodedMatmul:
         return A, B
 
     def _binary_data(self, pattern: ErasurePattern) -> tuple:
-        """(mask, W) for a binary pattern, after the survivor-count check."""
+        """(mask, W) for a concrete pattern, after the survivor-count check;
+        (mask,) for a traced one, unchecked."""
+        if not pattern.is_concrete:
+            return (pattern.mask_array(self.dtype, self.device),)
+        _refuse_host_panel_under_capture()
         if pattern.n_survivors < self.plan.tau:
             raise ValueError(
                 f"only {pattern.n_survivors} survivors < "
@@ -364,8 +441,13 @@ class CodedMatmul:
         return pattern.mask_array(self.dtype, self.device), W
 
     def _call_partial(self, A, B, pattern: PartialPattern) -> torch.Tensor:
-        """Partial-straggler decode path: per-chunk masks + panel stack."""
+        """Partial-straggler decode path: per-chunk masks + panel stack (or,
+        traced, the progress vector alone)."""
         A, B = self._operands(A, B)
+        if not pattern.is_concrete:
+            fn = self._get_executable(A, B, ("partial-traced", pattern.Q))
+            return fn(A, B, pattern.progress_array(self.dtype, self.device))
+        _refuse_host_panel_under_capture()
         pattern.require_decodable(self.plan.tau)
         fn = self._get_executable(A, B, ("partial", pattern.Q))
         cm = pattern.chunk_masks
@@ -375,8 +457,8 @@ class CodedMatmul:
                                   device=self.device))
 
     # -- pipeline construction ---------------------------------------------
-    def _memo(self, key, build):
-        kind = _kind_label(key[-1])
+    def _memo(self, key, kind, build):
+        kind = _kind_label(kind)
         fn = self._executables.get(key)
         if fn is not None:
             self._stats["hits"] += 1
@@ -394,17 +476,18 @@ class CodedMatmul:
         # the token folds in the executor and the PLAN identity, so
         # CacheGroup members on different plans never alias a pipeline.
         key = (self._plan_token, self._executor.cache_token(), tuple(A.shape),
-               tuple(B.shape), str(self.dtype), str(self.device), kind)
-        return self._memo(key, lambda: self._build(A.ndim - 2, B.ndim - 2, kind))
+               tuple(B.shape), str(self.dtype), str(self.device),
+               *self._kind_key(kind))
+        return self._memo(key, kind, lambda: self._build(A.ndim - 2, B.ndim - 2, kind))
 
     def _get_decode_executable(self, Y, kind):
         # keyed on the PRODUCTS shape plus the static (r, t) in the kind;
         # leading dims beyond (K, br, bt) are batch dims of Y only.
         key = (self._plan_token, self._executor.cache_token(), tuple(Y.shape),
-               str(self.dtype), str(self.device), kind)
+               str(self.dtype), str(self.device), *self._kind_key(kind))
 
         def build():
-            base = self._executor.make_pipeline(self.plan, kind, self.dtype)
+            base = self._make_pipeline(kind)
             if Y.ndim == 3:
                 return base
 
@@ -416,15 +499,27 @@ class CodedMatmul:
 
             return batched
 
-        return self._memo(key, build)
+        return self._memo(key, kind, build)
+
+    def _kind_key(self, kind) -> tuple:
+        # a traced pipeline builds its panels with the panel cache's ridge,
+        # which facades sharing a memo (a CacheGroup) may set differently
+        return (kind, self.panel_cache.ridge) if _is_traced_kind(kind) else (kind,)
+
+    def _make_pipeline(self, kind):
+        if _is_traced_kind(kind):
+            return self._executor.make_pipeline(self.plan, kind, self.dtype,
+                                                ridge=self.panel_cache.ridge)
+        return self._executor.make_pipeline(self.plan, kind, self.dtype)
 
     def _build(self, a_batch: int, b_batch: int, kind):
-        base = self._executor.make_pipeline(self.plan, kind, self.dtype)
+        base = self._make_pipeline(kind)
         if not (a_batch or b_batch):
             return base
 
         # data operands after (A, B): (mask, W) / (chunk_masks, W_stack),
-        # or none for the split worker stage; the pattern is one per batch.
+        # (mask,) / (progress,) for the traced kinds, or none for the split
+        # worker stage; the pattern is one per batch.
         def batched(A, B, *data):
             batch = A.shape[:-2] if a_batch else B.shape[:-2]
             n = math.prod(batch)
@@ -439,6 +534,14 @@ class CodedMatmul:
         if self.plan.is_complex:
             return complex_dtype(self.dtype)
         return self.dtype
+
+
+def _refuse_host_panel_under_capture() -> None:
+    if capturing():
+        raise RuntimeError(
+            "a concrete erasure or progress pattern decodes with a host-built "
+            "panel, which a CUDA graph capture cannot copy in: pass the mask "
+            "or progress as a device tensor (the traced kinds)")
 
 
 def _stack_loop(n: int, one, batch) -> torch.Tensor:

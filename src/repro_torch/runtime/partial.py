@@ -20,10 +20,11 @@ completed it, and the whole product decodes iff every chunk does.  A binary
 pattern is the special case ``q_k in {0, Q}``; ``Q = 1`` is exactly
 ``ErasurePattern``.
 
-The reference package also has a *traced* kind (progress as a jax tracer).
-PyTorch has no tracers: a progress tensor, on any device, is read to the
-host, so every pattern here is concrete and the decode looks up a per-chunk
-panel stack keyed on the quantized signature.
+Like ``ErasurePattern``, a pattern is *concrete* (host-known progress: the
+decode looks up a per-chunk panel stack keyed on the quantized signature)
+or *traced* (progress is a tensor the host must not read, as
+``core.numerics.is_traced`` decides: the chunk masks and their panels are
+built on the device, :func:`chunk_masks_traced`).
 """
 from __future__ import annotations
 
@@ -33,10 +34,11 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.numerics import is_traced
 from repro_torch.runtime.erasure import ErasurePattern, _host
 
 __all__ = ["PartialPattern", "chunk_bounds", "chunk_masks_for",
-           "chunk_coverage"]
+           "chunk_masks_traced", "chunk_coverage"]
 
 
 def chunk_bounds(rows: int, Q: int) -> tuple:
@@ -72,6 +74,18 @@ def chunk_masks_for(counts: np.ndarray, Q: int) -> np.ndarray:
     return (((c - k) % Q) < counts[None, :]).astype(np.float64)
 
 
+def chunk_masks_traced(progress: torch.Tensor, Q: int) -> torch.Tensor:
+    """(Q, K) 0/1 chunk-availability masks from a (K,) progress tensor, on
+    its device and in its dtype, with no host read: the counts are
+    ``floor(progress * Q + 1e-9)`` and worker k holds chunk c iff
+    ``((c - k) mod Q) < count_k``, as the reference's traced body computes
+    them."""
+    counts = torch.floor(progress * Q + 1e-9)
+    c = torch.arange(Q, device=progress.device)[:, None]
+    k = torch.arange(progress.shape[0], device=progress.device)[None, :]
+    return (torch.remainder(c - k, Q) < counts).to(progress.dtype)
+
+
 def chunk_coverage(counts: np.ndarray, Q: int) -> np.ndarray:
     """(Q,) number of workers covering each chunk under the cyclic schedule."""
     return chunk_masks_for(counts, Q).sum(axis=1).astype(np.int64)
@@ -81,15 +95,15 @@ def chunk_coverage(counts: np.ndarray, Q: int) -> np.ndarray:
 class PartialPattern:
     """Per-worker fractional progress over K workers and Q sub-tasks.
 
-    ``progress`` is a (K,) float64 numpy array in [0, 1], quantized to
-    multiples of ``1/Q`` by ``chunk_counts``; ``kind`` is always
-    ``"concrete"``.
+    ``progress`` is a (K,) float64 numpy array in [0, 1] for ``kind ==
+    "concrete"`` (quantized to multiples of ``1/Q`` by ``chunk_counts``) and
+    the original tensor for ``kind == "traced"``.
     """
 
     K: int
     Q: int
-    kind: str
-    progress: np.ndarray
+    kind: str  # "concrete" | "traced"
+    progress: Any
 
     # -- constructors -------------------------------------------------------
     @classmethod
@@ -101,13 +115,18 @@ class PartialPattern:
 
     @classmethod
     def from_progress(cls, K: int, Q: int, progress: Any) -> "PartialPattern":
-        """Pattern from a (K,) progress vector (array-like, or a tensor,
-        which is read to the host).
+        """Pattern from a (K,) progress vector: array-like, an eager tensor
+        (read to the host), or a traced tensor (kept as it is, never read).
 
         Raises:
-            ValueError: on a bad shape, or values outside [0, 1].
+            ValueError: on a bad shape, or concrete values outside [0, 1].
         """
         cls._check_q(Q)
+        if is_traced(progress):
+            if tuple(progress.shape) != (K,):
+                raise ValueError(
+                    f"traced progress shape {tuple(progress.shape)} != ({K},)")
+            return cls(K=K, Q=Q, kind="traced", progress=progress)
         prog = _host(progress).astype(np.float64)
         if prog.shape != (K,):
             raise ValueError(f"progress shape {prog.shape} != ({K},)")
@@ -120,8 +139,10 @@ class PartialPattern:
     def from_erasure(cls, pattern: ErasurePattern, Q: int) -> "PartialPattern":
         """Lift a binary ``ErasurePattern`` (0/1 progress) to ``Q`` sub-tasks."""
         cls._check_q(Q)
-        return cls(K=pattern.K, Q=Q, kind="concrete",
-                   progress=np.asarray(pattern.mask, dtype=np.float64))
+        if pattern.is_concrete:
+            return cls(K=pattern.K, Q=Q, kind="concrete",
+                       progress=np.asarray(pattern.mask, dtype=np.float64))
+        return cls(K=pattern.K, Q=Q, kind="traced", progress=pattern.mask)
 
     @classmethod
     def normalize(
@@ -161,24 +182,35 @@ class PartialPattern:
 
     # -- views --------------------------------------------------------------
     @property
+    def is_concrete(self) -> bool:
+        """True when the progress vector is host-known (not traced)."""
+        return self.kind == "concrete"
+
+    @property
     def chunk_counts(self) -> np.ndarray:
-        """(K,) completed sub-task counts: ``floor(progress * Q)``."""
+        """(K,) completed sub-task counts: ``floor(progress * Q)`` (concrete
+        patterns only)."""
+        if not self.is_concrete:
+            raise ValueError("chunk_counts is undefined for a traced partial pattern")
         return np.floor(self.progress * self.Q + 1e-9).astype(np.int64)
 
     @property
     def chunk_masks(self) -> np.ndarray:
-        """(Q, K) per-chunk worker-availability masks."""
+        """(Q, K) per-chunk worker-availability masks (concrete patterns)."""
         return chunk_masks_for(self.chunk_counts, self.Q)
 
     @property
     def coverage(self) -> np.ndarray:
-        """(Q,) workers covering each chunk."""
+        """(Q,) workers covering each chunk (concrete patterns)."""
         return chunk_coverage(self.chunk_counts, self.Q)
 
     @property
     def key(self) -> tuple:
-        """Hashable identity: (Q, quantized signature)."""
-        return (self.Q,) + tuple(int(c) for c in self.chunk_counts)
+        """Hashable identity: (Q, quantized signature) for concrete patterns,
+        (Q, "traced") for traced ones."""
+        if self.is_concrete:
+            return (self.Q,) + tuple(int(c) for c in self.chunk_counts)
+        return (self.Q, "traced")
 
     def decodable(self, tau: int) -> bool:
         """True when every chunk has at least ``tau`` contributors."""
@@ -200,8 +232,11 @@ class PartialPattern:
                 f"(counts {self.chunk_counts.tolist()}, Q={self.Q})")
 
     def progress_array(self, dtype: torch.dtype, device) -> torch.Tensor:
-        """The progress vector as a (K,) tensor of ``dtype`` on ``device``."""
-        return torch.as_tensor(self.progress, dtype=dtype, device=device)
+        """The progress vector as a (K,) tensor of ``dtype`` on ``device``; a
+        traced one is cast where it lies, never copied through the host."""
+        if self.is_concrete:
+            return torch.as_tensor(self.progress, dtype=dtype, device=device)
+        return self.progress.to(device=device, dtype=dtype)
 
     # -- helpers ------------------------------------------------------------
     @staticmethod

@@ -1169,3 +1169,107 @@ def test_mesh_gather_takes_the_nccl_branch_on_one_rank(cuda, tmp_path, monkeypat
         assert ops.launch_counts()["fused_worker"] == 2 and ops.launch_counts()["decode"] == 2
     finally:
         dist.destroy_process_group()
+
+
+# -- captured requests: the traced kinds in a CUDA graph ---------------------------
+
+_CAPTURE_ERASED = ([0, 2, 4, 6, 8, 9], [1, 3, 5, 7, 9], [], [2, 3, 4, 5, 6, 7])
+_CAPTURE_PROGRESS = ([4, 1, 4, 0, 0, 1, 3, 4, 1, 4], [3, 3, 2, 2, 1, 2, 3, 0, 2, 3],
+                     [4, 4, 4, 4, 4, 4, 4, 4, 4, 4])
+
+
+def _capture_problem():
+    gen = torch.Generator().manual_seed(23)
+    A = torch.randint(0, 6, (256, 96), generator=gen).to("cuda", torch.float64)
+    B = torch.randint(0, 6, (256, 80), generator=gen).to("cuda", torch.float64)
+    plan = make_plan("bec", 2, 2, 2, K=10, L=256 * 25 + 1, points="equispaced")
+    return A, B, plan
+
+
+@pytest.mark.parametrize("backend,sub_tasks,per_request", [
+    ("fused", 1, dict(fused_worker=1, decode=1)),
+    ("staged", 1, dict(encode=2, matmul_t=10, decode=1)),
+    ("fused", 4, dict(fused_worker=1, decode_partial=1)),
+    ("reference", 1, {}),
+], ids=["fused", "staged", "partial", "reference"])
+def test_captured_request_replays_under_new_survivor_sets(cuda, backend, sub_tasks,
+                                                          per_request):
+    """One request captured with a device mask (progress at Q = 4) buffer,
+    replayed under survivor sets written into it: every replay equals
+    A^T B and the concrete request's C.  The kernels count at the eager
+    warm-up and at the capture (twice a request's launches), never at a
+    replay."""
+    A, B, plan = _capture_problem()
+    cm = CodedMatmul(plan, backend, sub_tasks=sub_tasks)
+    buf = torch.ones(plan.K, dtype=torch.float64, device="cuda")
+    graph, C = cm.capture(A, B, **({"progress": buf} if sub_tasks > 1 else {"mask": buf}))
+    assert ops.launch_counts() == dict(_NONE, **{k: 2 * v for k, v in per_request.items()})
+    if sub_tasks > 1:
+        sets = [np.asarray(c) / sub_tasks for c in _CAPTURE_PROGRESS]
+        concrete = [cm(A, B, progress=x) for x in sets]
+    else:
+        sets = [np.where(np.isin(np.arange(plan.K), e), 0.0, 1.0) for e in _CAPTURE_ERASED]
+        concrete = [cm(A, B, mask=x) for x in sets]
+    ops.reset_launch_counts()
+    for x, want in zip(sets, concrete):
+        buf.copy_(torch.as_tensor(x))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(C, A.T @ B) and torch.equal(C, want)
+    assert ops.launch_counts() == _NONE
+
+
+def test_kernel_calls_under_capture_count_traced_without_spans(cuda, obs_off):
+    """Obs on: the warm-up's calls count ``traced=0`` with an event-timed
+    span each, the captured ones ``traced=1`` with no span and no event
+    synchronize (which would break the capture)."""
+    A, B, plan = _capture_problem()
+    cm = CodedMatmul(plan)
+    buf = torch.ones(plan.K, dtype=torch.float64, device="cuda")
+    obs.enable(fresh=True)
+    graph, C = cm.capture(A, B, mask=buf)
+    reg, rec = obs.session().registry, obs.session().recorder
+    for op in ("fused_worker", "decode"):
+        assert reg.value("kernel.call", op=op, traced=1) == 1, op
+        assert reg.value("kernel.call", op=op, traced=0) == 1, op
+        assert len(rec.by_name(f"kernel.{op}")) == 1, op
+    buf[3] = 0
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(C, A.T @ B)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+def test_more_than_64_blocks_capture_with_kept_offsets(cuda, dtype):
+    """Kernels 1 and 4 past 64 blocks read their offsets from device memory:
+    the eager call keeps them there, so the same calls capture and replay."""
+    gen = torch.Generator().manual_seed(24)
+    ca, cb = _data(gen, (6, 80), dtype, "integer"), _data(gen, (6, 80), dtype, "integer")
+    a, b = _data(gen, (8, 10, 64, 96), dtype, "integer"), _data(gen, (10, 8, 64, 80), dtype,
+                                                                "integer")
+
+    def calls():
+        return ops.fused_worker(ca, cb, a, b), ops.encode(ca, a)
+
+    eager = calls()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = calls()
+    a.mul_(2)
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want, first in zip(out, calls(), eager):
+        assert torch.equal(got, want) and torch.equal(want, 2 * first)
+
+
+def test_a_concrete_pattern_is_refused_under_capture(cuda):
+    """A host-known survivor set needs its host panel copied in, which a
+    capture cannot do: refused before any launch, naming the traced kinds."""
+    A, B, plan = _capture_problem()
+    cm = CodedMatmul(plan)
+    cm(A, B, erased=[1])
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="device tensor"):
+        with torch.cuda.graph(graph):
+            cm(A, B, erased=[1])
+    assert torch.equal(cm(A, B, erased=[2]), A.T @ B)

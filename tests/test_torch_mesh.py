@@ -440,8 +440,7 @@ def test_split_stages_refused(one_rank_mesh, stage):
             cm.decode_stage(np.ones((1, 3, 3)), (3, 3))
 
 
-@pytest.mark.parametrize("kind", [("chunked", 2), ("partial",), ("partial-traced", 2),
-                                  "traced"], ids=str)
+@pytest.mark.parametrize("kind", [("chunked", 2), ("partial",)], ids=str)
 def test_unknown_kind_refused(one_rank_mesh, kind):
     plan = make_plan("bec", 1, 1, 1, K=1, L=100, points="chebyshev")
     cm = CodedMatmul(plan, "mesh", mesh=one_rank_mesh)

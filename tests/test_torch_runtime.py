@@ -195,7 +195,7 @@ def test_unported_paths_raise(rng, call):
             cm.decode_stage(cm.worker_stage(A, B), (A.shape[1], B.shape[1]),
                             progress=np.ones(plan.K))
     else:
-        for kind in (("partial",), ("chunked", 2), ("decode", 1), "traced"):
+        for kind in (("partial",), ("chunked", 2), ("decode", 1)):
             with pytest.raises(ValueError, match="unknown pipeline kind"):
                 cm._executor.make_pipeline(plan, kind, torch.float64)
 
