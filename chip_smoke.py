@@ -2580,8 +2580,8 @@ def obs_phase(plan, A, B, C_ref, times: dict, smi: str) -> dict:
         print(f"span kernel.{op}: n={len(spans)}, mean {mean:.4f} ms (CUDA events at "
               f"launch); phase 5 CUDA-event mean {times[op]['ms']:.4f} ms; on {smi}")
     print(f"fused request wall, obs off {[round(w, 2) for w in walls_off]} ms, obs on "
-          f"{[round(w, 2) for w in walls_on]} ms (a synchronize per launch, and the "
-          f"first request builds the pipeline); staged {ms_staged:.2f} ms, partial "
+          f"{[round(w, 2) for w in walls_on]} ms (kernel spans deferred, closed at the read; "
+          f"the first request builds the pipeline); staged {ms_staged:.2f} ms, partial "
           f"{ms_partial:.2f} ms with obs on; on {smi}")
     with tempfile.TemporaryDirectory() as tmp:
         tpath, mpath = Path(tmp) / "trace.json", Path(tmp) / "metrics.prom"

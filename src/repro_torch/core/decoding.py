@@ -223,20 +223,24 @@ class DecodePanelCache:
         self._partial_stacks: dict = {}
 
     def get(self, mask: Optional[np.ndarray] = None) -> DecodePanel:
-        K = self.z_all.shape[0]
-        m = np.ones(K) if mask is None else np.asarray(mask)
-        key = tuple(int(x != 0) for x in m)
-        panel = self._panels.get(key)
-        if panel is None:
-            with obs.span("decode.panel.build"):
-                panel = make_decode_panel(self.scheme, self.z_all, m,
-                                          self.ridge)
-            self._panels[key] = panel
-            self.builds += 1
-            obs.count("decode.panel_cache.miss", cache="panel")
-        else:
-            obs.count("decode.panel_cache.hit", cache="panel")
-        return panel
+        """The panel of a 0/1 survivor ``mask`` (default: all alive),
+        factored on its first request (a ``decode.panel.get`` span, with a
+        ``decode.panel.build`` child on a miss)."""
+        with obs.span("decode.panel.get"):
+            K = self.z_all.shape[0]
+            m = np.ones(K) if mask is None else np.asarray(mask)
+            key = tuple(int(x != 0) for x in m)
+            panel = self._panels.get(key)
+            if panel is None:
+                with obs.span("decode.panel.build"):
+                    panel = make_decode_panel(self.scheme, self.z_all, m,
+                                              self.ridge)
+                self._panels[key] = panel
+                self.builds += 1
+                obs.count("decode.panel_cache.miss", cache="panel")
+            else:
+                obs.count("decode.panel_cache.hit", cache="panel")
+            return panel
 
     def extended(self, z_new: np.ndarray) -> "DecodePanelCache":
         """A cache over the Leja-extended point set, seeded from this one.
@@ -293,17 +297,18 @@ class DecodePanelCache:
         Raises:
             ValueError: if ``chunk_masks`` is not (Q, K).
         """
-        cm = np.asarray(chunk_masks)
-        if cm.ndim != 2 or cm.shape[1] != self.z_all.shape[0]:
-            raise ValueError(
-                f"chunk_masks shape {cm.shape} != (Q, {self.z_all.shape[0]})")
-        key = ("partial",) + tuple(
-            tuple(int(x != 0) for x in row) for row in cm)
-        stack = self._partial_stacks.get(key)
-        if stack is None:
-            stack = np.stack([self.get(row).W for row in cm])
-            self._partial_stacks[key] = stack
-            obs.count("decode.panel_cache.miss", cache="stack")
-        else:
-            obs.count("decode.panel_cache.hit", cache="stack")
-        return stack
+        with obs.span("decode.panel.get"):
+            cm = np.asarray(chunk_masks)
+            if cm.ndim != 2 or cm.shape[1] != self.z_all.shape[0]:
+                raise ValueError(
+                    f"chunk_masks shape {cm.shape} != (Q, {self.z_all.shape[0]})")
+            key = ("partial",) + tuple(
+                tuple(int(x != 0) for x in row) for row in cm)
+            stack = self._partial_stacks.get(key)
+            if stack is None:
+                stack = np.stack([self.get(row).W for row in cm])
+                self._partial_stacks[key] = stack
+                obs.count("decode.panel_cache.miss", cache="stack")
+            else:
+                obs.count("decode.panel_cache.hit", cache="stack")
+            return stack

@@ -26,6 +26,7 @@ __all__ = [
     "complex_dtype",
     "resolve_device",
     "capturing",
+    "any_traced",
     "tracing",
     "is_traced",
 ]
@@ -104,11 +105,17 @@ def is_traced(x) -> bool:
     traced function or a value computed from one).  A plain eager tensor,
     on any device, is not traced; nor is a tensor that a trace closes over.
     """
-    if not isinstance(x, torch.Tensor):
+    return any_traced((x,))
+
+
+def any_traced(values) -> bool:
+    """Whether any of ``values`` is traced (:func:`is_traced`), asking once
+    whether a stream is being captured and for the proxy mode."""
+    tensors = [x for x in values if isinstance(x, torch.Tensor)]
+    if not tensors:
         return False
-    if capturing() or isinstance(x, FakeTensor):
-        return True
-    if torch._C._functorch.is_functorch_wrapped_tensor(x):
+    if capturing():
         return True
     mode = get_proxy_mode()
-    return mode is not None and has_proxy_slot(x, mode.tracer)
+    return any(isinstance(x, FakeTensor) or torch._C._functorch.is_functorch_wrapped_tensor(x)
+               or (mode is not None and has_proxy_slot(x, mode.tracer)) for x in tensors)

@@ -31,7 +31,7 @@ from typing import Optional
 import torch
 
 from repro_torch import obs
-from repro_torch.core.numerics import is_traced
+from repro_torch.core.numerics import any_traced
 from repro_torch.kernels import ref
 from repro_torch.kernels.block_matmul import matmul_t_cuda
 from repro_torch.kernels.coded_decode import decode_cuda, decode_partial_cuda
@@ -54,41 +54,46 @@ def _instrumented(op: str):
     * traced calls (a CUDA stream is being captured, or an argument is a
       fake, functorch-wrapped or ``make_fx``-tracked tensor, as
       ``core.numerics.is_traced`` says) count ``traced=1`` and record no
-      span and no event: a captured launch runs at replay, and a
-      synchronize would break the capture;
+      span and no event: a captured launch runs at replay;
     * eager calls count ``traced=0`` and record the span ``kernel.<op>`` on
       lane ``kernels``.  With a CUDA tensor among the arguments the call is
-      bracketed by a start/stop CUDA event pair on
-      ``torch.cuda.current_stream()`` and the stop event is synchronized:
-      the span starts at the session clock at launch and lasts the
-      event-measured DEVICE time (real seconds, also under a simulated
-      ``SettableClock``); otherwise the plain call is bracketed by the
-      session clock.
+      bracketed by a start/stop CUDA event pair on the current stream and
+      nothing waits: the span is deferred (``SpanRecorder.defer``),
+      parented at launch and closed once the stop event has run, found by
+      later launches or at the latest by a read of the recorder.  Under the
+      monotonic clock it lies where the card ran the launch; under a
+      simulated ``SettableClock`` it starts at the session clock at launch
+      and lasts the event-measured DEVICE time.  Otherwise the plain call
+      is bracketed by the session clock.
     """
     def wrap(fn):
         @functools.wraps(fn)
         def inner(*args, **kwargs):
             if not obs.enabled():
                 return fn(*args, **kwargs)
-            traced = any(is_traced(a) for a in args)
-            obs.count("kernel.call", op=op, traced=int(traced))
-            if traced:
+            if any_traced(args):
+                obs.count("kernel.call", op=op, traced=1)
                 return fn(*args, **kwargs)
-            if not any(isinstance(a, torch.Tensor) and a.is_cuda
-                       for a in args):
+            card = next((a for a in args if isinstance(a, torch.Tensor) and a.is_cuda),
+                        None)
+            if card is None:
+                obs.count("kernel.call", op=op, traced=0)
                 with obs.span(f"kernel.{op}", lane="kernels"):
                     return fn(*args, **kwargs)
-            stream = torch.cuda.current_stream()
+            # the kernels launch on the current stream of their first
+            # operand's device; only what the launch needs comes before it
+            device = card.device
+            stream = torch.cuda.current_stream(device)
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
-            t0 = obs.session().clock()
             start.record(stream)
-            out = fn(*args, **kwargs)
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                obs.count("kernel.call", op=op, traced=0)
             stop.record(stream)
-            stop.synchronize()
-            obs.emit_span(f"kernel.{op}", t0,
-                          t0 + start.elapsed_time(stop) / 1e3,
-                          lane="kernels")
+            obs.session().recorder.defer(f"kernel.{op}", start, stop, device,
+                                         lane="kernels")
             return out
         return inner
     return wrap

@@ -18,15 +18,24 @@ Enable programmatically::
 
 or via the environment: ``REPRO_OBS=1`` enables collection at import
 time (to run the ordinary test suite instrumented).
+
+Whenever a ``torch.profiler`` is recording, :func:`span` also opens a
+profiler range of the span's name, collection on or off, so
+the program's spans nest on the profiler's trace beside the device work
+they launch.  With neither on, :func:`span` costs the ``None`` check and
+the profiler's flag.  ``torch`` is never imported here: a process that
+has not imported it has no profiler to ask.
 """
 from __future__ import annotations
 
 import os
+import sys
 from typing import Optional, Sequence
 
 from repro_torch.obs.clock import MONOTONIC, Clock, SettableClock
 from repro_torch.obs.metrics import DEFAULT_BUCKETS, MetricsRegistry
-from repro_torch.obs.spans import NULL_SPAN, Span, SpanRecorder, span_id_for
+from repro_torch.obs.spans import (NULL_SPAN, Span, SpanRecorder, profiler_range,
+                                   profiling, span_id_for)
 
 __all__ = [
     "ObsSession", "SettableClock", "Span", "SpanRecorder",
@@ -37,11 +46,19 @@ __all__ = [
 
 
 class ObsSession:
-    """One collection session: registry + span recorder + clock."""
+    """One collection session: registry + span recorder + clock.
+
+    A session on the monotonic clock in a process whose CUDA is already
+    initialized anchors the current card's clock at once (one synchronize),
+    so kernel spans deferred later never wait at launch.
+    """
 
     def __init__(self, clock: Clock = MONOTONIC):
         self.registry = MetricsRegistry()
         self.recorder = SpanRecorder(clock)
+        torch = sys.modules.get("torch")
+        if clock is MONOTONIC and torch is not None and torch.cuda.is_initialized():
+            self.recorder.anchor(torch.device("cuda", torch.cuda.current_device()))
 
     @property
     def clock(self) -> Clock:
@@ -112,9 +129,10 @@ def observe(name: str, value: float,
 
 
 def span(name: str, track: str = "main", lane: str = "main", **attrs):
-    """A context manager timing ``name`` (shared no-op while disabled)."""
+    """A context manager timing ``name`` (shared no-op while disabled),
+    mirrored as a profiler range while a ``torch.profiler`` records."""
     if _session is None:
-        return NULL_SPAN
+        return profiler_range(name) if profiling() else NULL_SPAN
     return _session.recorder.span(name, track=track, lane=lane, **attrs)
 
 

@@ -28,6 +28,11 @@ returning the function the ``CodedMatmul`` facade memoises:
                             "products" result
   kind == ("decode-traced", r, t): fn(Y, mask)
 
+The local pipelines mark their stages with ``repro_torch.obs`` spans:
+``stage.worker`` around the worker products (encode and the K products,
+``worker_products``) and ``stage.decode`` around the erase, the decode and
+the recompose; a recording ``torch.profiler`` sees them as ranges.
+
 Partial-straggler kinds carry the sub-task count Q (``runtime/partial.py``):
 each worker's output rows split into Q chunks and chunk c erases with its own
 (K,) availability row and decodes with its own panel.  The erasure or
@@ -152,7 +157,8 @@ class LocalExecutor:
         def products(A, B):
             a_blocks = block_decompose(A.to(dtype), g.p, g.m)
             b_blocks = block_decompose(B.to(dtype), g.p, g.n)
-            return self.worker_products(plan, a_blocks, b_blocks, tables)
+            with obs.span("stage.worker"):
+                return self.worker_products(plan, a_blocks, b_blocks, tables)
 
         def points(Y):
             # the evaluation points in the decode dtype, kept on Y's device
@@ -175,26 +181,29 @@ class LocalExecutor:
 
         def binary(A, B, mask, W):
             Y = products(A, B)
-            # stage 3 ERASE: zero failed workers' outputs, in place (Y is
-            # this call's own buffer).  W's zero columns annihilate them as
-            # well; the multiply keeps the reference's NaN/garbage semantics.
-            Y.mul_(mask.to(Y.dtype)[:, None, None])
-            return finish(decode(Y, mask, W), A.shape[1], B.shape[1])
+            with obs.span("stage.decode"):
+                # stage 3 ERASE: zero failed workers' outputs, in place (Y is
+                # this call's own buffer).  W's zero columns annihilate them as
+                # well; the multiply keeps the reference's NaN/garbage semantics.
+                Y.mul_(mask.to(Y.dtype)[:, None, None])
+                return finish(decode(Y, mask, W), A.shape[1], B.shape[1])
 
         def per_chunk(A, B, chunk_masks, W_stack, Q):
             Y = products(A, B)
-            bounds = _erase_chunks(Y, chunk_masks, Q)
-            if W_stack is None:
-                C_blocks = self.decode_partial_traced(plan, points(Y), chunk_masks,
-                                                      Y, bounds, ridge)
-            else:
-                C_blocks = self.decode_partial(plan, W_stack, Y, bounds)
-            return finish(C_blocks, A.shape[1], B.shape[1])
+            with obs.span("stage.decode"):
+                bounds = _erase_chunks(Y, chunk_masks, Q)
+                if W_stack is None:
+                    C_blocks = self.decode_partial_traced(plan, points(Y), chunk_masks,
+                                                          Y, bounds, ridge)
+                else:
+                    C_blocks = self.decode_partial(plan, W_stack, Y, bounds)
+                return finish(C_blocks, A.shape[1], B.shape[1])
 
         def stage(Y, mask, W, r, t):
-            # a new buffer: Y is the caller's and may be decoded again
-            Ym = Y * mask.to(Y.dtype)[:, None, None]
-            return finish(decode(Ym, mask, W), r, t)
+            with obs.span("stage.decode"):
+                # a new buffer: Y is the caller's and may be decoded again
+                Ym = Y * mask.to(Y.dtype)[:, None, None]
+                return finish(decode(Ym, mask, W), r, t)
 
         if kind == "concrete":
             return binary

@@ -25,7 +25,15 @@ The facade owns:
   pattern (the CUDA libraries are built once per process, at first use).
   With ``repro_torch.obs`` on, the memo counts
   ``runtime.executable.{hit,compile}{kind}`` and records a
-  ``runtime.executable.build`` span, under the reference's names.
+  ``runtime.executable.build`` span, under the reference's names;
+* spans at its layer boundaries: ``runtime.call`` (a whole call, the root
+  of every span it makes) holds ``runtime.prepare`` (the pattern, its
+  checks, the memo, the panel lookup ``decode.panel.get`` and the
+  uploads), then the pipeline's ``stage.worker`` and ``stage.decode``
+  (``runtime/executors.py``).  Each host-to-device copy of a call (mask
+  and panel W, or chunk masks and panel stack) is a ``runtime.upload``
+  span and counts ``runtime.upload{what}``.  They reach a recording
+  ``torch.profiler`` as ranges even with obs off.
 
 Usage::
 
@@ -282,19 +290,24 @@ class CodedMatmul:
                 being captured (its host panel cannot be copied in).
         """
         Q = self.sub_tasks if sub_tasks is None else int(sub_tasks)
-        if Q < 1:
-            raise ValueError(f"need sub_tasks >= 1, got {Q}")
-        if Q > 1 or progress is not None or isinstance(erasure, PartialPattern):
-            pattern = PartialPattern.normalize(
-                self.plan.K, Q, erasure, progress=progress, erased=erased,
-                survivors=survivors, mask=mask)
-            return self._call_partial(A, B, pattern)
-        pattern = ErasurePattern.normalize(
-            self.plan.K, erasure, erased=erased, survivors=survivors,
-            mask=mask)
-        A, B = self._operands(A, B)
-        fn = self._get_executable(A, B, pattern.kind)
-        return fn(A, B, *self._binary_data(pattern))
+        partial = Q > 1 or progress is not None or isinstance(erasure, PartialPattern)
+        with obs.span("runtime.call", kind="partial" if partial else "binary", Q=Q):
+            with obs.span("runtime.prepare"):
+                if Q < 1:
+                    raise ValueError(f"need sub_tasks >= 1, got {Q}")
+                if partial:
+                    pattern = PartialPattern.normalize(
+                        self.plan.K, Q, erasure, progress=progress, erased=erased,
+                        survivors=survivors, mask=mask)
+                    fn, A, B, data = self._partial_call(A, B, pattern)
+                else:
+                    pattern = ErasurePattern.normalize(
+                        self.plan.K, erasure, erased=erased, survivors=survivors,
+                        mask=mask)
+                    A, B = self._operands(A, B)
+                    fn = self._get_executable(A, B, pattern.kind)
+                    data = self._binary_data(pattern)
+            return fn(A, B, *data)
 
     def capture(self, A, B, *, mask: Optional[torch.Tensor] = None,
                 progress: Optional[torch.Tensor] = None) -> tuple:
@@ -436,25 +449,31 @@ class CodedMatmul:
                 f"only {pattern.n_survivors} survivors < "
                 f"tau={self.plan.tau}: undecodable")
         panel = self.panel_cache.get(pattern.mask)
-        W = torch.as_tensor(panel.W, dtype=self._decode_dtype(),
-                            device=self.device)
-        return pattern.mask_array(self.dtype, self.device), W
+        return (self._upload("mask", pattern.mask, self.dtype),
+                self._upload("panel", panel.W, self._decode_dtype()))
 
-    def _call_partial(self, A, B, pattern: PartialPattern) -> torch.Tensor:
-        """Partial-straggler decode path: per-chunk masks + panel stack (or,
-        traced, the progress vector alone)."""
+    def _partial_call(self, A, B, pattern: PartialPattern) -> tuple:
+        """``(fn, A, B, data)`` of the partial-straggler decode path:
+        per-chunk masks + panel stack (or, traced, the progress vector
+        alone)."""
         A, B = self._operands(A, B)
         if not pattern.is_concrete:
             fn = self._get_executable(A, B, ("partial-traced", pattern.Q))
-            return fn(A, B, pattern.progress_array(self.dtype, self.device))
+            return fn, A, B, (pattern.progress_array(self.dtype, self.device),)
         _refuse_host_panel_under_capture()
         pattern.require_decodable(self.plan.tau)
         fn = self._get_executable(A, B, ("partial", pattern.Q))
         cm = pattern.chunk_masks
         W_stack = self.panel_cache.get_partial(cm)
-        return fn(A, B, torch.as_tensor(cm, dtype=self.dtype, device=self.device),
-                  torch.as_tensor(W_stack, dtype=self._decode_dtype(),
-                                  device=self.device))
+        return fn, A, B, (self._upload("chunk_masks", cm, self.dtype),
+                          self._upload("panel_stack", W_stack, self._decode_dtype()))
+
+    def _upload(self, what: str, host, dtype) -> torch.Tensor:
+        """``host`` copied to the facade's device as ``dtype``: a
+        ``runtime.upload`` span and one count of ``runtime.upload{what}``."""
+        obs.count("runtime.upload", what=what)
+        with obs.span("runtime.upload", what=what):
+            return torch.as_tensor(host, dtype=dtype, device=self.device)
 
     # -- pipeline construction ---------------------------------------------
     def _memo(self, key, kind, build):

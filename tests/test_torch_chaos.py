@@ -291,6 +291,36 @@ class TestGoldenTraces:
         with pytest.raises(KeyError):
             golden_trace("serve_heavy_tail", device=CPU)
 
+    @pytest.mark.parametrize("key", CONTROL_KEYS)
+    def test_switch_and_handoff_counters_count_their_events(self, key):
+        """Over each golden replay ``ladder.switch`` counts the rung changes
+        ``PlanLadder.switch`` makes, i.e. every change of the served rung
+        but one made by an in-step handoff (a step whose report says
+        ``respecialize``), which re-lowers the ladder and picks its rung
+        itself; ``control.switch`` counts every step whose rung changed.
+        ``ladder.respecialize`` counts the handoffs executed (pool
+        changes), ``control.respecialize`` the steps that decided one."""
+        from repro_torch import obs
+
+        golden = Trace.load(GOLDEN_DIR / f"{key}.jsonl")
+        session = obs.enable(fresh=True)
+        try:
+            reports = replay_golden(key, golden, device=CPU)
+        finally:
+            obs.disable()
+        assert golden.diff(reports) == [] and not reports[0].switched
+        changed = [b for a, b in zip(reports, reports[1:]) if b.rung != a.rung]
+        by_handoff = [r for r in changed if r.respecialize]
+        handoffs = sum(a.pool != b.pool for a, b in zip(reports, reports[1:]))
+        total = session.registry.total
+        assert changed == [r for r in reports if r.switched]
+        assert total("control.switch") == len(changed)
+        assert total("ladder.switch") == len(changed) - len(by_handoff)
+        assert total("control.respecialize") == sum(r.respecialize for r in reports)
+        assert total("ladder.respecialize") == handoffs
+        if key.startswith("pool_resize_"):
+            assert by_handoff and handoffs > 0
+
 
 class TestFeedbackLaw:
     def _rate(self, violations, window=8, **cfg):

@@ -929,6 +929,50 @@ def test_event_timed_spans_lie_inside_the_request_wall(cuda, obs_off):
     assert len(spans) == 2
     assert all(0 < s.duration_s < wall for s in spans)
     assert sum(s.duration_s for s in spans) < wall
+    assert all(t0 <= s.start_s and s.end_s <= t0 + wall for s in spans)
+
+
+def test_kernel_spans_wait_for_nothing_until_a_read(cuda, obs_off, monkeypatch):
+    """Obs on, a fused and a partial request: no event, stream or device
+    synchronize while they run (the session anchored the card's clock when
+    it was enabled); at the read every ``kernel.<op>`` span is closed, lasts
+    longer than 0 and lies inside its request's wall on the session clock,
+    under that request's ``runtime.call``."""
+    A, B, plan = _obs_problem()
+    cm = CodedMatmul(plan, sub_tasks=4)
+    progress = np.r_[0.5, 0.75, 0.25, np.ones(7)]
+    requests = [lambda: cm(A, B, erased=[0, 2, 4, 6, 8, 9], sub_tasks=1),
+                lambda: cm(A, B, progress=progress)]
+    for request in requests:             # builds, factors the panels
+        request()
+    torch.cuda.synchronize()
+    obs.enable(fresh=True)
+    rec = obs.session().recorder
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a synchronize while the requests ran")
+
+    walls = []
+    with monkeypatch.context() as m:
+        for owner in (torch.cuda, torch.cuda.Event, torch.cuda.Stream):
+            m.setattr(owner, "synchronize", refuse)
+        for request in requests:
+            t0 = time.perf_counter()
+            C = request()
+            C.cpu()                      # waits by copying, not by a synchronize
+            walls.append((t0, time.perf_counter()))
+    by = {s.sid: s for s in rec.spans}
+    calls = rec.by_name("runtime.call")
+    kernels = [s for s in by.values() if s.name.startswith("kernel.")]
+    assert len(calls) == 2 and not rec._pending
+    assert sorted(s.name for s in kernels) == ["kernel.decode", "kernel.decode_partial",
+                                               "kernel.fused_worker", "kernel.fused_worker"]
+    for k in kernels:
+        root = k
+        while root.parent is not None:
+            root = by[root.parent]
+        t0, t1 = walls[calls.index(root)]
+        assert k.duration_s > 0 and t0 <= k.start_s and k.end_s <= t1, k
 
 
 # -- the adaptive control plane on the card ---------------------------------

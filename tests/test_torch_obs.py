@@ -133,6 +133,89 @@ class TestSpans:
         assert sids == sorted(sids) and len(set(sids)) == 5
 
 
+class _Event:
+    """A stand-in for a CUDA timing event: a device time in ms that has or
+    has not run yet."""
+
+    def __init__(self, t_ms, done=False):
+        self.t, self.done, self.waited = t_ms, done, False
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.waited = self.done = True
+
+    def elapsed_time(self, end):
+        return end.t - self.t
+
+
+class TestDeferredSpans:
+    def test_close_in_launch_order_once_their_events_ran(self):
+        """A deferred span keeps the parent it had at launch; a later
+        launch closes those whose stop event ran (without waiting), a read
+        waits for the rest.  Under a SettableClock a span starts at the
+        session clock at launch and lasts the events' time."""
+        clock = obs.SettableClock(5.0)
+        obs.enable(fresh=True, clock=clock)
+        rec = obs.session().recorder
+        a, b = (_Event(0.0), _Event(2.0)), (_Event(3.0), _Event(7.0))
+        with obs.span("request") as req:
+            rec.defer("kernel.a", *a, "card", lane="kernels")
+            clock.set(6.0)
+            rec.defer("kernel.b", *b, "card", lane="kernels")
+        assert len(rec._pending) == 2
+        a[1].done = True
+        rec.defer("kernel.c", _Event(8.0, True), _Event(9.0, True), "card")
+        assert [p.name for p in rec._pending] == ["kernel.b", "kernel.c"]
+        assert not a[1].waited and not b[1].waited
+        spans = {s.name: s for s in rec.spans}
+        assert b[1].waited and not rec._pending
+        assert (spans["kernel.a"].start_s, spans["kernel.a"].end_s) == (5.0, 5.002)
+        assert spans["kernel.b"].start_s == 6.0
+        assert spans["kernel.b"].duration_s == pytest.approx(0.004)
+        assert spans["kernel.a"].parent == spans["kernel.b"].parent == req.sid
+        assert spans["kernel.c"].parent is None
+        assert spans["kernel.a"].lane == "kernels"
+        assert spans["kernel.a"].sid < spans["kernel.b"].sid < spans["kernel.c"].sid
+
+    def test_monotonic_clock_places_spans_where_the_card_ran_them(self, monkeypatch):
+        """Under the monotonic clock a span starts at the anchor's host time
+        plus the device time from the anchor event to its start event."""
+        obs.enable(fresh=True)
+        rec = obs.session().recorder
+        anchors = []
+        monkeypatch.setattr(rec, "anchor", lambda device: (
+            anchors.append(device) or (_Event(100.0, True), 50.0)))
+        rec.defer("kernel.a", _Event(350.0, True), _Event(351.5, True), "card")
+        (s,) = rec.by_name("kernel.a")
+        assert anchors == ["card"]
+        assert s.start_s == pytest.approx(50.25)
+        assert s.duration_s == pytest.approx(0.0015)
+
+    def test_a_read_waits_for_the_card_outside_the_lock(self):
+        """While a read waits for a stop event, the recorder's lock is free
+        (other threads open, close and emit spans), and a launch's own
+        resolution finds nothing to do instead of waiting too: what it
+        deferred closes at the next read."""
+        obs.enable(fresh=True, clock=obs.SettableClock(0.0))
+        rec = obs.session().recorder
+        seen = []
+
+        class Stop(_Event):
+            def synchronize(self):
+                seen.append(rec._lock.locked())
+                rec.emit("host.other", 1.0, 2.0)
+                rec.defer("kernel.b", _Event(4.0, True), _Event(5.0, True), "card")
+                super().synchronize()
+
+        rec.defer("kernel.a", _Event(0.0), Stop(3.0), "card")
+        assert [s.name for s in rec.spans] == ["host.other", "kernel.a"]
+        assert seen == [False]
+        assert [s.name for s in rec.spans] == ["host.other", "kernel.a", "kernel.b"]
+        assert not rec._pending
+
+
 # -- metrics ------------------------------------------------------------------
 
 class TestMetrics:
@@ -495,6 +578,123 @@ def test_executable_cache_size_flat_across_patterns():
     sibling = cm.with_backend("reference")
     sibling(A, B)
     assert cm.executable_cache_size() == sibling.executable_cache_size() == 2
+
+
+# -- spans at the facade's layer boundaries -----------------------------------
+
+_CALLS = {
+    "concrete": lambda cm, A, B: cm(A, B, erased=[1, 7]),
+    "partial": lambda cm, A, B: cm(A, B, progress=np.r_[0.5, np.ones(9)], sub_tasks=2),
+}
+_UPLOADS = {"concrete": ("mask", "panel"), "partial": ("chunk_masks", "panel_stack")}
+
+
+def _warm_facade(kind):
+    A, B, kw = _facade_problem(8)
+    cm = CodedMatmul(make_plan("bec", 2, 2, 2, **kw), "fused", device="cpu")
+    _CALLS[kind](cm, A, B)               # builds the pipeline and the panel
+    return cm, A, B
+
+
+@pytest.mark.parametrize("kind", sorted(_CALLS))
+def test_a_call_records_its_span_tree(kind):
+    """``runtime.call`` holds ``runtime.prepare`` (with the panel lookup and
+    the two uploads), then ``stage.worker`` and ``stage.decode``, each
+    holding its kernel; the uploads count ``runtime.upload{what}`` once
+    each."""
+    cm, A, B = _warm_facade(kind)
+    obs.enable(fresh=True)
+    C = _CALLS[kind](cm, A, B)
+    np.testing.assert_array_equal(C.numpy(), A.T @ B)
+    spans = obs.session().recorder.spans
+    by = {s.sid: s for s in spans}
+
+    def named(name):
+        return [s for s in spans if s.name == name]
+
+    (call,) = named("runtime.call")
+    (prep,) = named("runtime.prepare")
+    assert call.parent is None and prep.parent == call.sid
+    assert call.attrs == {"kind": "partial" if kind == "partial" else "binary",
+                          "Q": "2" if kind == "partial" else "1"}
+    gets, uploads = named("decode.panel.get"), named("runtime.upload")
+    assert gets and gets[-1].parent == prep.sid           # the outermost lookup
+    assert all(by[g.parent].name in ("runtime.prepare", "decode.panel.get") for g in gets)
+    assert [u.attrs["what"] for u in uploads] == list(_UPLOADS[kind])
+    assert all(u.parent == prep.sid for u in uploads)
+    for stage, op in (("stage.worker", "fused_worker"),
+                      ("stage.decode", "decode_partial" if kind == "partial" else "decode")):
+        (st,) = named(stage)
+        assert st.parent == call.sid and st.start_s >= prep.end_s
+        (k,) = named(f"kernel.{op}")
+        assert k.parent == st.sid
+    for s in spans:                      # every chain ends at the call
+        while s.parent is not None:
+            s = by[s.parent]
+        assert s is call
+    reg = obs.session().registry
+    assert reg.total("runtime.upload") == 2
+    assert all(reg.value("runtime.upload", what=w) == 1 for w in _UPLOADS[kind])
+
+
+def _host_ranges(prof):
+    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()]
+
+
+@pytest.mark.parametrize("collect", [False, True])
+@pytest.mark.parametrize("kind", sorted(_CALLS))
+def test_spans_reach_the_profiler_as_nested_ranges(kind, collect):
+    """Under a recording ``torch.profiler`` the facade's spans are host
+    ranges of the same names, nested as the spans are, obs on or off."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cm, A, B = _warm_facade(kind)
+    if collect:
+        obs.enable(fresh=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _CALLS[kind](cm, A, B)
+    ranges = _host_ranges(prof)
+
+    def one(name):
+        (r,) = [r for r in ranges if r[0] == name]
+        return r
+
+    def inside(inner, outer):
+        return outer[1] <= inner[1] and inner[2] <= outer[2]
+
+    call, prep = one("runtime.call"), one("runtime.prepare")
+    assert inside(prep, call)
+    gets = [r for r in ranges if r[0] == "decode.panel.get"]
+    uploads = [r for r in ranges if r[0] == "runtime.upload"]
+    assert gets and len(uploads) == 2
+    assert all(inside(r, prep) for r in gets + uploads)
+    for stage in ("stage.worker", "stage.decode"):
+        st = one(stage)
+        assert inside(st, call) and st[1] >= prep[2]
+    assert obs.enabled() == collect
+
+
+def test_spans_enter_no_profiler_range_unless_one_records(monkeypatch):
+    """Obs on and no profiler: no profiler range is entered; both off: the
+    shared ``NULL_SPAN``; a profiler alone: a range, not NULL_SPAN."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs.spans import NULL_SPAN
+
+    cm, A, B = _warm_facade("concrete")
+    assert obs.span("runtime.call") is NULL_SPAN
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert obs.span("runtime.call") is not NULL_SPAN
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a profiler range was entered with no profiler")
+
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    obs.enable(fresh=True)
+    _CALLS["concrete"](cm, A, B)
+    assert len(obs.session().recorder.by_name("runtime.call")) == 1
+    obs.disable()
+    assert obs.span("runtime.call") is NULL_SPAN
 
 
 # -- the kernel hook ----------------------------------------------------------
