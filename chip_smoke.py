@@ -12,7 +12,8 @@ Phases, each raising on failure:
              (one process per source, all at once) and prints ``-Xptxas -v``;
              ``cuobjdump -sass`` must show DMMA (FP64 tensor-core)
              instructions in every float64 kernel behind
-             ``repro_fused_worker_f64`` and ``repro_matmul_t_f64``; the scan
+             ``repro_fused_worker_f64`` (its cluster form too) and
+             ``repro_matmul_t_f64``; the scan
              kernels' registers and spills are printed, and the selective
              scan's SASS must hold MUFU.EX2 (its one-op exponentials); the
              per-chunk decode's (kernel 3) registers and spills are printed,
@@ -34,8 +35,9 @@ Phases, each raising on failure:
              equispaced points, v=r=t=8000, float64, entries in {0..15})
              under rotating erasure patterns; every C must equal A^T B
              element for element, every request must launch each of its
-             path's kernels as often as the path says, and the pipeline
-             memo must not rebuild;
+             path's kernels as often as the path says (kernel 1 in its
+             float64 cluster form every time), and the pipeline memo must
+             not rebuild;
    4b staged  - the same requests on the "staged" backend (encode kernel
              twice, block-matmul kernel once per worker, decode kernel);
    4c partial - ``CodedMatmul(plan, sub_tasks=4)`` under fractional
@@ -63,6 +65,10 @@ Phases, each raising on failure:
              shapes, beside the least time the card could take; kernels 1
              and 5 also as TFLOP/s and share of the FP64 tensor peak, and
              the encode's share of kernel 1 (kernel 1 - K x kernel 5);
+             kernel 1 in float64 also in its tile form on the same
+             operands, in its cluster form at P=Q=1 (one block a side: the
+             same FLOP, a quarter of the raw bytes), and the clusters the
+             card holds at once;
              kernel 3 also as GB/s and share of its bound, against its floor
              (the run fails above it), at Q=1 beside kernel 2 on the
              same Y, and its 16-row instance (mn 16, 20 and 24; K 10 and
@@ -282,6 +288,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import io
 import json
 import shutil
@@ -394,10 +401,11 @@ HALF = (torch.bfloat16, torch.float16)
 HALF_TOL = 2e-2
 HALF_NAME = {torch.bfloat16: "bf16", torch.float16: "f16"}
 HALF_KERNELS = ("fused_worker", "encode", "matmul_t")
-# Floors for the tensor-core kernels 5 and 1: twice as fast as the FMA
-# kernels they replaced (8.986 and 202.12 ms on an H100 80GB HBM3 at
-# 700 W), printed beside the phase-5 times
-FLOOR_MS = {"matmul_t": 4.5, "fused_worker": 101.0}
+# Floors for the tensor-core kernels 5 and 1, printed beside the phase-5
+# times: kernel 5 twice as fast as the FMA kernel it replaced (8.986 ms on
+# an H100 80GB HBM3 at 700 W); kernel 1 in float64 below its tile form
+# (75.8-76.4 ms there) with room above its cluster form (51.2 ms there)
+FLOOR_MS = {"matmul_t": 4.5, "fused_worker": 60.0}
 # Kernel 3 at Q=4, K=10, E=16e6 float64 (bounds form): 67% of its 0.535 ms
 # bytes bound; the design before its redesign took 1.092 ms (this script on
 # an H100 80GB HBM3 at 700 W).  Missing it fails the run.
@@ -543,6 +551,19 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
+def launch_counts() -> dict:
+    """``ops.launch_counts()`` by kernel, without the count of kernel 1's
+    float64 cluster form (a share of kernel 1's launches, which phase 4
+    checks on its own: every request there takes it)."""
+    counts = ops.launch_counts()
+    del counts[ops.CLUSTER_LAUNCHES]
+    return counts
+
+
+def cluster_launches() -> int:
+    return ops.launch_counts()[ops.CLUSTER_LAUNCHES]
+
+
 def time_ms(fn, n: int) -> float:
     """Mean device time of ``fn`` over ``n`` calls after one warm-up."""
     fn()
@@ -607,12 +628,12 @@ def build_phase() -> None:
         counts = {}
         for section in _build.sass(name).split("Function : ")[1:]:
             kernel = kernel_name(section.split("\n", 1)[0])
-            if "<double" in kernel:
+            if "<double" in kernel or "fused_worker_cluster_kernel" in kernel:
                 counts[kernel] = section.count("DMMA")
         print(f"{entry}: DMMA instructions per float64 kernel {counts}")
         # two copy widths; kernel 1 also with a head of block offsets of
-        # compile-time (64) or run-time (0) size
-        want = 4 if name == "coded_fused" else 2
+        # compile-time (64) or run-time (0) size, and its cluster form
+        want = 5 if name == "coded_fused" else 2
         check(len(counts) == want and all(counts.values()),
               f"{entry}: a float64 kernel without DMMA instructions: {counts}")
     for name in ("wkv_scan", "mamba_scan"):
@@ -1029,7 +1050,7 @@ def half_path_phase(plan, seed: int) -> dict:
         Ys = torch.stack([ops.matmul_t(at[k], bt[k]) for k in range(K)])
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        counts = ops.launch_counts()
+        counts = launch_counts()
         want = dict.fromkeys(counts, 0) | {"fused_worker": 1, "encode": 2, "matmul_t": K}
         check(counts == want, f"4h {tag} launched {counts}, not {want}")
         exp = ref.fused_worker_ref(ca, cb, a4, b4)
@@ -1247,7 +1268,7 @@ def caps_phase(gen, smi: str) -> dict:
     for s_ in (64, 24, 100):
         x = mamba_inputs(gen, B=2, S=300, d=200, s=s_)
         check_scan(f"mamba_scan s={s_}", ops.mamba_scan(*x), ref.mamba_scan_ref(*x))
-    counts = ops.launch_counts()
+    counts = launch_counts()
     print(f"3c launches {nonzero(counts)}")
     return {"counts": counts}
 
@@ -1341,10 +1362,10 @@ def lm_rel(out: torch.Tensor, exp: torch.Tensor) -> float:
 
 def counted(fn):
     """fn's result and the kernel launches it made (ended by a synchronize)."""
-    before = ops.launch_counts()
+    before = launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    after = ops.launch_counts()
+    after = launch_counts()
     return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
@@ -1468,7 +1489,7 @@ def lm_phase(label: str, cfg, kernel, n_scan: int, seed: int, smi: str,
     generate(cfg, params, prompts, 2)                       # warm-up
     ops.reset_launch_counts()
     tokens, stats = generate(cfg, params, prompts, LM_GEN)
-    counts = ops.launch_counts()
+    counts = launch_counts()
     want = dict.fromkeys(counts, 0) | ({kernel: n_scan} if kernel else {})
     check(counts == want, f"{label} serving launched {counts}, not {want}")
     check(tokens.shape == (LM_BATCH, LM_GEN) and bool(((tokens >= 0)
@@ -1680,7 +1701,7 @@ def jamba_moe_phase(seed: int, smi: str) -> dict:
     with torch.inference_mode():
         y, aux = apply_moe(params, x, mc)
         torch.cuda.synchronize()
-        counts = ops.launch_counts()
+        counts = launch_counts()
         check(not any(counts.values()), f"6h apply_moe launched {counts}")
         pre_ms = time_ms(lambda: apply_moe(params, x, mc), 3)
         dec_ms = time_ms(lambda: apply_moe(params, x_dec, mc), 10)
@@ -1888,7 +1909,7 @@ def scan_grads_phase(gen, smi: str) -> dict:
         y, fin = fused.apply(*ts)
         (torch.sum(y * y_bar) + torch.sum(fin * fin_bar)).backward()
         torch.cuda.synchronize()
-        counts = ops.launch_counts()
+        counts = launch_counts()
         check(counts == dict.fromkeys(counts, 0) | {kernel: 1},
               f"12a {fused.__name__} launched {counts}")
         out["counts"][kernel] += 1
@@ -1941,7 +1962,7 @@ def kernel_vs_plain_train(label: str, cfg, kernel: str, seed: int, batch) -> dic
     ops.reset_launch_counts()
     loss_k, grads_k = train_loss_grads(params, cfg, batch)
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts = launch_counts()
     n_scan = 2 * sum(m in ("rwkv", "mamba") for m, _ in cfg.pattern) * cfg.n_groups
     check(counts == dict.fromkeys(counts, 0) | {kernel: n_scan},
           f"{label} kernel train step launched {counts}, not {n_scan} x {kernel}")
@@ -2003,7 +2024,7 @@ def train_phase(label: str, cfg, kernel, seed: int, smi: str, batch: int = LM_BA
               f"{float(metrics['lr']):.3e}")
         check(np.isfinite(loss) and np.isfinite(gnorm), f"{label} step {t}: loss {loss}, "
               f"grad norm {gnorm}")
-    counts = ops.launch_counts()
+    counts = launch_counts()
     n_scan = 2 * sum(m in ("rwkv", "mamba") for m, _ in cfg.pattern) * cfg.n_groups
     want = dict.fromkeys(counts, 0) | ({kernel: n_scan * steps} if kernel else {})
     check(counts == want, f"{label} training launched {counts}, not {want}")
@@ -2136,13 +2157,13 @@ def drive(label: str, requests, C_ref, cm, per_request: dict) -> dict:
     builds = None
     ops.reset_launch_counts()
     for i, (name, call) in enumerate(requests):
-        before = ops.launch_counts()
+        before, clusters = launch_counts(), cluster_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         C = call()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-        after = ops.launch_counts()
+        after, clusters = launch_counts(), cluster_launches() - clusters
         check(C.shape == (R, T) and bool(torch.isfinite(C).all()),
               f"{label} request {i}: C {tuple(C.shape)} not finite (r, t)")
         check(torch.equal(C, C_ref), f"{label} request {i} {name}: max |C - A^T B| "
@@ -2150,12 +2171,15 @@ def drive(label: str, requests, C_ref, cm, per_request: dict) -> dict:
         steps = {k: after[k] - before[k] for k in after}
         want = dict.fromkeys(after, 0) | per_request
         check(steps == want, f"{label} request {i} launched {steps}, not {want}")
+        # kernel 1 in float64 at 8000^2: the cluster form every time
+        check(clusters == steps["fused_worker"], f"{label} request {i}: {clusters} of "
+              f"{steps['fused_worker']} kernel 1 launches in the cluster form")
         info = cm.cache_info()
         builds = info["builds"] if builds is None else builds
         check(info["builds"] == builds, f"{label}: pipeline memo rebuilt: {info}")
         print(f"{label} request {i} {name}: exact, {walls[-1]:.2f} ms wall, "
               f"launches {({k: v for k, v in steps.items() if v})}, cache {info}")
-    counts = ops.launch_counts()
+    counts = launch_counts()
     check(all(counts[k] > 0 for k in per_request), f"{label}: a kernel never launched: "
           f"{counts}")
     print(f"{label} path launches {counts}")
@@ -2203,10 +2227,10 @@ def partial_phase(plan, A, B, C_ref) -> dict:
     ops.reset_launch_counts()
     Y = cm.worker_stage(A, B)
     torch.cuda.synchronize()
-    stage_counts = ops.launch_counts()
+    stage_counts = launch_counts()
     C = cm.decode_stage(Y, (R, T), erased=ERASURES[0])
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts = launch_counts()
     check(torch.equal(C, C_ref) and torch.equal(C, cm(A, B, erased=ERASURES[0], sub_tasks=1)),
           "worker_stage + decode_stage differs from the one-shot call")
     want = dict.fromkeys(counts, 0) | {"fused_worker": 1, "decode": 1}
@@ -2242,7 +2266,7 @@ def wall_ms(call) -> tuple:
 
 # a kernel of ours in a profiler key: its wrapper's name, then the instance
 OUR_KERNEL = re.compile(r"\b(fused_worker|decode_partial|decode|encode|matmul_t)"
-                        r"(?:_tma|_element|_vector)?_kernel<")
+                        r"(?:_tma|_element|_vector|_cluster)?_kernel[<(]")
 
 
 def device_activity(fn) -> dict:
@@ -2291,14 +2315,14 @@ def captured_phase(plan, A, B, C_ref, smi: str) -> None:
     ]
     # launches counted at the warm-ups + captures, and at the concrete
     # requests; a replay runs its graph's launches and counts none
-    at_capture = dict.fromkeys(ops.launch_counts(), 0)
+    at_capture = dict.fromkeys(launch_counts(), 0)
     at_concrete = dict.fromkeys(at_capture, 0)
     n_replays = 0
     for label, cm, what, per_request, sets in cases:
         buf = torch.ones(plan.K, dtype=torch.float64, device="cuda")
         ops.reset_launch_counts()
         (graph, C), capture_ms = wall_ms(lambda: cm.capture(A, B, **{what: buf}))
-        captured = ops.launch_counts()
+        captured = launch_counts()
         want = dict.fromkeys(captured, 0) | {k: 2 * v for k, v in per_request.items()}
         check(captured == want, f"4d {label}: warm-up + capture launched {captured}, "
               f"not {want}")
@@ -2308,10 +2332,10 @@ def captured_phase(plan, A, B, C_ref, smi: str) -> None:
               f"request's), cache {cm.cache_info()}")
         for name, x in [*sets, (f"erased={BUNCHED} (bunched)", bunched)]:
             buf.copy_(torch.as_tensor(x, dtype=torch.float64))
-            before = ops.launch_counts()
+            before = launch_counts()
             ms = replay_ms(graph)
             n_replays += 1
-            check(ops.launch_counts() == before, f"4d {label} {name}: a replay counted "
+            check(launch_counts() == before, f"4d {label} {name}: a replay counted "
                   f"launches")
             concrete, wall = wall_ms(lambda x=x: cm(A, B, **{what: x}))
             err, err_concrete = (float((y - C_ref).abs().max()) for y in (C, concrete))
@@ -2353,7 +2377,7 @@ def captured_phase(plan, A, B, C_ref, smi: str) -> None:
         print(f"4d {label} replay device time {total_ms:.3f} ms = our kernels {kernel_ms:.3f} "
               f"+ the panel {panel_ms:.3f} + erase and recompose {total_ms - kernel_ms - panel_ms:.3f} "
               f"ms (CUPTI kernel durations) on {smi}")
-        for k, v in ops.launch_counts().items():
+        for k, v in launch_counts().items():
             at_capture[k] += captured[k]
             at_concrete[k] += v - captured[k]
         del graph, C
@@ -2394,6 +2418,24 @@ def times_phase(plan, A, B, smi: str) -> dict:
           f"kernel {fused['ms']:.3f} ms, plain {fused['plain_ms']:.3f} ms, "
           f"einsum+bmm {fused['library_ms']:.3f} ms; on {smi}")
     tensor_rate("fused_worker", flops, fused)
+    # kernel 1's float64 forms: the cluster form (above), the tile form
+    # on the same operands, and the cluster form at P = Q = 1 (one 4000^2
+    # block a side: the same FLOP, a quarter of the raw bytes and encode)
+    check(coded_fused.clustered(torch.float64, copy_width(a4, b4), P, Q, r, t),
+          "fused_worker: the main shape does not take the cluster form")
+    tile_ms = time_ms(lambda: coded_fused.fused_worker_cuda(ca, cb, a4, b4, cluster=False), 5)
+    a1, b1 = a4[0, 0].contiguous()[None], b4[0, 0].contiguous()[None]
+    c1 = ca[:, :1].contiguous()
+    single_ms = time_ms(lambda: ops.fused_worker(c1, c1, a1, b1), 5)
+    clusters = ctypes.c_int(0)
+    check(_build.load("coded_fused").repro_fused_worker_f64_cluster_occupancy(
+        ctypes.byref(clusters)) == 0, "fused_worker: cluster occupancy query failed")
+    print(f"fused_worker float64 forms: cluster {fused['ms']:.3f} ms, tile (a block a "
+          f"tile) {tile_ms:.3f} ms, cluster at P=Q=1 {single_ms:.3f} ms "
+          f"({2 * K * r * t * v / (single_ms * 1e-3) / PEAK_FP64_TENSOR:.1%} of the FP64 "
+          f"tensor peak); {clusters.value} clusters of 4 at once ({4 * clusters.value} of "
+          f"{SMS} SMs); on {smi}")
+    del a1, b1
 
     # encode: the kernel reads the strided block view; the plain version and
     # torch.matmul get the (P, E) stack made beforehand (their reshape would
@@ -2538,7 +2580,7 @@ def obs_phase(plan, A, B, C_ref, times: dict, smi: str) -> dict:
         walls_off.append(ms)
     session = obs.enable(fresh=True)
     reg, rec = session.registry, session.recorder
-    before = ops.launch_counts()
+    before = launch_counts()
     cm = CodedMatmul(plan)
     walls_on, sizes = [], []
     for e, C_off in zip(ERASURES, off):
@@ -2566,7 +2608,7 @@ def obs_phase(plan, A, B, C_ref, times: dict, smi: str) -> dict:
     C, ms_partial = serve_timed(lambda: cm(A, B, progress=progress, sub_tasks=Q_SUB))
     check(torch.equal(C, C_ref), "obs on partial request: C differs from A^T B")
     del C
-    after = ops.launch_counts()
+    after = launch_counts()
     launched = {k: after[k] - before[k] for k in after}
     calls = {k: reg.value("kernel.call", op=k, traced=0) or 0 for k in after}
     print(f"obs on: launches {({k: v for k, v in launched.items() if v})}, "
@@ -2606,21 +2648,21 @@ def obs_phase(plan, A, B, C_ref, times: dict, smi: str) -> dict:
           f"{len(text.splitlines())} Prometheus lines, read back and checked; report:")
     print(report.render(text, doc), end="")
     obs.disable()
-    return {"counts": ops.launch_counts()}
+    return {"counts": launch_counts()}
 
 
 def paper_phase(smi: str) -> dict:
     """The paper's Table I, Fig. 1 and p' sweep at v = 8000 through the
     port's benches; each bench's launch counts set to 0 just before it."""
     phase("8 the paper's experiments at v = 8000")
-    counts = dict.fromkeys(ops.launch_counts(), 0)
+    counts = dict.fromkeys(launch_counts(), 0)
 
     def run(label, fn):
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        got = ops.launch_counts()
+        got = launch_counts()
         for k, v in got.items():
             counts[k] += v
         print(f"{label}: {time.perf_counter() - t0:.1f} s, launches "
@@ -2687,7 +2729,7 @@ def paper_phase(smi: str) -> dict:
 
 
 def launches_since(before: dict) -> dict:
-    after = ops.launch_counts()
+    after = launch_counts()
     return {k: after[k] - before[k] for k in after}
 
 
@@ -2710,7 +2752,7 @@ def golden_replay_phase(counts: dict) -> None:
             t0 = time.perf_counter()
             reports = replay_golden(key, golden, device="cuda", backend=backend)
             torch.cuda.synchronize()
-            got = ops.launch_counts()
+            got = launch_counts()
             diff = golden.diff(reports)
             check(diff == [], f"9a {backend} {key}: replay differs from the golden "
                   f"file: {diff[:3]}")
@@ -2749,7 +2791,7 @@ def adaptive_run(label: str, ladder, A, B, scenario, steps: int, counts: dict, *
             server.grow(join[1])
             handoff = f" grow {rungs_before} -> {ladder.rungs} (pool {len(server.pool)})"
             watch.mark()  # the grown pool's pipelines build once, here
-        before = ops.launch_counts()
+        before = launch_counts()
         pool_before = None if server.pool is None else len(server.pool)
         _, rep = server.step(A, B)
         got = launches_since(before)
@@ -2782,7 +2824,7 @@ def adaptive_run(label: str, ladder, A, B, scenario, steps: int, counts: dict, *
               f"pool {len(rep.pool) if rep.pool else ladder.K} sim {rep.sim_latency_s:.4f} "
               f"wall {rep.wall_ms:.2f} ms exact {rep.exact}{gain} begin {begin:.3f} ms "
               f"complete {complete:.3f} ms launches {nonzero(got)}{handoff}")
-    for k, v in ops.launch_counts().items():
+    for k, v in launch_counts().items():
         counts[k] += v
     return server.reports
 
@@ -2794,7 +2836,7 @@ def control_phase(seed: int, smi: str) -> dict:
     reported (9c), and the control bench twin's gates on the fused kernels."""
     phase("9 adaptive control plane")
     start = time.perf_counter()
-    counts = dict.fromkeys(ops.launch_counts(), 0)
+    counts = dict.fromkeys(launch_counts(), 0)
     golden_replay_phase(counts)
 
     obs.enable(fresh=True)
@@ -2870,7 +2912,7 @@ def control_phase(seed: int, smi: str) -> dict:
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     result = torch_control_bench.run("all", "fused", "cuda")
-    got = ops.launch_counts()
+    got = launch_counts()
     for line in torch_control_bench.rows_text(result):
         print(f"bench {line}")
     torch_control_bench.check(result)
@@ -2895,7 +2937,7 @@ def golden_serve_phase(counts: dict) -> None:
         result = golden_serve_result(device="cuda", backend=backend)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        got = ops.launch_counts()
+        got = launch_counts()
         for k, v in got.items():
             counts[k] += v
         trace = with_golden_meta(ServeTrace.from_result(result))
@@ -2926,7 +2968,7 @@ class BatchProbe:
 
     def _timed(self, begin):
         def timed():
-            before = ops.launch_counts()
+            before = launch_counts()
             t0 = time.perf_counter()
             decision = begin()
             self.marks.append((before, (time.perf_counter() - t0) * 1e3))
@@ -2935,7 +2977,7 @@ class BatchProbe:
 
     def launches(self) -> list:
         """Each batch's launches, in dispatch order."""
-        snaps = [m[0] for m in self.marks] + [ops.launch_counts()]
+        snaps = [m[0] for m in self.marks] + [launch_counts()]
         return [{k: b[k] - a[k] for k in a} for a, b in zip(snaps, snaps[1:])]
 
 
@@ -2970,7 +3012,7 @@ def tier_run(label: str, ladder, initial: str, scenario: str, seed: int, operand
     result = tier.run(make_A, B, TIER_REQUESTS)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    for k, v in ops.launch_counts().items():
+    for k, v in launch_counts().items():
         counts[k] += v
     walls = {rep.span_id: rep.wall_ms for server in tier.servers.values()
              for rep in server.reports}
@@ -3080,7 +3122,7 @@ def cli(args: list, counts: dict) -> tuple:
     with contextlib.redirect_stdout(buf):
         out = coded_serve.main(args + ["--device", "cuda"])
     torch.cuda.synchronize()
-    got = ops.launch_counts()
+    got = launch_counts()
     for k, v in got.items():
         counts[k] += v
     text = buf.getvalue()
@@ -3122,7 +3164,7 @@ def cli_phase(counts: dict) -> None:
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     result = torch_serve_bench.run(list(torch_serve_bench.CHECK_SCENARIOS), "fused", "cuda")
-    got = ops.launch_counts()
+    got = launch_counts()
     for line in torch_serve_bench.rows_text(result):
         print(f"bench {line}")
     torch_serve_bench.check(result)
@@ -3139,7 +3181,7 @@ def serve_phase(seed: int, smi: str) -> dict:
     v = 8000 (10b) and the CLI's modes with the bench twin (10c)."""
     phase("10 serve tier and the coded_serve CLI")
     start = time.perf_counter()
-    counts = dict.fromkeys(ops.launch_counts(), 0)
+    counts = dict.fromkeys(launch_counts(), 0)
     golden_serve_phase(counts)
     serve_tier_phase(seed, smi, counts)
     cli_phase(counts)
@@ -3215,14 +3257,14 @@ def mesh_rank(mesh, seed: int, digests: dict) -> dict:
     staged = cm.with_backend("mesh", fused=False)      # the same caches
     for i, (kind, name, call, want) in enumerate(mesh_requests(cm, staged, A, B)):
         builds = cm.cache_info()["builds"]
-        before, n_spans = ops.launch_counts(), len(rec.spans)
+        before, n_spans = launch_counts(), len(rec.spans)
         dist.barrier()
         t0 = time.perf_counter()
         C = call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         dist.barrier()
-        after = ops.launch_counts()
+        after = launch_counts()
         steps = {k: after[k] - before[k] for k in after}
         check(steps == dict.fromkeys(after, 0) | want,
               f"11 rank {rank} {kind} {name}: launched {steps}, not {want}")
@@ -3507,7 +3549,7 @@ def sharded_rank(mesh, cfgs, seed: int, device="cuda"):
     for cfg in cfgs:
         ops.reset_launch_counts()
         out = sharded_step(cfg, seed, mesh, 1, device)
-        launches = ops.launch_counts()
+        launches = launch_counts()
         if mesh.get_rank() != 0:
             out["grads"] = out["params"] = None
         outs.append(out | {"launches": launches})
@@ -3551,7 +3593,7 @@ def sharded_train_phase(seed: int, smi: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         ops.reset_launch_counts()
-        singles.append((sharded_step(cfg, seed, None, 1), ops.launch_counts()))
+        singles.append((sharded_step(cfg, seed, None, 1), launch_counts()))
     gc.collect()
     torch.cuda.empty_cache()
     outs = spawn_mesh(sharded_rank, data=2, model=2, device="cuda",
@@ -3630,7 +3672,7 @@ def accounted_train_step(label: str, cfg, seed: int) -> dict:
         loss = float(metrics["loss"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() - base
     check(np.isfinite(loss), f"{label}: loss {loss}")
     del params, opt_state, data, step_fn, metrics
@@ -3658,7 +3700,7 @@ def dryrun_phase(seed: int, smi: str, lms: dict) -> dict:
         max_workers=len(jobs), mp_context=multiprocessing.get_context("spawn"))
     try:
         futures = [pool.submit(dryrun_trace, *job) for job in jobs]
-        counts = {k: 0 for k in ops.launch_counts()}
+        counts = {k: 0 for k in launch_counts()}
         out = {}
         real = {}
         for label, arch, over, kernel in trains:

@@ -14,7 +14,12 @@ compute-bound, with the raw-tile reads from L2 behind.  The kernel is the
 FP64 tensor-core main loop of ``csrc/dmma_gemm.cuh`` (a 128x128 output
 tile per block, mma.sync m16n8k8, a 2-stage cp.async ring of raw tiles)
 with the encode fused in shared memory, the worker on the grid's fastest
-axis; FP32 runs the same ring with CUDA-core FMAs.  In bf16 and f16 each
+axis; FP32 runs the same ring with CUDA-core FMAs.  In float64, where
+:func:`clustered` says so (the main path's shapes), a cluster of 2 x 2
+blocks owns a worker's 256x256 super-tile instead: each block encodes
+half of one coded A and one coded B tile and stores the halves into the
+peer that also needs them through distributed shared memory, with the
+same arithmetic and so the same bits.  In bf16 and f16 each
 coded tile is the FP32 sum of its raw tiles rounded once to the input
 type, the products run on the tensor cores with FP32 accumulators, and
 the result is written in the input type (or float32), rounded to nearest
@@ -43,13 +48,20 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import fused_worker_ref
 
 __all__ = ["fused_worker_cuda", "fused_worker_ref", "copy_bytes", "encode_width",
-           "tma_layout", "TmaLayout", "TMA_MAX_BLOCKS", "DTYPES", "device_offsets"]
+           "clustered", "tma_layout", "TmaLayout", "TMA_MAX_BLOCKS", "DTYPES",
+           "device_offsets"]
 
 # Block offsets travel by value up to this many blocks a side (kMaxBlocks in
 # csrc/coded_fused.cu); above it they go through device memory.  It is also
 # the TMA form's most blocks: bf16/f16 above it take the one-element form.
 TMA_MAX_BLOCKS = 64
 TMA_MAX_RANK = 5  # the Tensor Memory Accelerator's largest tensor rank
+# The float64 cluster form: at most CLUSTER_MAX_BLOCKS raw blocks a side (one
+# group, kGroup in csrc/coded_fused.cu) and more than TILE rows of output
+# along both r and t (two tiles or more, so that the 2 x 2 cluster's blocks
+# share their coded halves).
+CLUSTER_MAX_BLOCKS = 4
+TILE = 128
 _HALF = (torch.bfloat16, torch.float16)
 DTYPES = (torch.float64, torch.float32, *_HALF)
 
@@ -82,8 +94,9 @@ def _unsupported(dtype: torch.dtype, what: str) -> NotImplementedError:
         f"float16, not {dtype}")
 
 
-def _function(dtype: torch.dtype, out_dtype: torch.dtype):
-    fn = getattr(_build.load("coded_fused"), _SYMBOLS[dtype, out_dtype])
+def _function(dtype: torch.dtype, out_dtype: torch.dtype, cluster: bool = False):
+    symbol = "repro_fused_worker_f64_cluster" if cluster else _SYMBOLS[dtype, out_dtype]
+    fn = getattr(_build.load("coded_fused"), symbol)
     fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L,
                    _L, _I, _P]
     fn.restype = _I
@@ -126,6 +139,19 @@ def encode_width(itemsize: int, cols: int, *operands) -> int:
     if itemsize != 2 or cols % (16 // itemsize):
         return itemsize
     return copy_bytes(itemsize, *operands)
+
+
+def clustered(dtype: torch.dtype, width: int, P: int, Q: int, r: int, t: int) -> bool:
+    """Whether a call of the kernel runs its float64 cluster form (2 x 2
+    blocks that split the encode through distributed shared memory): float64
+    with 16-byte copies (:func:`copy_bytes`), at most ``CLUSTER_MAX_BLOCKS``
+    raw blocks a side, and more than ``TILE`` output rows along both r and t.
+    Every other call keeps the tile form (a block a tile; bf16/f16 their TMA
+    form): float32, bf16/f16, the one-element copies, more raw blocks (groups
+    of them, or offsets in device memory above 64), a single tile along r or
+    t."""
+    return (dtype == torch.float64 and width == 16 and max(P, Q) <= CLUSTER_MAX_BLOCKS
+            and r > TILE and t > TILE)
 
 
 class TmaLayout(NamedTuple):
@@ -235,11 +261,15 @@ def _unit_column_stride(x: torch.Tensor) -> torch.Tensor:
 
 def fused_worker_cuda(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
                       a_blocks: torch.Tensor, b_blocks: torch.Tensor,
-                      out_dtype=None) -> torch.Tensor:
+                      out_dtype=None, *, cluster: Optional[bool] = None,
+                      ) -> Tuple[torch.Tensor, bool]:
     """Launch the kernel: coeff_a (K, P), coeff_b (K, Q), a_blocks
     (*grid_a, v, r), b_blocks (*grid_b, v, t), all CUDA tensors of one real
-    dtype (float64, float32, bfloat16 or float16) -> (K, r, t) in
-    ``out_dtype`` (default: the input dtype).  bf16/f16 accumulate in FP32.
+    dtype (float64, float32, bfloat16 or float16) -> ((K, r, t) in
+    ``out_dtype`` (default: the input dtype), whether the launch took the
+    float64 cluster form).  bf16/f16 accumulate in FP32.  ``cluster`` None
+    takes the form :func:`clustered` gives; False the tile form (a block a
+    tile) whatever the call: the card's tests hold the cluster form to it.
 
     The blocks may be strided views (e.g. from ``block_decompose``); only
     the last dimension must be unit-stride, else it is made contiguous.
@@ -272,7 +302,7 @@ def fused_worker_cuda(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
     written = _kernel_out_dtype(dtype, out_dtype)
     out = torch.empty((K, r, t), dtype=written, device=coeff_a.device)
     if out.numel() == 0:
-        return out.to(out_dtype or dtype)
+        return out.to(out_dtype or dtype), False
     ca = coeff_a.contiguous()
     cb = coeff_b.contiguous()
     a = _unit_column_stride(a_blocks)
@@ -291,8 +321,10 @@ def fused_worker_cuda(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
         else:
             a_tma, b_tma = (_packed(tma_layout(x.shape, x.stride(), itemsize))
                             for x in (a, b))
+    if cluster is None:
+        cluster = clustered(dtype, width, P, Q, r, t)
     stream = torch.cuda.current_stream(coeff_a.device).cuda_stream
-    err = _function(dtype, written)(
+    err = _function(dtype, written, cluster)(
         ca.data_ptr(), cb.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
         ctypes.addressof(a_off), ctypes.addressof(b_off),
         None if offs is None else offs.data_ptr(),
@@ -301,4 +333,4 @@ def fused_worker_cuda(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
         a_sv, b_sv, width, stream)
     if err != 0:
         raise RuntimeError(f"fused_worker kernel launch failed: cudaError {err}")
-    return out.to(out_dtype or dtype)
+    return out.to(out_dtype or dtype), cluster

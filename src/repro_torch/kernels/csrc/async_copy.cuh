@@ -17,6 +17,10 @@
 // (cp.async.bulk.tensor, SASS UTMALDG), completing on an mbarrier as the
 // bulk copies do.  The map is encoded on the host through
 // cudaGetDriverEntryPoint, so nothing links libcuda.
+//
+// Stores into another block of the cluster (coded_fused.cu's float64
+// cluster form): st.async to a shared::cluster address (SASS STAS),
+// completing on that block's mbarrier as the bulk copies do.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -193,6 +197,50 @@ __device__ __forceinline__ void barrier_wait(uint64_t* bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(smem_address(bar)), "r"(parity) : "memory");
   }
+}
+
+// ---- thread-block clusters: another block's shared memory -------------------
+//
+// The blocks of a cluster (coded_fused.cu's float64 cluster form) store into
+// each other's shared memory through shared::cluster addresses: asynchronous
+// stores that the receiving block's mbarrier counts off by their bytes, as
+// it counts a bulk copy's.
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return rank;
+}
+
+// The shared::cluster address of `p` (in this block's shared memory) at the
+// same offset in the shared memory of the cluster's block `rank`.
+__device__ __forceinline__ uint32_t peer_address(const void* p, uint32_t rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(addr) : "r"(smem_address(p)), "r"(rank));
+  return addr;
+}
+
+// Store two doubles (16 bytes, 16-byte aligned) at a shared::cluster address
+// of another block; its barrier at `bar` (a shared::cluster address in the
+// same block) counts the 16 bytes off when they have landed, as it counts a
+// bulk copy's.
+__device__ __forceinline__ void store_peer(uint32_t addr, double x, double y, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f64 [%0], {%1, %2}, [%3];\n"
+      ::"r"(addr), "d"(x), "d"(y), "r"(bar) : "memory");
+}
+
+// Every thread of every block of the cluster: arrive (release), then wait
+// (acquire).  Split, so that work which touches no other block can run
+// between the two.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 }  // namespace async_copy

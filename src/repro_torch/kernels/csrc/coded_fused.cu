@@ -15,29 +15,59 @@
 // type before the product (on the bf16/f16 tensor cores), as
 // ref.fused_worker_ref states.
 //
-// float64 / float32.  What bounds it: FP64 (or FP32) operations,
-// 2*K*r*t*v of them (1.28e12 at the paper's 8000^2 geometry, 19 ms at the
-// FP64 tensor peak), and behind them the raw-tile traffic: a block reads
-// P + Q raw tiles for every coded pair it multiplies, 0.25 B per FLOP from
-// L2 at P = Q = 4 and a 128x128 tile (some 335 GB at the main shape), four
-// times kernel 5's, and the shared-memory work of the encode: those two, not
-// the tensor cores, hold the kernel.  Design: the main loop of dmma_gemm.cuh
-// (128x128 output tile, 8 warps, FP64 on the tensor cores with mma.sync
-// m16n8k8, FP32 on CUDA-core FMAs, never TF32) with the encode fused in.  A
-// block owns one (worker, output tile) and walks v 8 rows at a time.  Each
-// step's raw tiles - up to kGroup blocks of each operand - arrive through a
-// 2-stage cp.async ring; all threads form the coded tiles shared-to-shared
-// (16-byte vectors, coefficients broadcast from shared memory) into one of
-// two coded pairs, and the step's product runs in the next barrier interval,
-// beside the next step's encode: one barrier per step.  Half the warps
-// multiply before they encode and half after, so each SM sub-partition has
-// one warp on its tensor core while the other works the shared-memory pipe.
-// P or Q above kGroup are walked in groups of kGroup that accumulate into
-// the coded pair.  The grid puts the worker on the fastest axis, so the K
-// blocks of one output tile run together and share their raw tiles through
-// L2.  Blocks are passed as a base pointer, one element offset per block and
-// a row stride, so strided views (block_decompose) need no copy; ragged
-// edges are zero-filled by the copies.
+// float64 / float32, one block a tile (the tile form; in float64 for
+// the calls the cluster form below does not take).  What bounds it: FP64
+// (or FP32) operations, 2*K*r*t*v of them (1.28e12 at the paper's 8000^2
+// geometry, 19 ms at the FP64 tensor peak), and behind them the raw-tile
+// traffic: a block reads P + Q raw tiles for every coded pair it
+// multiplies, 0.25 B per FLOP from L2 at P = Q = 4 and a 128x128 tile (some
+// 335 GB at the main shape), four times kernel 5's, and the shared-memory
+// work of the encode: those two, not the tensor cores, hold the kernel.
+// Design: the main loop of dmma_gemm.cuh (128x128 output tile, 8 warps,
+// FP64 on the tensor cores with mma.sync m16n8k8, FP32 on CUDA-core FMAs,
+// never TF32) with the encode fused in.  A block owns one (worker, output
+// tile) and walks v 8 rows at a time.  Each step's raw tiles - up to kGroup
+// blocks of each operand - arrive through a 2-stage cp.async ring; all
+// threads form the coded tiles shared-to-shared (16-byte vectors,
+// coefficients broadcast from shared memory) into one of two coded pairs,
+// and the step's product runs in the next barrier interval, beside the next
+// step's encode: one barrier per step.  Half the warps multiply before they
+// encode and half after, so each SM sub-partition has one warp on its
+// tensor core while the other works the shared-memory pipe.  P or Q above
+// kGroup are walked in groups of kGroup that accumulate into the coded
+// pair.  The grid puts the worker on the fastest axis, so the K blocks of
+// one output tile run together and share their raw tiles through L2.
+// Blocks are passed as a base pointer, one element offset per block and a
+// row stride, so strided views (block_decompose) need no copy; ragged edges
+// are zero-filled by the copies.
+//
+// float64, the cluster form: 16-byte copies, at most kGroup raw blocks a
+// side and two output tiles or more along both r and t (coded_fused.py's
+// `clustered`; every other call keeps the form above).  What bounded the
+// form above there, per 8-row step of a block at P = Q = 4: 64 KB of raw
+// tiles from L2 for 262,144 FLOP, and about 1,536 cycles of shared-memory
+// traffic (raw tiles in 512, encode reads 512, coded writes 128, DMMA
+// fragments 384) against about 1,024 cycles of DMMA.  A probe on an H100
+// (K = 10, v = r = t = 4000) took 76.2 ms at P = Q = 4 and 59.2 ms at P = Q
+// = 1 (a quarter of the raw bytes and of the encode) against 31.2 ms for
+// ten kernel 5 calls: the raw tiles and the encode cost some 5.7 ms a raw
+// block a side, the 8-row loop around them the rest.  Design: a cluster of
+// 2 x 2 blocks (cudaLaunchKernelEx, cluster dimension 4) owns one worker's
+// 256 x 256 super-tile, the workers on the grid's fastest axis over
+// super-tiles.  The four blocks need only two coded A and two coded B
+// tiles, so each loads and encodes one half of one of each (half the L2
+// bytes and half the encode a block) and stores the coded halves into its
+// own shared memory and, through distributed shared memory, into the one
+// peer that reads them (st.async, counted off by the peer's mbarrier: no
+// fence a step).  The raw vectors go from L2 straight into registers, a
+// sub-step ahead, so shared memory carries only the coded tiles; steps are
+// 24 rows (three 8-row sub-steps, a vector of each raw half tile a thread a
+// sub-step: 32 registers) under one __syncthreads and one barrier wait; the
+// coded ring is 3 deep, so a step's product runs beside the next step's
+// encode and a peer's halves of a step release the slot two steps back.
+// Measured on the H100 at the main shape: 51.2 ms (37% of the FP64 tensor
+// peak) against 76.4 ms for the form above, bit for bit the same output;
+// 30 clusters fit at once, 120 of the 132 SMs.
 //
 // bf16 / f16 with 16-byte aligned operands (the TMA form).  The bf16 tensor
 // cores take the product's 2*K*r*t*v operations in 1.3 ms at the main
@@ -298,6 +328,184 @@ fused_worker_kernel(const T* __restrict__ ca, const T* __restrict__ cb,
   }
   async_copy::wait<0>();
   acc.store(out + k * r * t, r0, t0, r, t);
+}
+
+// ---- float64: the cluster form -----------------------------------------------
+
+constexpr int kHalf = kBM / 2;      // columns of a half tile
+constexpr int kClusterBlocks = 4;   // a 2 x 2 cluster: one worker's 256 x 256 super-tile
+constexpr int kSubRows = 8;         // rows of a sub-step: one 16-byte vector of every raw
+                                    // half tile a thread
+constexpr int kSubSteps = 3;        // sub-steps a step (one __syncthreads, one wait)
+constexpr int kStepRows = kSubSteps * kSubRows;
+constexpr int kDepth = 3;           // coded slots: a step's product lags its encode by one
+constexpr int kCodedTile = kStepRows * kPitch;  // doubles in a coded tile
+// a coded ring of kDepth (A, B) pairs of whole tiles ([kStepRows][kPitch]
+// each, as Tile<double> reads them), the worker's coefficients, and a
+// barrier a slot that counts the bytes of the peers' halves
+constexpr size_t kClusterSmemBytes =
+    sizeof(double) * (kDepth * 2 * kCodedTile + 2 * kGroup) + sizeof(uint64_t) * kDepth;
+static_assert(kSubRows * kHalf / 2 == kThreads, "one vector a thread");
+static_assert(kClusterSmemBytes <= 232448, "the opt-in shared-memory limit");
+
+// The 16 bytes at p (16-byte aligned) into registers, past L1: zeros where
+// the row is past v, only the first element where one column is left.
+__device__ __forceinline__ double2 load_raw(const double* p, bool row_in, long long cols_left) {
+  double2 x = make_double2(0.0, 0.0);
+  if (row_in && cols_left >= 2) {
+    x = __ldcg(reinterpret_cast<const double2*>(p));
+  } else if (row_in && cols_left == 1) {
+    x.x = __ldcg(p);
+  }
+  return x;
+}
+
+// A coded vector = sum_{j < n} coef[j] * x[j], encode<double>'s FMA chain
+// (from zero, the blocks in order), written at `local` (this block's coded
+// tile) and at the same place of the peer's (`remote`, a shared::cluster
+// address), whose barrier `bar` counts its bytes.
+__device__ __forceinline__ void encode_vector(double* local, uint32_t remote, uint32_t bar,
+                                              const double2 (&x)[kGroup], const double* coef,
+                                              int n) {
+  double s0 = 0.0;
+  double s1 = 0.0;
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) {
+    if (j < n) {
+      const double w = coef[j];
+      s0 += w * x[j].x;
+      s1 += w * x[j].y;
+    }
+  }
+  *reinterpret_cast<double2*>(local) = make_double2(s0, s1);
+  async_copy::store_peer(remote, s0, s1, bar);
+}
+
+// A cluster of four blocks owns worker k's super-tile of 2 x 2 output tiles;
+// block (i, j) = (rank / 2, rank % 2) the tile (r_i, t_j).  Of the coded
+// tiles its product needs, A(r_i) is shared with block (i, 1 - j) and B(t_j)
+// with block (1 - i, j), so it loads and encodes only half of each: columns
+// [64 j, 64 j + 64) of r_i's P raw A tiles and [64 i, 64 i + 64) of t_j's Q
+// raw B tiles.  Each thread loads one 16-byte vector of every raw half tile
+// a sub-step straight into registers, a sub-step ahead (addressed from the
+// block offsets in the kernel's parameters), encodes it, and stores the
+// coded vector into its block's coded slot and, asynchronously, into that
+// of the peer that reads it; the slot's barrier there counts the bytes.
+// Step s's product waits for the peers' halves of step s and runs in the
+// interval of step s + 1's encode, a sub-step at a time.  A peer's halves of
+// step s also tell that it has multiplied step s - 2 (before its
+// __syncthreads of step s), so once they have landed this block may
+// overwrite the peer's slot of step s - 2 with step s + 1: kDepth = 3
+// slots, and no barrier for the slot's release.  This block's own halves
+// are ordered by its one __syncthreads a step.  P and Q are at most kGroup;
+// blocks past r or t load zeros, encode and store for their peers, and
+// write no output.
+__global__ void __launch_bounds__(kThreads, 1)
+fused_worker_cluster_kernel(const double* __restrict__ ca, const double* __restrict__ cb,
+                            const double* __restrict__ a, const double* __restrict__ b,
+                            double* __restrict__ out, BlockOffsets a_off, BlockOffsets b_off,
+                            int K, int P, int Q, long long v, long long r, long long t,
+                            long long a_sv, long long b_sv) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* coded_s = reinterpret_cast<double*>(smem);  // [kDepth][A, B][kStepRows][kPitch]
+  double* ca_s = coded_s + kDepth * 2 * kCodedTile;
+  double* cb_s = ca_s + kGroup;
+  uint64_t* full = reinterpret_cast<uint64_t*>(cb_s + kGroup);  // [kDepth]
+
+  const int tid = threadIdx.x;
+  const uint32_t rank = async_copy::cluster_rank();
+  const int i = static_cast<int>(rank >> 1);
+  const int j = static_cast<int>(rank & 1);
+  const long long cluster = blockIdx.x / kClusterBlocks;
+  const long long k = cluster % K;  // worker on the fastest axis
+  const long long super = cluster / K;
+  const long long supers_t = ((t + kBN - 1) / kBN + 1) / 2;
+  const long long r0 = (super / supers_t * 2 + i) * kBM;
+  const long long t0 = (super % supers_t * 2 + j) * kBN;
+  // this thread's vector of each half tile: row `row` of a sub-step,
+  // columns col, col + 1 of the half; A's half starts at column ra, B's at tb
+  const int row = tid / (kHalf / 2);
+  const int col = tid % (kHalf / 2) * 2;
+  const long long ra = r0 + j * kHalf + col;
+  const long long tb = t0 + i * kHalf + col;
+  if (tid < P) ca_s[tid] = ca[k * P + tid];
+  if (tid < Q) cb_s[tid] = cb[k * Q + tid];
+  if (tid == 0) {
+    for (int d = 0; d < kDepth; ++d) async_copy::barrier_init(&full[d]);
+    async_copy::fence_barrier_init();
+  }
+  // every block's barriers are set up before any peer stores into it
+  async_copy::cluster_arrive();
+  async_copy::cluster_wait();
+
+  // the peers: (i, 1 - j) shares A(r_i), (1 - i, j) shares B(t_j)
+  const uint32_t peer_a = rank ^ 1;
+  const uint32_t peer_b = rank ^ 2;
+  const int at_a = row * kPitch + j * kHalf + col;               // in a slot's A tile
+  const int at_b = kCodedTile + row * kPitch + i * kHalf + col;  // in its B tile
+  const uint32_t coded_a = async_copy::peer_address(coded_s + at_a, peer_a);
+  const uint32_t coded_b = async_copy::peer_address(coded_s + at_b, peer_b);
+  const uint32_t full_a = async_copy::peer_address(full, peer_a);
+  const uint32_t full_b = async_copy::peer_address(full, peer_b);
+  constexpr uint32_t kSlotBytes = 2 * kCodedTile * sizeof(double);
+  constexpr uint32_t kSubBytes = kSubRows * kPitch * sizeof(double);
+  constexpr uint32_t kPeerBytes = 2 * kStepRows * kHalf * sizeof(double);  // a step's
+
+  const long long steps = (v + kStepRows - 1) / kStepRows;
+  double2 xa[kGroup];
+  double2 xb[kGroup];
+  auto fetch = [&](long long sub) {
+    const long long vr = sub * kSubRows + row;
+#pragma unroll
+    for (int p = 0; p < kGroup; ++p) {
+      if (p < P) xa[p] = load_raw(a + a_off.v[p] + vr * a_sv + ra, vr < v, r - ra);
+      if (p < Q) xb[p] = load_raw(b + b_off.v[p] + vr * b_sv + tb, vr < v, t - tb);
+    }
+  };
+  // sub-step h of step `step` into its slot (rows past v as zeros)
+  auto encode = [&](long long step, int h) {
+    const int d = static_cast<int>(step % kDepth);
+    double* c = coded_s + d * 2 * kCodedTile + h * kSubRows * kPitch;
+    const uint32_t at = d * kSlotBytes + h * kSubBytes;
+    const uint32_t bar = d * sizeof(uint64_t);
+    encode_vector(c + at_a, coded_a + at, full_a + bar, xa, ca_s, P);
+    encode_vector(c + at_b, coded_b + at, full_b + bar, xb, cb_s, Q);
+  };
+  Tile<double> acc(tid);
+  auto product = [&](long long step, int h) {
+    const double* c =
+        coded_s + static_cast<int>(step % kDepth) * 2 * kCodedTile + h * kSubRows * kPitch;
+    acc.multiply<kSubRows>(c, c + kCodedTile);
+  };
+  auto wait = [&](long long step) {  // the peers' halves of `step` have landed
+    async_copy::barrier_wait(&full[step % kDepth], static_cast<uint32_t>(step / kDepth) & 1);
+  };
+
+  if (steps > 0) fetch(0);
+  for (long long step = 0; step < steps; ++step) {
+    __syncthreads();  // this block's halves of the earlier steps visible, their slots read
+    // announce the peers' bytes of this step (the slot's last phase was
+    // waited on before the __syncthreads above)
+    if (tid == 0) async_copy::arrive_expect_bytes(&full[step % kDepth], kPeerBytes);
+    if (step > 0) wait(step - 1);
+#pragma unroll
+    for (int h = 0; h < kSubSteps; ++h) {
+      encode(step, h);
+      const long long next = step * kSubSteps + h + 1;
+      if (next < steps * kSubSteps) fetch(next);
+      if (step > 0) product(step - 1, h);
+    }
+  }
+  if (steps > 0) {
+    __syncthreads();  // this block's halves of the last step
+    wait(steps - 1);
+#pragma unroll
+    for (int h = 0; h < kSubSteps; ++h) product(steps - 1, h);
+  }
+  // no block leaves while a peer may still store into it
+  async_copy::cluster_arrive();
+  if (r0 < r && t0 < t) acc.store(out + k * r * t, r0, t0, r, t);
+  async_copy::cluster_wait();
 }
 
 // ---- bf16 / f16: the TMA form ------------------------------------------------
@@ -756,7 +964,89 @@ int launch(const void* ca_, const void* cb_, const void* a_, const void* b_, voi
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The cluster launch: a 1-D grid of clusters of four blocks.
+cudaLaunchConfig_t cluster_config(unsigned blocks, cudaLaunchAttribute* attr, void* stream) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(blocks);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = kClusterSmemBytes;
+  config.stream = static_cast<cudaStream_t>(stream);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kClusterBlocks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return config;
+}
+
+int launch_cluster(const double* ca, const double* cb, const double* a, const double* b,
+                   double* out, const long long* a_off, const long long* b_off, int K, int P,
+                   int Q, long long v, long long r, long long t, long long a_sv, long long b_sv,
+                   int copy_bytes, void* stream) {
+  const long long supers = ((r + kBM - 1) / kBM + 1) / 2 * (((t + kBN - 1) / kBN + 1) / 2);
+  const long long blocks = supers * K * kClusterBlocks;
+  if (copy_bytes != 16 || P < 1 || Q < 1 || P > kGroup || Q > kGroup || K < 1 || v < 0 ||
+      r <= kBM || t <= kBN || blocks > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  BlockOffsets ao{};
+  BlockOffsets bo{};
+  std::uintptr_t misaligned = reinterpret_cast<std::uintptr_t>(a) |
+                              reinterpret_cast<std::uintptr_t>(b) |
+                              static_cast<std::uintptr_t>(a_sv * sizeof(double)) |
+                              static_cast<std::uintptr_t>(b_sv * sizeof(double));
+  for (int p = 0; p < P; ++p) {
+    ao.v[p] = a_off[p];
+    misaligned |= static_cast<std::uintptr_t>(a_off[p] * sizeof(double));
+  }
+  for (int q = 0; q < Q; ++q) {
+    bo.v[q] = b_off[q];
+    misaligned |= static_cast<std::uintptr_t>(b_off[q] * sizeof(double));
+  }
+  if (misaligned % 16) return static_cast<int>(cudaErrorMisalignedAddress);
+  cudaError_t err = cudaFuncSetAttribute(fused_worker_cluster_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kClusterSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config = cluster_config(static_cast<unsigned>(blocks), &attr, stream);
+  err = cudaLaunchKernelEx(&config, fused_worker_cluster_kernel, ca, cb, a, b, out, ao, bo, K,
+                           P, Q, v, r, t, a_sv, b_sv);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The float64 cluster form: the arguments of repro_fused_worker_f64 (P and
+// Q at most 4, copy_bytes 16, more than 128 rows in both r and t; offs_dev,
+// a_tma and b_tma unused).
+extern "C" int repro_fused_worker_f64_cluster(const void* ca, const void* cb, const void* a,
+                                              const void* b, void* out, const long long* a_off,
+                                              const long long* b_off, const long long*,
+                                              const long long*, const long long*, int K, int P,
+                                              int Q, long long v, long long r, long long t,
+                                              long long a_sv, long long b_sv, int copy_bytes,
+                                              void* stream) {
+  return launch_cluster(static_cast<const double*>(ca), static_cast<const double*>(cb),
+                        static_cast<const double*>(a), static_cast<const double*>(b),
+                        static_cast<double*>(out), a_off, b_off, K, P, Q, v, r, t, a_sv, b_sv,
+                        copy_bytes, stream);
+}
+
+// How many of the cluster form's clusters the card holds at once, into
+// *clusters; returns the cudaError_t of the query.
+extern "C" int repro_fused_worker_f64_cluster_occupancy(int* clusters) {
+  cudaError_t err = cudaFuncSetAttribute(fused_worker_cluster_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kClusterSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config = cluster_config(kClusterBlocks, &attr, nullptr);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(clusters, fused_worker_cluster_kernel, &config));
+}
 
 // ca (K, P), cb (K, Q) contiguous; block p of A starts at a + a_off[p] (in
 // elements) with row stride a_sv and unit column stride, likewise B; out

@@ -137,8 +137,9 @@ def fused_worker(coeff_a: torch.Tensor, coeff_b: torch.Tensor,
     ca, cb, a, b = (x.to(dt) for x in tensors)
     if not _on_card(*tensors):
         return ref.fused_worker_ref(ca, cb, a, b, out_dtype)
-    out = fused_worker_cuda(ca, cb, a, b, out_dtype)
+    out, cluster = fused_worker_cuda(ca, cb, a, b, out_dtype)
     fused_worker.launches += 1
+    fused_worker.cluster_launches += cluster
     return out
 
 
@@ -314,6 +315,7 @@ def mamba_scan(dt: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor,
 
 
 fused_worker.launches = 0
+fused_worker.cluster_launches = 0  # those of its launches in the float64 cluster form
 decode.launches = 0
 decode_partial.launches = 0
 encode.launches = 0
@@ -326,12 +328,20 @@ _WRAPPERS = {"fused_worker": fused_worker, "decode": decode,
              "mamba_scan": mamba_scan}
 
 
+CLUSTER_LAUNCHES = "fused_worker.cluster_launches"
+
+
 def launch_counts() -> dict:
-    """``{wrapper name: kernel launches so far}``."""
-    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+    """``{wrapper name: kernel launches so far}``, and under
+    ``CLUSTER_LAUNCHES`` how many of ``fused_worker``'s took its float64
+    cluster form (``coded_fused.clustered``)."""
+    counts = {name: fn.launches for name, fn in _WRAPPERS.items()}
+    counts[CLUSTER_LAUNCHES] = fused_worker.cluster_launches
+    return counts
 
 
 def reset_launch_counts() -> None:
-    """Set every wrapper's launch count to 0."""
+    """Set every wrapper's launch counts to 0."""
     for fn in _WRAPPERS.values():
         fn.launches = 0
+    fused_worker.cluster_launches = 0

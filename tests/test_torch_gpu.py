@@ -176,6 +176,71 @@ def test_fused_kernel_on_strided_block_views(cuda):
     torch.testing.assert_close(out, exp, rtol=0, atol=0)
 
 
+def _tile_form(ca, cb, a, b):
+    """Kernel 1 in its tile form (one block a tile), whatever the call."""
+    out, cluster = coded_fused.fused_worker_cuda(ca, cb, a, b, cluster=False)
+    assert not cluster
+    return out
+
+
+def _cluster_case(case):
+    """Operands on which ops.fused_worker takes kernel 1's float64 cluster
+    form: random normal values, so every coded sum rounds."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+
+    def t(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64, device="cuda")
+
+    if case == "main":       # the benchmark's product: 2 x 2 views of 8000^2
+        A, B = t(8000, 8000), t(8000, 8000)
+        return t(10, 4), t(10, 4), block_decompose(A, 2, 2), block_decompose(B, 2, 2)
+    if case == "ragged":     # odd tile counts (3 x 5), v not a step multiple
+        return t(10, 4), t(10, 4), t(4, 1001, 300), t(4, 1001, 520)
+    if case == "p3_q4":
+        return t(6, 3), t(6, 4), t(3, 257, 384), t(4, 257, 260)
+    if case == "k1":         # one worker, as a mesh rank sends
+        return t(1, 4), t(1, 4), t(4, 777, 1000), t(4, 777, 1000)
+    # strided block views: 2 x 2 blocks of (514, 600) and of (514, 796)
+    a, b = block_decompose(t(514, 600), 2, 2), block_decompose(t(514, 796), 2, 2)
+    assert not a.is_contiguous() and not b.is_contiguous()
+    return t(5, 4), t(5, 4), a, b
+
+
+@pytest.mark.parametrize("case", ["main", "ragged", "p3_q4", "k1", "views"])
+def test_cluster_form_equals_the_tile_form_bit_for_bit(cuda, case):
+    """Kernel 1's float64 cluster form (2 x 2 blocks splitting the encode)
+    gives the tile form's bits: the same FMA chain over the same raw
+    blocks, the same DMMA loop, at the benchmark's shape and at ragged
+    ones; and the launch counts as one of each."""
+    ca, cb, a, b = _cluster_case(case)
+    out = ops.fused_worker(ca, cb, a, b)
+    assert ops.launch_counts() == dict(_NONE, fused_worker=1, **{ops.CLUSTER_LAUNCHES: 1})
+    assert torch.equal(out, _tile_form(ca, cb, a, b))
+
+
+def test_cluster_form_replays_in_a_cuda_graph(cuda):
+    """The cluster launch captured in a CUDA graph: replays on new values in
+    the captured operands equal the tile form bit for bit, and count no
+    launch."""
+    ca, cb, a, b = _cluster_case("ragged")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.fused_worker(ca, cb, a, b)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.fused_worker(ca, cb, a, b)
+    assert ops.launch_counts() == dict(_NONE, fused_worker=2, **{ops.CLUSTER_LAUNCHES: 2})
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    for _ in range(3):
+        for x in (ca, cb, a, b):
+            x.copy_(torch.randn(x.shape, generator=gen, dtype=x.dtype, device="cuda"))
+        graph.replay()
+        assert torch.equal(out, _tile_form(ca, cb, a, b))
+    assert ops.launch_counts()[ops.CLUSTER_LAUNCHES] == 2
+
+
 @pytest.mark.parametrize("stride", ["aligned", "odd"])
 @pytest.mark.parametrize("data", ["random", "integer"])
 @pytest.mark.parametrize("dtype", HALF)
@@ -270,8 +335,10 @@ def test_coded_matmul_on_the_card_is_exact(cuda, kind, p, m, n, pp):
     assert ops.launch_counts() == dict(_NONE, fused_worker=3, decode=3)
 
 
+# every count of ops.launch_counts() at 0, kernel 1's cluster form included
 _NONE = {name: 0 for name in ("fused_worker", "decode", "decode_partial",
-                              "encode", "matmul_t", "wkv_scan", "mamba_scan")}
+                              "encode", "matmul_t", "wkv_scan", "mamba_scan",
+                              ops.CLUSTER_LAUNCHES)}
 
 
 @pytest.mark.parametrize("P,grid,rows,cols,K", [
@@ -1261,6 +1328,29 @@ def test_captured_request_replays_under_new_survivor_sets(cuda, backend, sub_tas
         torch.cuda.synchronize()
         assert torch.equal(C, A.T @ B) and torch.equal(C, want)
     assert ops.launch_counts() == _NONE
+
+
+def test_captured_request_replays_through_the_cluster_form(cuda):
+    """A fused request whose blocks span two tiles a side (256^2) captured
+    with a device mask: kernel 1 takes the cluster form at the warm-up and
+    at the capture, and every replay equals A^T B and the concrete C."""
+    gen = torch.Generator().manual_seed(29)
+    A = torch.randint(0, 6, (512, 512), generator=gen).to("cuda", torch.float64)
+    B = torch.randint(0, 6, (512, 520), generator=gen).to("cuda", torch.float64)
+    plan = make_plan("bec", 2, 2, 2, K=10, L=512 * 25 + 1, points="equispaced")
+    cm = CodedMatmul(plan)
+    buf = torch.ones(plan.K, dtype=torch.float64, device="cuda")
+    graph, C = cm.capture(A, B, mask=buf)
+    assert ops.launch_counts() == dict(_NONE, fused_worker=2, decode=2,
+                                       **{ops.CLUSTER_LAUNCHES: 2})
+    for erased in _CAPTURE_ERASED:
+        x = np.where(np.isin(np.arange(plan.K), erased), 0.0, 1.0)
+        want = cm(A, B, mask=x)
+        buf.copy_(torch.as_tensor(x))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(C, A.T @ B) and torch.equal(C, want)
+    assert ops.launch_counts()[ops.CLUSTER_LAUNCHES] == 2 + len(_CAPTURE_ERASED)
 
 
 def test_kernel_calls_under_capture_count_traced_without_spans(cuda, obs_off):

@@ -5,6 +5,8 @@ The CUDA kernels themselves run only on the card: tests/test_torch_gpu.py.
 What surrounds them - block offsets, strides, dtype promotion, complex
 routing, launch counting - is Python and is tested here.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -142,6 +144,60 @@ def test_copy_bytes_on_block_views(rng):
         offsets, row_stride = coded_fused._block_offsets(blocks)
         got = coded_fused.copy_bytes(8, (_BASE, offsets, row_stride))
         assert got == width
+
+
+_F64, _F32 = torch.float64, torch.float32
+
+
+@pytest.mark.parametrize("dtype,width,P,Q,r,t,cluster", [
+    (_F64, 16, 4, 4, 4000, 4000, True),       # the benchmark's product
+    (_F64, 16, 3, 4, 300, 520, True),         # odd tile counts, P != Q
+    (_F64, 16, 1, 1, 129, 129, True),         # two tiles a side, the least
+    (_F32, 16, 4, 4, 4000, 4000, False),      # float32: CUDA-core FMAs
+    (torch.bfloat16, 16, 4, 4, 4000, 4000, False),   # the TMA form
+    (torch.float16, 16, 4, 4, 4000, 4000, False),
+    (_F64, 8, 4, 4, 4000, 4000, False),       # one-element copies
+    (_F64, 16, 5, 4, 4000, 4000, False),      # groups of raw blocks
+    (_F64, 16, 4, 65, 4000, 4000, False),     # offsets through device memory
+    (_F64, 16, 4, 4, 128, 4000, False),       # one tile along r
+    (_F64, 16, 4, 4, 4000, 128, False),       # one tile along t
+])
+def test_cluster_form_rule(dtype, width, P, Q, r, t, cluster):
+    """Kernel 1 runs its float64 cluster form only where the call shows
+    float64, 16-byte copies, at most 4 raw blocks a side and two output
+    tiles or more along both r and t."""
+    assert coded_fused.clustered(dtype, width, P, Q, r, t) is cluster
+
+
+def test_cluster_form_at_the_benchmarks_shape():
+    """The benchmark's operands (2 x 2 block views of 8000^2 float64
+    matrices, as the facade cuts them) give 16-byte copies and the cluster
+    form; the same views in float32 keep the tile form."""
+    for dtype, cluster in ((_F64, True), (_F32, False)):
+        x = torch.empty((8000, 8000), dtype=dtype, device="meta")
+        blocks = partition.block_decompose(x, 2, 2)
+        offsets, row_stride = coded_fused._block_offsets(blocks)
+        width = coded_fused.copy_bytes(x.element_size(), (_BASE, offsets, row_stride))
+        P, v, r = math.prod(blocks.shape[:2]), *blocks.shape[2:]
+        assert (P, v, r, width) == (4, 4000, 4000, 16)
+        assert coded_fused.clustered(dtype, width, P, P, r, r) is cluster
+
+
+def test_launch_counts_carry_the_cluster_form():
+    """``launch_counts`` lists the cluster form's launches beside every
+    wrapper's, the reset zeroes them, and the plain versions raise none."""
+    counts = ops.launch_counts()
+    assert counts[ops.CLUSTER_LAUNCHES] == 0 and ops.CLUSTER_LAUNCHES == (
+        "fused_worker.cluster_launches")
+    assert set(counts) == {"fused_worker", "decode", "decode_partial", "encode",
+                           "matmul_t", "wkv_scan", "mamba_scan", ops.CLUSTER_LAUNCHES}
+    ops.fused_worker.cluster_launches = 3
+    assert ops.launch_counts()[ops.CLUSTER_LAUNCHES] == 3
+    ops.reset_launch_counts()
+    x = torch.ones(4, 300, 520, dtype=torch.float64)
+    ops.fused_worker(torch.ones(2, 4, dtype=torch.float64),
+                     torch.ones(2, 4, dtype=torch.float64), x, x)
+    assert not any(ops.launch_counts().values())
 
 
 def test_fused_worker_on_block_views_matches_stacked(rng):

@@ -260,7 +260,7 @@ def test_cpu_path_launches_no_kernel(rng):
         generate(cfg, init_params(cfg, device="cpu"), torch.zeros(1, 8, dtype=torch.long), 2)
     counts = ops.launch_counts()
     assert set(counts) == {"fused_worker", "decode", "decode_partial", "encode",
-                           "matmul_t", "wkv_scan", "mamba_scan"}
+                           "matmul_t", "wkv_scan", "mamba_scan", ops.CLUSTER_LAUNCHES}
     assert all(n == 0 for n in counts.values()), counts
 
 
